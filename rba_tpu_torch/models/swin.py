@@ -1,0 +1,197 @@
+"""Swin transformer backbone (counterpart of ``rba_tpu/models/swin.py``), partition layout.
+
+NHWC activations.  Parameter names follow the JAX pytree: ``layers.0.blocks.1.attn.qkv``
+holds ``params["layers"][0]["blocks"][1]["attn"]["qkv"]``.  Window attention
+goes through ``kernels.window_attention`` (the hand kernel on CUDA tensors), or
+its plain version when the caller asks for ``plain=True``.  LayerNorm and the
+attention softmax run in fp32; the matmuls in the compute dtype.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import SwinConfig
+from ..kernels.window_attention import window_attention, window_attention_reference
+from ..ops.nn import apply_linear, apply_norm
+
+
+@functools.lru_cache(maxsize=64)
+def relative_position_index(ws: int) -> np.ndarray:
+    """(ws², ws²) index into the (2ws-1)² relative-position-bias table."""
+    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing="ij"))
+    flat = coords.reshape(2, -1)
+    rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0).astype(np.int64)
+    rel[:, :, 0] += ws - 1
+    rel[:, :, 1] += ws - 1
+    rel[:, :, 0] *= 2 * ws - 1
+    return rel.sum(-1)
+
+
+@functools.lru_cache(maxsize=256)
+def shifted_window_mask(hp: int, wp: int, ws: int, shift: int) -> np.ndarray:
+    """(nW, ws², ws²) additive mask (0 / -100) of shifted-window attention."""
+    img_mask = np.zeros((hp, wp), dtype=np.float32)
+    cnt = 0
+    for hs in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
+        for wsl in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
+            img_mask[hs, wsl] = cnt
+            cnt += 1
+    m = img_mask.reshape(hp // ws, ws, wp // ws, ws).transpose(0, 2, 1, 3).reshape(-1, ws * ws)
+    diff = m[:, None, :] - m[:, :, None]
+    return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
+
+
+class WindowAttention(nn.Module):
+    def __init__(self, dim: int, ws: int, num_heads: int, qkv_bias: bool):
+        super().__init__()
+        self.relative_position_bias_table = nn.Parameter(torch.zeros((2 * ws - 1) ** 2, num_heads))
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+
+class SwinBlock(nn.Module):
+    def __init__(self, dim: int, ws: int, num_heads: int, mlp_ratio: float, qkv_bias: bool):
+        super().__init__()
+        hidden = int(dim * mlp_ratio)
+        self.norm1 = nn.LayerNorm(dim)
+        self.attn = WindowAttention(dim, ws, num_heads, qkv_bias)
+        self.norm2 = nn.LayerNorm(dim)
+        self.mlp = nn.ModuleDict({"fc1": nn.Linear(dim, hidden), "fc2": nn.Linear(hidden, dim)})
+
+
+class SwinLayer(nn.Module):
+    def __init__(self, cfg: SwinConfig, i: int):
+        super().__init__()
+        dim = cfg.stage_dim(i)
+        self.blocks = nn.ModuleList(
+            SwinBlock(dim, cfg.window_size, cfg.num_heads[i], cfg.mlp_ratio, cfg.qkv_bias)
+            for _ in range(cfg.depths[i])
+        )
+        if i < cfg.num_layers - 1:
+            self.downsample = nn.ModuleDict(
+                {"norm": nn.LayerNorm(4 * dim), "reduction": nn.Linear(4 * dim, 2 * dim, bias=False)}
+            )
+        else:
+            self.downsample = None
+
+
+class Swin(nn.Module):
+    """Parameters of the Swin backbone; ``swin_apply`` runs it."""
+
+    def __init__(self, cfg: SwinConfig):
+        super().__init__()
+        embed = nn.ModuleDict({"proj": nn.Conv2d(3, cfg.embed_dim, cfg.patch_size, cfg.patch_size)})
+        if cfg.patch_norm:
+            embed["norm"] = nn.LayerNorm(cfg.embed_dim)
+        self.patch_embed = embed
+        self.layers = nn.ModuleList(SwinLayer(cfg, i) for i in range(cfg.num_layers))
+        for i in range(cfg.num_layers):
+            if f"res{i + 2}" in cfg.out_features:
+                self.add_module(f"norm{i}", nn.LayerNorm(cfg.stage_dim(i)))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_constant(name: str, device: torch.device, *key) -> torch.Tensor:
+    """The numpy constant ``name(*key)`` as a tensor on ``device``, copied there once.
+    Made outside inference mode, so that the cached tensor also serves later calls
+    that do track gradients."""
+    fn = {"index": relative_position_index, "mask": shifted_window_mask}[name]
+    with torch.inference_mode(False):
+        return torch.as_tensor(fn(*key), device=device)
+
+
+def _rel_bias(attn: WindowAttention, ws: int, nh: int) -> torch.Tensor:
+    n = ws * ws
+    idx = _device_constant("index", attn.relative_position_bias_table.device, ws).reshape(-1)
+    bias = attn.relative_position_bias_table.float()[idx].reshape(n, n, nh)
+    return bias.permute(2, 0, 1).contiguous()  # (nh, N, N)
+
+
+def swin_block_apply(
+    blk: SwinBlock,
+    x: torch.Tensor,  # (B, H, W, C)
+    num_heads: int,
+    ws: int,
+    shift: int,
+    qk_scale: Optional[float],
+    plain: bool = False,
+) -> torch.Tensor:
+    b, h, w, c = x.shape
+    shortcut = x
+    x = apply_norm(blk.norm1, x)
+    pad_b = (ws - h % ws) % ws
+    pad_r = (ws - w % ws) % ws
+    if pad_b or pad_r:
+        x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
+    hp, wp = h + pad_b, w + pad_r
+    if shift > 0:
+        x = torch.roll(x, shifts=(-shift, -shift), dims=(1, 2))
+        mask = _device_constant("mask", x.device, hp, wp, ws, shift)
+    else:
+        mask = None
+
+    n = ws * ws
+    xw = x.reshape(b, hp // ws, ws, wp // ws, ws, c).permute(0, 1, 3, 2, 4, 5).reshape(-1, n, c)
+    qkv = apply_linear(blk.attn.qkv, xw)  # (B·nW, N, 3C)
+    scale = qk_scale or (c // num_heads) ** -0.5
+    attend = window_attention_reference if plain else window_attention
+    xw = attend(qkv, _rel_bias(blk.attn, ws, num_heads), mask, num_heads, scale)
+    xw = apply_linear(blk.attn.proj, xw)
+    x = xw.reshape(b, hp // ws, wp // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, c)
+
+    if shift > 0:
+        x = torch.roll(x, shifts=(shift, shift), dims=(1, 2))
+    if pad_b or pad_r:
+        x = x[:, :h, :w]
+    x = shortcut + x
+    y = apply_norm(blk.norm2, x)
+    y = apply_linear(blk.mlp["fc2"], F.gelu(apply_linear(blk.mlp["fc1"], y)))
+    return x + y
+
+
+def _patch_merging(down: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, ⌈H/2⌉, ⌈W/2⌉, 2C); concat order [ee, oe, eo, oo]."""
+    b, h, w, c = x.shape
+    if h % 2 or w % 2:
+        x = F.pad(x, (0, 0, 0, w % 2, 0, h % 2))
+    h2, w2 = x.shape[1] // 2, x.shape[2] // 2
+    x = x.reshape(b, h2, 2, w2, 2, c).permute(0, 1, 3, 4, 2, 5).reshape(b, h2, w2, 4 * c)
+    return apply_linear(down["reduction"], apply_norm(down["norm"], x))
+
+
+def swin_apply(
+    model: Swin,
+    cfg: SwinConfig,
+    images: torch.Tensor,  # (B, H, W, 3) normalized
+    compute_dtype=torch.bfloat16,
+    plain: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """{res2..res5: (B, H/s, W/s, C_s)} NHWC feature maps."""
+    x = images.to(compute_dtype)
+    p = cfg.patch_size
+    h, w = x.shape[1], x.shape[2]
+    if h % p or w % p:
+        x = F.pad(x, (0, 0, 0, (p - w % p) % p, 0, (p - h % p) % p))
+    proj = model.patch_embed["proj"]
+    x = F.conv2d(x.permute(0, 3, 1, 2), proj.weight.to(compute_dtype), proj.bias.to(compute_dtype), stride=p)
+    x = x.permute(0, 2, 3, 1)
+    if "norm" in model.patch_embed:
+        x = apply_norm(model.patch_embed["norm"], x)
+
+    outs: Dict[str, torch.Tensor] = {}
+    for i, layer in enumerate(model.layers):
+        for j, blk in enumerate(layer.blocks):
+            shift = 0 if j % 2 == 0 else cfg.window_size // 2
+            x = swin_block_apply(blk, x, cfg.num_heads[i], cfg.window_size, shift, cfg.qk_scale, plain)
+        if f"res{i + 2}" in cfg.out_features:
+            outs[f"res{i + 2}"] = apply_norm(getattr(model, f"norm{i}"), x)
+        if layer.downsample is not None:
+            x = _patch_merging(layer.downsample, x)
+    return outs
+

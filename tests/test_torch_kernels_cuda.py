@@ -1,0 +1,60 @@
+"""The port's CUDA kernels against their plain versions on the card.
+
+Marked ``cuda``: each test skips where no CUDA GPU is present (there the wrappers
+run the plain versions, which tests/test_torch_window_attention.py and
+tests/test_torch_fused_rba.py hold against rba_tpu).  On a machine with an H100:
+``python -m pytest tests/test_torch_kernels_cuda.py -q``.
+"""
+import pytest
+import torch
+
+from rba_tpu_torch.kernels import fused_rba as tfr
+from rba_tpu_torch.kernels import window_attention as twa
+from rba_tpu_torch.models.swin import shifted_window_mask
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 2, 16, 8, 12), (12, 4, 32, 36, 48)], ids=["N16", "N144"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_kernel(cuda, dtype, shape, masked):
+    ws, nh, hd, hp, wp = shape
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n, nw = ws * ws, (hp // ws) * (wp // ws)
+    qkv = torch.randn(2 * nw, n, 3 * nh * hd, generator=gen, device=cuda).to(dtype)
+    bias = torch.randn(nh, n, n, generator=gen, device=cuda)
+    mask = torch.as_tensor(shifted_window_mask(hp, wp, ws, ws // 2), device=cuda) if masked else None
+    before = twa.window_attention.launches
+    got = twa.window_attention(qkv, bias, mask, nh, hd**-0.5)
+    torch.cuda.synchronize()
+    assert twa.window_attention.launches == before + 1
+    want = twa.window_attention_reference(qkv, bias, mask, nh, hd**-0.5)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("k", [7, 19, 40])
+@pytest.mark.parametrize("layout", ["bqhw", "bhwq"])
+def test_fused_rba_kernel(cuda, k, layout):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    mask_cls = torch.randn(2, 100, k + 1, generator=gen, device=cuda)
+    mask_pred = torch.randn(2, 100, 13, 22, generator=gen, device=cuda) * 2
+    m = mask_pred if layout == "bqhw" else mask_pred.permute(0, 2, 3, 1).contiguous()
+    got = tfr.fused_rba_score(mask_cls, m, masks_layout=layout)
+    torch.cuda.synchronize()
+    want = tfr.fused_rba_score_reference(mask_cls, mask_pred)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_wrapper_raises_instead_of_falling_back(cuda):
+    qkv = torch.zeros(4, 16, 3 * 2 * 64, device=cuda)  # hd 64: not taken by the kernel
+    with pytest.raises(ValueError):
+        twa.window_attention(qkv, torch.zeros(2, 16, 16, device=cuda), None, 2, 0.125)

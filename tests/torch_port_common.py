@@ -1,0 +1,44 @@
+"""Helpers shared by the tests of the PyTorch port (tests/test_torch_*.py)."""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+
+def perturbed(params, seed: int, scale: float = 0.02):
+    """The pytree as float32 numpy arrays plus seeded N(0, scale²) noise on every leaf,
+    so that zero-initialised leaves (sampling offsets, attention weights) are exercised."""
+    rs = np.random.RandomState(seed)
+    return jax.tree_util.tree_map(
+        lambda a: (np.asarray(a, np.float32) + scale * rs.randn(*np.shape(a))).astype(np.float32), params
+    )
+
+
+def model_pair(jcfg, tcfg, seed: int):
+    """rba_tpu's seeded MaskFormer parameters, perturbed, and the port's model holding
+    the same values (through ``load_jax_params``) on the CPU."""
+    from rba_tpu.models.maskformer import maskformer_init
+    from rba_tpu_torch.convert import load_jax_params
+    from rba_tpu_torch.models.maskformer import build_model
+
+    params = perturbed(maskformer_init(jax.random.PRNGKey(seed), jcfg), seed=seed + 100)
+    model = build_model(tcfg, device="cpu", seed=seed)
+    load_jax_params(model, params)
+    return to_jax(params), model
+
+
+def to_jax(tree):
+    return jax.tree_util.tree_map(jnp.asarray, tree)
+
+
+def t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def max_abs(a, b) -> float:
+    a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    b = b.detach().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
