@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: build its CUDA kernels, hold each
-against its plain PyTorch version at the serving path's shapes, serve Swin-B RbA
-requests at 1024x2048 and check the score maps.
+against its plain PyTorch version at the serving paths' shapes, serve Swin-B RbA
+requests at 1024x2048 through both serving paths and check the score maps.
+
+- Path 1: ``maskformer_infer_rba(..., attention="fused")`` on ``swin_b_1dl()``:
+  Kernel A (window attention) in every Swin block, Kernel B (RbA score) once.
+- Path 2: ``maskformer_infer_rba(..., attention="fused_softmax")`` on ``swin_b_1dl()``
+  with ``mlp_impl="fused"``: Kernel C (masked softmax) in every block, Kernel D
+  (fused MLP) in the blocks of stages 0 and 1, Kernel B once.
 
 Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
@@ -17,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -34,6 +41,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 IMAGE_HW = (1024, 2048)
 N_REQUESTS = 4  # distinct images served after one warm-up request
 E2E_FP32_TOL = 1e-3  # score-map bound of rba_tpu's selfcheck
+BF16_ULP = 2.0**-7  # one bf16 ulp, relative to the value, at most
+BF16_TINY = 2.0**-133  # spacing of bf16's subnormals
 
 
 def log(msg: str) -> None:
@@ -69,6 +78,21 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def stage_shapes(cfg):
+    """The window-attention shapes of one 1024x2048 request, stage by stage, unshifted
+    and shifted: (stage, shifted, nW, nh, C, hp, wp, calls per image)."""
+    sw = cfg.swin
+    ws = sw.window_size
+    h, w = IMAGE_HW[0] // sw.patch_size, IMAGE_HW[1] // sw.patch_size
+    for s in range(sw.num_layers):
+        hs, wsz = -(-h // 2**s), -(-w // 2**s)
+        hp, wp = -(-hs // ws) * ws, -(-wsz // ws) * ws
+        nw = (hp // ws) * (wp // ws)
+        for masked in (False, True):
+            count = sw.depths[s] // 2 if masked else (sw.depths[s] + 1) // 2  # odd blocks are shifted
+            yield s, masked, nw, sw.num_heads[s], sw.stage_dim(s), hp, wp, count
+
+
 # ---------------------------------------------------------------------------
 # Kernel A: window attention at the Swin-B 1024x2048 stage shapes
 # ---------------------------------------------------------------------------
@@ -77,54 +101,47 @@ def window_attention_phase(cfg, gen):
     from rba_tpu_torch.kernels.window_attention import window_attention, window_attention_reference
     from rba_tpu_torch.models.swin import shifted_window_mask
 
-    sw = cfg.swin
-    ws, n = sw.window_size, sw.window_size**2
-    h, w = IMAGE_HW[0] // sw.patch_size, IMAGE_HW[1] // sw.patch_size
+    ws, n = cfg.swin.window_size, cfg.swin.window_size**2
     rows, totals = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     worst = 0.0
-    for s in range(sw.num_layers):
-        hs, wsz = -(-h // 2**s), -(-w // 2**s)
-        hp, wp = -(-hs // ws) * ws, -(-wsz // ws) * ws
-        nw, nh, c = (hp // ws) * (wp // ws), sw.num_heads[s], sw.stage_dim(s)
+    for s, masked, nw, nh, c, hp, wp, count in stage_shapes(cfg):
         hd = c // nh
         scale = hd**-0.5
         qkv = torch.randn(nw, n, 3 * c, generator=gen, device="cuda").to(torch.bfloat16)
         bias = torch.randn(nh, n, n, generator=gen, device="cuda")
         q, k, v = (x.contiguous() for x in qkv.reshape(nw, n, 3, nh, hd).permute(2, 0, 3, 1, 4))
-        for masked in (False, True):
-            mask = torch.as_tensor(shifted_window_mask(hp, wp, ws, ws // 2), device="cuda") if masked else None
-            count = sw.depths[s] // 2 if masked else (sw.depths[s] + 1) // 2  # odd blocks are shifted
-            # correctness: bf16 (the serving dtype) and fp32
-            got = window_attention(qkv, bias, mask, nh, scale)
-            want = window_attention_reference(qkv, bias, mask, nh, scale)
-            torch.cuda.synchronize()
-            err = max_abs(got, want)
-            tol = 2.0**-7 * float(want.float().abs().max())  # one bf16 ulp of the largest output
-            q32 = qkv.float()
-            err32 = max_abs(window_attention(q32, bias, mask, nh, scale),
-                            window_attention_reference(q32, bias, mask, nh, scale))
-            tol32 = 1e-4
-            ok = err <= tol and err32 <= tol32
-            worst = max(worst, err)
-            # times
-            am = (bias[None] + mask[:, None] if masked else bias[None]).to(torch.bfloat16)
-            t_k = cuda_ms(lambda: window_attention(qkv, bias, mask, nh, scale))
-            t_p = cuda_ms(lambda: window_attention_reference(qkv, bias, mask, nh, scale))
-            t_l = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=scale))
-            nbytes = qkv.numel() * 2 + nw * n * c * 2 + bias.numel() * 4 + (mask.numel() * 4 if masked else 0)
-            flops = 4.0 * nw * nh * n * n * hd
-            b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-            row = dict(stage=s, masked=masked, nW=nw, nh=nh, N=n, hd=hd, blocks_per_image=count,
-                       max_abs_err_bf16=err, tol_bf16=tol, max_abs_err_fp32=err32, tol_fp32=tol32,
-                       ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
-            rows.append(row)
-            log(f"window_attention stage {s} {'shifted' if masked else 'plain   '} nW={nw:4d} nh={nh:2d}: "
-                f"err bf16 {err:.3e} (tol {tol:.3e}) fp32 {err32:.3e} (tol {tol32:.0e}) | "
-                f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-            if not ok:
-                raise RuntimeError(f"window_attention disagrees with its plain version: {row}")
-            for key, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b_ms)):
-                totals[key] += count * t
+        mask = torch.as_tensor(shifted_window_mask(hp, wp, ws, ws // 2), device="cuda") if masked else None
+        # correctness: bf16 (the serving dtype) and fp32
+        got = window_attention(qkv, bias, mask, nh, scale)
+        want = window_attention_reference(qkv, bias, mask, nh, scale)
+        torch.cuda.synchronize()
+        err = max_abs(got, want)
+        tol = BF16_ULP * float(want.float().abs().max())  # one bf16 ulp of the largest output
+        q32 = qkv.float()
+        err32 = max_abs(window_attention(q32, bias, mask, nh, scale),
+                        window_attention_reference(q32, bias, mask, nh, scale))
+        tol32 = 1e-4
+        ok = err <= tol and err32 <= tol32
+        worst = max(worst, err)
+        # times
+        am = (bias[None] + mask[:, None] if masked else bias[None]).to(torch.bfloat16)
+        t_k = cuda_ms(lambda: window_attention(qkv, bias, mask, nh, scale))
+        t_p = cuda_ms(lambda: window_attention_reference(qkv, bias, mask, nh, scale))
+        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=scale))
+        nbytes = qkv.numel() * 2 + nw * n * c * 2 + bias.numel() * 4 + (mask.numel() * 4 if masked else 0)
+        flops = 4.0 * nw * nh * n * n * hd
+        b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+        row = dict(stage=s, masked=masked, nW=nw, nh=nh, N=n, hd=hd, blocks_per_image=count,
+                   max_abs_err_bf16=err, tol_bf16=tol, max_abs_err_fp32=err32, tol_fp32=tol32,
+                   ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+        rows.append(row)
+        log(f"window_attention stage {s} {'shifted' if masked else 'plain   '} nW={nw:4d} nh={nh:2d}: "
+            f"err bf16 {err:.3e} (tol {tol:.3e}) fp32 {err32:.3e} (tol {tol32:.0e}) | "
+            f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if not ok:
+            raise RuntimeError(f"window_attention disagrees with its plain version: {row}")
+        for key, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b_ms)):
+            totals[key] += count * t
     return rows, totals, worst
 
 
@@ -158,6 +175,117 @@ def fused_rba_phase(cfg, gen):
 
 
 # ---------------------------------------------------------------------------
+# Kernel C: masked softmax at the Swin-B 1024x2048 stage shapes
+# ---------------------------------------------------------------------------
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| in units of one bf16 ulp of want (2**-7 |want|, and at least
+    the subnormals' spacing)."""
+    want = want.float()
+    return float(((got.float() - want).abs() / (BF16_ULP * want.abs()).clamp_min(BF16_TINY)).max())
+
+
+def masked_softmax_phase(cfg, gen):
+    """Kernel C against its plain version on (nW, nh, 144, 144) fp32 scores, with the
+    bf16 output the serving path writes and with fp32 output; times of the bf16 one."""
+    from rba_tpu_torch.kernels.masked_softmax import masked_softmax, masked_softmax_reference
+    from rba_tpu_torch.models.swin import shifted_window_mask
+
+    ws, n = cfg.swin.window_size, cfg.swin.window_size**2
+    rows, totals = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    worst = 0.0
+    for s, masked, nw, nh, c, hp, wp, count in stage_shapes(cfg):
+        scores = torch.randn(nw, nh, n, n, generator=gen, device="cuda") * 3
+        bias = torch.randn(nh, n, n, generator=gen, device="cuda")
+        mask = torch.as_tensor(shifted_window_mask(hp, wp, ws, ws // 2), device="cuda") if masked else None
+        got = masked_softmax(scores, bias, mask, torch.bfloat16)
+        want = masked_softmax_reference(scores, bias, mask, torch.bfloat16)
+        torch.cuda.synchronize()
+        err, ulps = max_abs(got, want), bf16_ulps(got, want)
+        err32 = max_abs(masked_softmax(scores, bias, mask, torch.float32),
+                        masked_softmax_reference(scores, bias, mask, torch.float32))
+        tol32 = 1e-6
+        worst = max(worst, err)
+        t_k = cuda_ms(lambda: masked_softmax(scores, bias, mask, torch.bfloat16))
+        t_p = cuda_ms(lambda: masked_softmax_reference(scores, bias, mask, torch.bfloat16))
+        nbytes = scores.numel() * (4 + 2) + bias.numel() * 4 + (mask.numel() * 4 if masked else 0)
+        flops = 7.0 * scores.numel()  # per score: 1-2 adds, max, subtract, exp, sum, divide
+        b_ms, b_by = bound_ms(nbytes, flops, "float32")
+        row = dict(stage=s, masked=masked, nW=nw, nh=nh, N=n, blocks_per_image=count, max_abs_err_bf16=err,
+                   max_bf16_ulps=ulps, max_abs_err_fp32=err32, tol_fp32=tol32, ms=t_k, plain_ms=t_p,
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+        rows.append(row)
+        log(f"masked_softmax stage {s} {'shifted' if masked else 'plain   '} nW={nw:4d} nh={nh:2d}: "
+            f"err bf16 {err:.3e} ({ulps:.2f} ulp, tol 1) fp32 {err32:.3e} (tol {tol32:.0e}) | "
+            f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if not (ulps <= 1.0 and err32 <= tol32):
+            raise RuntimeError(f"masked_softmax disagrees with its plain version: {row}")
+        for key, t in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", b_ms)):
+            totals[key] += count * t
+    return rows, totals, worst
+
+
+# ---------------------------------------------------------------------------
+# Kernel D: fused MLP residual at the Swin-B 1024x2048 stage-0 and stage-1 shapes
+# ---------------------------------------------------------------------------
+
+# (T, C, calls per image): stages 0 and 1 on the path, then C = 512 (Swin-B stage 2,
+# which the dispatch leaves unfused) and a ragged token count
+FUSED_MLP_SHAPES = [(131072, 128, 2), (32768, 256, 2), (8192, 512, 0), (1000, 128, 0)]
+
+
+def fused_mlp_phase(gen):
+    """Kernel D against its plain version on inputs drawn as rba_tpu's fused-MLP test
+    draws them, in bf16 and fp32; times of both."""
+    from rba_tpu_torch.kernels.fused_mlp import fused_mlp_residual, fused_mlp_residual_reference
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale + shift
+
+    rows, totals = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    worst = 0.0
+    for t, c, count in FUSED_MLP_SHAPES:
+        x32 = randn(t, c) * 2
+        params = (randn(c, scale=0.2, shift=1.0), randn(c, scale=0.1), randn(4 * c, c, scale=0.05),
+                  randn(4 * c, scale=0.02), randn(c, 4 * c, scale=0.05), randn(c, scale=0.02))
+        for dtype in (torch.bfloat16, torch.float32):
+            x = x32.to(dtype)
+            got = fused_mlp_residual(x, *params)
+            want = fused_mlp_residual_reference(x, *params)
+            torch.cuda.synchronize()
+            d = (got.float() - want.float()).abs()
+            err = float(d.max())
+            if dtype == torch.float32:
+                tol, ok = 1e-4, err <= 1e-4
+                share = None
+            else:  # tests/test_torch_fused_mlp.py's bf16 bound
+                tol = BF16_ULP * float(want.float().abs().max())
+                share = float((d <= 2e-2 + 2e-2 * want.float().abs()).float().mean())
+                ok = err <= tol and share >= 0.999
+                if count:
+                    worst = max(worst, err)
+            t_k = cuda_ms(lambda: fused_mlp_residual(x, *params))
+            t_p = cuda_ms(lambda: fused_mlp_residual_reference(x, *params))
+            nbytes = 2 * x.numel() * x.element_size() + sum(p.numel() for p in params) * 4
+            flops = 2.0 * 2 * t * c * 4 * c
+            dname = "bfloat16" if dtype == torch.bfloat16 else "float32"
+            b_ms, b_by = bound_ms(nbytes, flops, dname)
+            row = dict(T=t, C=c, dtype=dname, calls_per_image=count, max_abs_err=err, tol=tol,
+                       share_within_2e_2=share, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                       bytes=nbytes, flops=flops)
+            rows.append(row)
+            log(f"fused_mlp T={t:6d} C={c:3d} {dname:8s}: err {err:.3e} (tol {tol:.3e}"
+                + (f", {share:.6f} within 2e-2" if share is not None else "") + ") | "
+                f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            if not ok:
+                raise RuntimeError(f"fused_mlp_residual disagrees with its plain version: {row}")
+            if dtype == torch.bfloat16:  # the serving dtype
+                for key, tm in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", b_ms)):
+                    totals[key] += count * tm
+    return rows, totals, worst
+
+
+# ---------------------------------------------------------------------------
 # End to end: Swin-B RbA requests at 1024x2048
 # ---------------------------------------------------------------------------
 
@@ -170,37 +298,51 @@ def _timed(fn, *args, **kw):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def serve_phase(cfg, model, images):
-    """Serve each image as one request through the kernels (the main path, counted) and,
-    in turns, through the plain versions; check the score maps."""
+def _wrappers():
+    """Every kernel wrapper of the port by name; each counts its launches."""
+    from rba_tpu_torch.kernels.fused_mlp import fused_mlp_residual
     from rba_tpu_torch.kernels.fused_rba import fused_rba_score
+    from rba_tpu_torch.kernels.masked_softmax import masked_softmax
     from rba_tpu_torch.kernels.window_attention import window_attention
+
+    return {"window_attention": window_attention, "fused_rba_score": fused_rba_score,
+            "masked_softmax": masked_softmax, "fused_mlp_residual": fused_mlp_residual}
+
+
+def serve_phase(name, cfg, model, images, attention, per_image):
+    """Serve each image as one request through one path's kernels (the main path,
+    counted: ``per_image`` launches of each kernel per request) and, in turns, through
+    the plain versions; check the score maps.  Returns the measurements and the fp32
+    score maps of the kernels, for the comparison between paths."""
     from rba_tpu_torch.models.maskformer import maskformer_infer_rba
 
-    maskformer_infer_rba(model, cfg, images[0])  # warm-up requests, one per path
-    maskformer_infer_rba(model, cfg, images[0], plain=True)
+    wrappers = _wrappers()
+    infer = functools.partial(maskformer_infer_rba, model, attention=attention)
+    infer(cfg, images[0])  # warm-up requests, one per path
+    infer(cfg, images[0], plain=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    window_attention.launches = 0
-    fused_rba_score.launches = 0
+    for fn in wrappers.values():
+        fn.launches = 0
     scores, plain_scores, times, t_plain = [], [], [], []
     for i in range(1, N_REQUESTS + 1):  # kernel, plain, plain, kernel, ...
         for plain in ((False, True) if i % 2 else (True, False)):
-            rba, ms = _timed(maskformer_infer_rba, model, cfg, images[i], plain=plain)
+            rba, ms = _timed(infer, cfg, images[i], plain=plain)
             (plain_scores if plain else scores).append(rba)
             (t_plain if plain else times).append(ms)
-    launches = {"window_attention": window_attention.launches, "fused_rba_score": fused_rba_score.launches}
+    launches = {k: fn.launches for k, fn in wrappers.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     clocks = _smi("clocks.sm,power.draw,temperature.gpu")
 
-    n_blocks = sum(cfg.swin.depths)
     for rba in scores:
         if tuple(rba.shape) != (1, *IMAGE_HW) or not bool(torch.isfinite(rba).all()):
-            raise RuntimeError(f"bad score map: shape {tuple(rba.shape)}, finite {bool(torch.isfinite(rba).all())}")
-    if launches != {"window_attention": n_blocks * N_REQUESTS, "fused_rba_score": N_REQUESTS}:
-        raise RuntimeError(f"launches {launches}, expected {n_blocks} and 1 per request")
-    log(f"served {N_REQUESTS} requests: launches {launches} ({n_blocks} + 1 per image); "
-        f"ms/image {statistics.median(times):.2f} (median; all {[round(t, 2) for t in times]}), "
+            raise RuntimeError(f"{name}: bad score map: shape {tuple(rba.shape)}, "
+                               f"finite {bool(torch.isfinite(rba).all())}")
+    expected = {k: per_image.get(k, 0) * N_REQUESTS for k in wrappers}
+    if launches != expected:
+        raise RuntimeError(f"{name}: launches {launches}, expected {expected} ({per_image} per request)")
+    log(f"{name} (attention={attention!r}, mlp_impl={cfg.swin.mlp_impl!r}) served {N_REQUESTS} requests: "
+        f"launches {launches}; ms/image {statistics.median(times):.2f} (median; all {[round(t, 2) for t in times]}), "
         f"plain versions {statistics.median(t_plain):.2f} (all {[round(t, 2) for t in t_plain]}), "
         f"peak memory {peak_gib:.2f} GiB; right after: SM clock, power draw, temperature {clocks}")
 
@@ -211,23 +353,26 @@ def serve_phase(cfg, model, images):
     # above rounding.  The plain version's own bf16-vs-fp32 difference is printed for scale.
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     err32 = err16 = spread16 = 0.0
+    scores32 = []
     for i in range(1, N_REQUESTS + 1):
-        plain32 = maskformer_infer_rba(model, cfg32, images[i], plain=True)
-        err32 = max(err32, max_abs(maskformer_infer_rba(model, cfg32, images[i]), plain32))
+        plain32 = infer(cfg32, images[i], plain=True)
+        scores32.append(infer(cfg32, images[i]))
+        err32 = max(err32, max_abs(scores32[-1], plain32))
         err16 = max(err16, max_abs(scores[i - 1], plain_scores[i - 1]))
         spread16 = max(spread16, max_abs(plain_scores[i - 1], plain32))
-    log(f"score map, kernels vs plain versions: fp32 max diff {err32:.3e} (bound {E2E_FP32_TOL:.0e}, gated); "
+    log(f"{name} score map, kernels vs plain versions: fp32 max diff {err32:.3e} (bound {E2E_FP32_TOL:.0e}, gated); "
         f"bf16 backbone max diff {err16:.3e} (reported, not gated; the plain version's own bf16-vs-fp32 "
         f"diff is {spread16:.3e})")
     if not err32 <= E2E_FP32_TOL:
-        raise RuntimeError(f"fp32 score maps differ by {err32} > {E2E_FP32_TOL}")
-    return dict(launches=launches, ms_per_image=statistics.median(times), ms_all=times,
-                plain_ms_per_image=statistics.median(t_plain), plain_ms_all=t_plain, peak_gib=peak_gib, clocks=clocks,
-                fp32_max_diff=err32, fp32_bound=E2E_FP32_TOL, bf16_max_diff_not_gated=err16,
-                bf16_plain_vs_fp32_diff=spread16)
+        raise RuntimeError(f"{name}: fp32 score maps differ by {err32} > {E2E_FP32_TOL}")
+    out = dict(attention=attention, mlp_impl=cfg.swin.mlp_impl, launches=launches,
+               ms_per_image=statistics.median(times), ms_all=times, plain_ms_per_image=statistics.median(t_plain),
+               plain_ms_all=t_plain, peak_gib=peak_gib, clocks=clocks, fp32_max_diff=err32, fp32_bound=E2E_FP32_TOL,
+               bf16_max_diff_not_gated=err16, bf16_plain_vs_fp32_diff=spread16)
+    return out, scores, scores32
 
 
-def profile_phase(cfg, model, image, top: int = 10):
+def profile_phase(path, cfg, model, image, attention, top: int = 10):
     """torch.profiler over one request through ``maskformer_infer_rba``: each layer's
     host span, device span and device busy time (read from the entry's own
     ``record_function`` spans), the card's idle share of the request's wall time, and
@@ -240,7 +385,7 @@ def profile_phase(cfg, model, image, top: int = 10):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        maskformer_infer_rba(model, cfg, image)
+        maskformer_infer_rba(model, cfg, image, attention=attention)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events, less the annotation spans that mirror each record_function
@@ -248,7 +393,7 @@ def profile_phase(cfg, model, image, top: int = 10):
                       if e.device_type == DeviceType.CUDA and e.key not in LAYERS), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in kernels)
     if busy_ms == 0:
-        log("profile: the profiler recorded no device time (not measured)")
+        log(f"{path} profile: the profiler recorded no device time (not measured)")
         return dict(wall_ms=wall_ms, busy_ms=None, idle_share=None, layers=None, top=[])
     events = list(prof.events())
     device = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -267,11 +412,11 @@ def profile_phase(cfg, model, image, top: int = 10):
                             device_span_ms=span.elapsed_us() / 1e3 if span else 0.0, device_busy_ms=busy)
     out = dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms, layers=layers,
                top=[dict(kernel=k[:120], ms=t, calls=c) for k, t, c in kernels[:top]])
-    log(f"profile of one request (profiler on): wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
+    log(f"{path} profile of one request (profiler on): wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
         f"idle share {out['idle_share']:.3f}; by layer, host span / device span / device busy ms: "
         + "; ".join(f"{k} {v['host_ms']:.2f} / {v['device_span_ms']:.2f} / {v['device_busy_ms']:.2f}"
                     for k, v in layers.items()))
-    log("top kernels by device time:")
+    log(f"{path} top kernels by device time:")
     for r in out["top"]:
         log(f"  {r['ms']:8.3f} ms  x{r['calls']:<4d} {r['kernel']}")
     return out
@@ -298,38 +443,70 @@ def main() -> int:
     log(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s (nvcc, in parallel)")
 
     cfg = swin_b_1dl()
+    cfg2 = dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, mlp_impl="fused"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     wa_rows, wa, wa_err = window_attention_phase(cfg, gen)
     rba_row = fused_rba_phase(cfg, gen)
+    ms_rows, ms, ms_err = masked_softmax_phase(cfg, gen)
+    mlp_rows, mlp, mlp_err = fused_mlp_phase(gen)
 
     from rba_tpu_torch.models.maskformer import build_model
 
-    t0 = time.perf_counter()
-    model = build_model(cfg, seed=0)
-    torch.cuda.synchronize()
-    log(f"build_model(swin_b_1dl) on the card: {time.perf_counter() - t0:.2f} s")
     images = torch.randint(0, 256, (N_REQUESTS + 1, 1, *IMAGE_HW, 3), generator=gen, device="cuda",
                            dtype=torch.uint8)
-    e2e = serve_phase(cfg, model, images)
-    prof = profile_phase(cfg, model, images[1])
+    serve, prof = {}, {}
+    scores, scores32 = {}, {}
+    n_blocks = sum(cfg.swin.depths)
+    fused_mlp_blocks = sum(d for i, d in enumerate(cfg.swin.depths) if cfg.swin.stage_dim(i) <= 256)
+    paths = [
+        ("path1", cfg, "fused", {"window_attention": n_blocks, "fused_rba_score": 1}),
+        ("path2", cfg2, "fused_softmax",
+         {"masked_softmax": n_blocks, "fused_mlp_residual": fused_mlp_blocks, "fused_rba_score": 1}),
+    ]
+    for name, pcfg, attention, per_image in paths:
+        t0 = time.perf_counter()
+        model = build_model(pcfg, seed=0)
+        torch.cuda.synchronize()
+        log(f"build_model(swin_b_1dl, mlp_impl={pcfg.swin.mlp_impl!r}) on the card: {time.perf_counter() - t0:.2f} s")
+        serve[name], scores[name], scores32[name] = serve_phase(name, pcfg, model, images, attention, per_image)
+        prof[name] = profile_phase(name, pcfg, model, images[1], attention)
+        del model
+
+    # the two paths compute one function on the same seeded weights
+    cross32 = max(max_abs(a, b) for a, b in zip(scores32["path1"], scores32["path2"]))
+    cross16 = max(max_abs(a, b) for a, b in zip(scores["path1"], scores["path2"]))
+    log(f"score map, path 2 vs path 1: fp32 max diff {cross32:.3e} (bound {E2E_FP32_TOL:.0e}, gated); "
+        f"bf16 backbone max diff {cross16:.3e} (reported, not gated)")
+    if not cross32 <= E2E_FP32_TOL:
+        raise RuntimeError(f"fp32 score maps of path 2 and path 1 differ by {cross32} > {E2E_FP32_TOL}")
 
     kernels = [
         dict(name="window_attention", route="cuda", source="rba_tpu_torch/csrc/window_attention.cu",
              replaces="rba_tpu/ops/pallas/window_attention.py:169",
-             launches=e2e["launches"]["window_attention"], max_abs_err=wa_err, ms=wa["ms"],
+             launches=serve["path1"]["launches"]["window_attention"], max_abs_err=wa_err, ms=wa["ms"],
              plain_ms=wa["plain_ms"], bound_ms=wa["bound_ms"], bound_by="bytes", library_ms=wa["library_ms"]),
         dict(name="fused_rba_score", route="cuda", source="rba_tpu_torch/csrc/fused_rba.cu",
              replaces="rba_tpu/ops/pallas/fused_rba.py:111",
-             launches=e2e["launches"]["fused_rba_score"], max_abs_err=rba_row["max_abs_err"], ms=rba_row["ms"],
-             plain_ms=rba_row["plain_ms"], bound_ms=rba_row["bound_ms"], bound_by=rba_row["bound_by"],
-             library_ms=None),
+             launches=serve["path2"]["launches"]["fused_rba_score"], max_abs_err=rba_row["max_abs_err"],
+             ms=rba_row["ms"], plain_ms=rba_row["plain_ms"], bound_ms=rba_row["bound_ms"],
+             bound_by=rba_row["bound_by"], library_ms=None),
+        dict(name="masked_softmax", route="cuda", source="rba_tpu_torch/csrc/masked_softmax.cu",
+             replaces="rba_tpu/ops/pallas/masked_softmax.py:77",
+             launches=serve["path2"]["launches"]["masked_softmax"], max_abs_err=ms_err, ms=ms["ms"],
+             plain_ms=ms["plain_ms"], bound_ms=ms["bound_ms"], bound_by="bytes", library_ms=None),
+        dict(name="fused_mlp_residual", route="cuda", source="rba_tpu_torch/csrc/fused_mlp.cu",
+             replaces="rba_tpu/ops/pallas/fused_mlp.py:166",
+             launches=serve["path2"]["launches"]["fused_mlp_residual"], max_abs_err=mlp_err, ms=mlp["ms"],
+             plain_ms=mlp["plain_ms"], bound_ms=mlp["bound_ms"], bound_by="operations", library_ms=None),
     ]
     if args.out:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke.json").write_text(json.dumps(
             dict(card=smi, torch=torch.__version__, build_s=built, window_attention=wa_rows, fused_rba=rba_row,
-                 serve=e2e, profile=prof, kernels=kernels), indent=1))
-    log("(window_attention times are per image: every Swin-B block's call at 1024x2048, summed)")
+                 masked_softmax=ms_rows, fused_mlp=mlp_rows, serve=serve, paths_fp32_max_diff=cross32,
+                 paths_bf16_max_diff_not_gated=cross16, profile=prof, kernels=kernels), indent=1))
+    log("(window_attention, masked_softmax and fused_mlp_residual times are per image: each call of one "
+        "1024x2048 request, summed)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -108,7 +108,7 @@ def check_supported(cfg: RbAConfig) -> None:
         "the DenseHybrid ood_pred head": cfg.decoder.ood_prediction,
         "pre-norm decoder layers": cfg.decoder.pre_norm,
         "Swin attention layouts other than partition": cfg.swin.attn_layout != "partition",
-        "the fused Swin MLP (fused_mlp_residual)": cfg.swin.mlp_impl != "xla",
+        f"Swin mlp_impl={cfg.swin.mlp_impl!r}": cfg.swin.mlp_impl not in ("xla", "fused"),
         "Swin absolute position embedding": cfg.swin.ape,
         "fast_math (the fast_serving slice)": cfg.fast_math,
         "a bf16 pixel decoder (the fast_serving slice)": cfg.pixel_decoder_dtype != "float32",

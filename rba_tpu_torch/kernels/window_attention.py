@@ -27,7 +27,9 @@ def window_attention_reference(
     nh: int,
     scale: float,
 ) -> torch.Tensor:  # (B·nW, N, C), qkv's dtype
-    """Plain PyTorch version of the kernel: the same fp32 math, probabilities kept fp32."""
+    """Plain PyTorch version of the kernel: fp32 math throughout, except that with
+    bf16 inputs the probabilities are rounded to bf16 before the fp32 ``· v`` sum,
+    as the Pallas kernels round them."""
     bw, n, c3 = qkv.shape
     c = c3 // 3
     hd = c // nh
@@ -36,7 +38,8 @@ def window_attention_reference(
     if mask is not None:
         nw = mask.shape[0]
         s = (s.reshape(bw // nw, nw, nh, n, n) + mask.float()[None, :, None]).reshape(bw, nh, n, n)
-    out = torch.matmul(torch.softmax(s, dim=-1), v)  # (bw, nh, N, hd)
+    p = torch.softmax(s, dim=-1).to(qkv.dtype).float()
+    out = torch.matmul(p, v)  # (bw, nh, N, hd)
     return out.permute(0, 2, 1, 3).reshape(bw, n, c).to(qkv.dtype)
 
 

@@ -3,10 +3,13 @@
 The serving path: ``preprocess`` → Swin → MSDeformAttn pixel decoder (fp32) →
 masked-attention decoder → RbA tail.  ``maskformer_infer_rba`` hands the
 decoder's ``bhwq`` masks to the fused RbA kernel, as the JAX package's TPU
-branch does.  ``maskformer_infer_rba(..., plain=True)`` runs the plain PyTorch
-versions of both kernels instead, which is how the path is held against them on
-the card.  Each layer of a request runs inside a ``torch.profiler.record_function``
-span named after it (``LAYERS``), so a profile of the entry reads its layers.
+branch does.  Its ``attention`` argument picks Swin's window-attention branch:
+``"fused"`` (Kernel A, path 1) or ``"fused_softmax"`` (Kernel C, path 2, which
+with ``SwinConfig.mlp_impl="fused"`` also runs Kernel D); see ``models/swin.py``.
+``maskformer_infer_rba(..., plain=True)`` runs the plain PyTorch versions of
+the kernels instead, which is how each path is held against them on the card.
+Each layer of a request runs inside a ``torch.profiler.record_function`` span
+named after it (``LAYERS``), so a profile of the entry reads its layers.
 ``build_model`` makes the model on the card unless told otherwise.
 """
 from __future__ import annotations
@@ -131,12 +134,14 @@ def maskformer_forward(
     final_mask_layout: str = "bqhw",
     need_aux: bool = False,
     plain: bool = False,
+    attention: str = "fused",
 ) -> Dict:
     """pred_logits (B, Q, K+1) and pred_masks at stride 4, (B, Q, H/4, W/4) or
-    (B, H/4, W/4, Q)."""
+    (B, H/4, W/4, Q).  ``attention``: Swin's window-attention branch (``swin_apply``)."""
     check_supported(cfg)
     with record_function("backbone"):
-        features = swin_apply(model.backbone, cfg.swin, images, _compute_dtype(cfg), plain=plain)
+        features = swin_apply(model.backbone, cfg.swin, images, _compute_dtype(cfg), plain=plain,
+                              attention=attention)
     head = model.sem_seg_head
     with record_function("pixel_decoder"):
         mask_features, _, ms_feats = pixel_decoder_apply(head["pixel_decoder"], cfg.pixel_decoder, features)
@@ -174,16 +179,18 @@ def maskformer_infer_rba(
     cfg: RbAConfig,
     images: torch.Tensor,  # (B, H, W, 3) raw RGB
     plain: bool = False,
+    attention: str = "fused",
 ) -> torch.Tensor:  # (B, H, W) fp32
     """RbA score map: the full-resolution tail (x4 upsample → sigmoid → class
     contraction → -Σ tanh) runs as the fused RbA kernel on the decoder's bhwq masks,
     and the padding is cropped off.  Equal to ``maskformer_infer(...)["rba"]`` when the
-    output size is the input size."""
+    output size is the input size.  ``attention``: ``"fused"`` (Kernel A) or
+    ``"fused_softmax"`` (Kernel C), Swin's window-attention branch."""
     images = _on_model(model, images)
     h_img, w_img = images.shape[1], images.shape[2]
     with record_function("preprocess"):
         x = preprocess(cfg, images)
-    out = maskformer_forward(model, cfg, x, final_mask_layout="bhwq", plain=plain)
+    out = maskformer_forward(model, cfg, x, final_mask_layout="bhwq", plain=plain, attention=attention)
     score_fn = fused_rba_score_reference if plain else fused_rba_score
     with record_function("rba_tail"):
         rba = score_fn(out["pred_logits"], out["pred_masks"], masks_layout="bhwq")

@@ -1,10 +1,23 @@
 """Swin transformer backbone (counterpart of ``rba_tpu/models/swin.py``), partition layout.
 
 NHWC activations.  Parameter names follow the JAX pytree: ``layers.0.blocks.1.attn.qkv``
-holds ``params["layers"][0]["blocks"][1]["attn"]["qkv"]``.  Window attention
-goes through ``kernels.window_attention`` (the hand kernel on CUDA tensors), or
-its plain version when the caller asks for ``plain=True``.  LayerNorm and the
+holds ``params["layers"][0]["blocks"][1]["attn"]["qkv"]``.  LayerNorm and the
 attention softmax run in fp32; the matmuls in the compute dtype.
+
+Window attention takes one of two branches, chosen by the caller's ``attention``
+argument (the JAX package picks them with environment variables, which the port
+does not read):
+
+- ``"fused"``: ``kernels.window_attention`` (Kernel A), the counterpart of the
+  ``RBA_TPU_FUSED_ATTENTION`` branch (``rba_tpu/models/swin.py:207-220``);
+- ``"fused_softmax"``: q·kᵀ in fp32 by ``torch.matmul``, then
+  ``kernels.masked_softmax`` (Kernel C), then ``· v``; the counterpart of the
+  ``RBA_TPU_FUSED_SOFTMAX`` branch (``rba_tpu/models/swin.py:256-284, 326-327``).
+
+With ``SwinConfig.mlp_impl == "fused"``, no gradient tracked and C where
+``kernels.fused_mlp.beneficial`` holds, a block's MLP tail goes through
+``kernels.fused_mlp`` (Kernel D), as ``rba_tpu/models/swin.py:488-501`` decides.
+``plain=True`` runs every kernel's plain version instead.
 """
 from __future__ import annotations
 
@@ -17,8 +30,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import SwinConfig
+from ..kernels.fused_mlp import beneficial, fused_mlp_residual, fused_mlp_residual_reference
+from ..kernels.masked_softmax import masked_softmax, masked_softmax_reference
 from ..kernels.window_attention import window_attention, window_attention_reference
 from ..ops.nn import apply_linear, apply_norm
+
+ATTENTION = ("fused", "fused_softmax")  # the window-attention branches
 
 
 @functools.lru_cache(maxsize=64)
@@ -113,6 +130,43 @@ def _rel_bias(attn: WindowAttention, ws: int, nh: int) -> torch.Tensor:
     return bias.permute(2, 0, 1).contiguous()  # (nh, N, N)
 
 
+def softmax_attention(
+    qkv: torch.Tensor,  # (B·nW, N, 3C)
+    rel_bias: torch.Tensor,  # (nh, N, N) fp32
+    mask: Optional[torch.Tensor],  # (nW, N, N) fp32 additive, or None
+    nh: int,
+    scale: float,
+    plain: bool = False,
+) -> torch.Tensor:  # (B·nW, N, C), qkv's dtype
+    """The ``"fused_softmax"`` branch: ``q * scale`` in the compute dtype (the scale
+    rounded to it first, as JAX rounds a Python scalar), q·kᵀ into fp32, Kernel C
+    (bias and mask added, fp32 softmax, probabilities in the compute dtype), then
+    ``· v`` summed in fp32 and rounded to the compute dtype."""
+    bw, n, c3 = qkv.shape
+    c = c3 // 3
+    q, k, v = qkv.reshape(bw, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4)  # (B·nW, nh, N, hd)
+    q = q * torch.tensor(scale, dtype=qkv.dtype).item()
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    softmax = masked_softmax_reference if plain else masked_softmax
+    p = softmax(s, rel_bias, mask, qkv.dtype)
+    out = torch.matmul(p.float(), v.float()).to(qkv.dtype)
+    return out.permute(0, 2, 1, 3).reshape(bw, n, c)
+
+
+def _mlp_tail(blk: SwinBlock, x: torch.Tensor, mlp_impl: str, plain: bool) -> torch.Tensor:
+    """``x + fc2(gelu(fc1(norm2(x))))``: Kernel D where ``rba_tpu``'s dispatch would take
+    the Pallas kernel (``mlp_impl="fused"``, inference, ``beneficial``), else the unfused
+    chain."""
+    b, h, w, c = x.shape
+    if mlp_impl == "fused" and not torch.is_grad_enabled() and beneficial(b * h * w, c):
+        fused = fused_mlp_residual_reference if plain else fused_mlp_residual
+        fc1, fc2 = blk.mlp["fc1"], blk.mlp["fc2"]
+        return fused(x.contiguous(), blk.norm2.weight, blk.norm2.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+    y = apply_norm(blk.norm2, x)
+    y = apply_linear(blk.mlp["fc2"], F.gelu(apply_linear(blk.mlp["fc1"], y)))
+    return x + y
+
+
 def swin_block_apply(
     blk: SwinBlock,
     x: torch.Tensor,  # (B, H, W, C)
@@ -121,6 +175,8 @@ def swin_block_apply(
     shift: int,
     qk_scale: Optional[float],
     plain: bool = False,
+    attention: str = "fused",
+    mlp_impl: str = "xla",
 ) -> torch.Tensor:
     b, h, w, c = x.shape
     shortcut = x
@@ -140,7 +196,12 @@ def swin_block_apply(
     xw = x.reshape(b, hp // ws, ws, wp // ws, ws, c).permute(0, 1, 3, 2, 4, 5).reshape(-1, n, c)
     qkv = apply_linear(blk.attn.qkv, xw)  # (B·nW, N, 3C)
     scale = qk_scale or (c // num_heads) ** -0.5
-    attend = window_attention_reference if plain else window_attention
+    if attention == "fused":
+        attend = window_attention_reference if plain else window_attention
+    elif attention == "fused_softmax":
+        attend = functools.partial(softmax_attention, plain=plain)
+    else:
+        raise ValueError(f"attention must be one of {ATTENTION}, got {attention!r}")
     xw = attend(qkv, _rel_bias(blk.attn, ws, num_heads), mask, num_heads, scale)
     xw = apply_linear(blk.attn.proj, xw)
     x = xw.reshape(b, hp // ws, wp // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, c)
@@ -149,10 +210,7 @@ def swin_block_apply(
         x = torch.roll(x, shifts=(shift, shift), dims=(1, 2))
     if pad_b or pad_r:
         x = x[:, :h, :w]
-    x = shortcut + x
-    y = apply_norm(blk.norm2, x)
-    y = apply_linear(blk.mlp["fc2"], F.gelu(apply_linear(blk.mlp["fc1"], y)))
-    return x + y
+    return _mlp_tail(blk, shortcut + x, mlp_impl, plain)
 
 
 def _patch_merging(down: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
@@ -171,8 +229,10 @@ def swin_apply(
     images: torch.Tensor,  # (B, H, W, 3) normalized
     compute_dtype=torch.bfloat16,
     plain: bool = False,
+    attention: str = "fused",
 ) -> Dict[str, torch.Tensor]:
-    """{res2..res5: (B, H/s, W/s, C_s)} NHWC feature maps."""
+    """{res2..res5: (B, H/s, W/s, C_s)} NHWC feature maps.  ``attention`` picks the
+    window-attention branch: ``"fused"`` (Kernel A) or ``"fused_softmax"`` (Kernel C)."""
     x = images.to(compute_dtype)
     p = cfg.patch_size
     h, w = x.shape[1], x.shape[2]
@@ -188,7 +248,8 @@ def swin_apply(
     for i, layer in enumerate(model.layers):
         for j, blk in enumerate(layer.blocks):
             shift = 0 if j % 2 == 0 else cfg.window_size // 2
-            x = swin_block_apply(blk, x, cfg.num_heads[i], cfg.window_size, shift, cfg.qk_scale, plain)
+            x = swin_block_apply(blk, x, cfg.num_heads[i], cfg.window_size, shift, cfg.qk_scale, plain,
+                                 attention, cfg.mlp_impl)
         if f"res{i + 2}" in cfg.out_features:
             outs[f"res{i + 2}"] = apply_norm(getattr(model, f"norm{i}"), x)
         if layer.downsample is not None:

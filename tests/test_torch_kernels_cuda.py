@@ -1,14 +1,17 @@
 """The port's CUDA kernels against their plain versions on the card.
 
 Marked ``cuda``: each test skips where no CUDA GPU is present (there the wrappers
-run the plain versions, which tests/test_torch_window_attention.py and
-tests/test_torch_fused_rba.py hold against rba_tpu).  On a machine with an H100:
+run the plain versions, which tests/test_torch_window_attention.py,
+test_torch_fused_rba.py, test_torch_masked_softmax.py and test_torch_fused_mlp.py
+hold against rba_tpu).  On a machine with an H100:
 ``python -m pytest tests/test_torch_kernels_cuda.py -q``.
 """
 import pytest
 import torch
 
+from rba_tpu_torch.kernels import fused_mlp as tfm
 from rba_tpu_torch.kernels import fused_rba as tfr
+from rba_tpu_torch.kernels import masked_softmax as tms
 from rba_tpu_torch.kernels import window_attention as twa
 from rba_tpu_torch.models.swin import shifted_window_mask
 
@@ -54,7 +57,59 @@ def test_fused_rba_kernel(cuda, k, layout):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 2, 8, 12), (12, 4, 36, 48)], ids=["N16", "N144"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_masked_softmax_kernel(cuda, out_dtype, shape, masked):
+    ws, nh, hp, wp = shape
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n, nw = ws * ws, (hp // ws) * (wp // ws)
+    scores = torch.randn(2 * nw, nh, n, n, generator=gen, device=cuda) * 3
+    bias = torch.randn(nh, n, n, generator=gen, device=cuda)
+    mask = torch.as_tensor(shifted_window_mask(hp, wp, ws, ws // 2), device=cuda) if masked else None
+    before = tms.masked_softmax.launches
+    got = tms.masked_softmax(scores, bias, mask, out_dtype)
+    torch.cuda.synchronize()
+    assert tms.masked_softmax.launches == before + 1 and got.dtype == out_dtype
+    want = tms.masked_softmax_reference(scores, bias, mask, out_dtype)
+    if out_dtype == torch.bfloat16:  # one bf16 ulp, down to the subnormals' spacing
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-7, atol=2.0**-133)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t_c", [(1000, 128), (4096, 256), (512, 384), (256, 512)])
+def test_fused_mlp_kernel(cuda, dtype, t_c):
+    t, c = t_c
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device=cuda) * scale + shift
+
+    x = (randn(t, c) * 2).to(dtype)
+    params = (randn(c, scale=0.2, shift=1.0), randn(c, scale=0.1), randn(4 * c, c, scale=0.05),
+              randn(4 * c, scale=0.02), randn(c, 4 * c, scale=0.05), randn(c, scale=0.02))
+    before = tfm.fused_mlp_residual.launches
+    got = tfm.fused_mlp_residual(x, *params)
+    torch.cuda.synchronize()
+    assert tfm.fused_mlp_residual.launches == before + 1 and got.dtype == dtype
+    want = tfm.fused_mlp_residual_reference(x, *params)
+    d = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(d.max()) <= 1e-4
+    else:  # tests/test_torch_fused_mlp.py's bf16 bound
+        assert float((d <= 2e-2 + 2e-2 * want.float().abs()).float().mean()) >= 0.999
+        assert float(d.max()) <= 2.0**-7 * float(want.float().abs().max())
+
+
 def test_wrapper_raises_instead_of_falling_back(cuda):
     qkv = torch.zeros(4, 16, 3 * 2 * 64, device=cuda)  # hd 64: not taken by the kernel
     with pytest.raises(ValueError):
         twa.window_attention(qkv, torch.zeros(2, 16, 16, device=cuda), None, 2, 0.125)
+    with pytest.raises(ValueError):  # N = 200 > 160 keys
+        tms.masked_softmax(torch.zeros(1, 2, 200, 200, device=cuda), torch.zeros(2, 200, 200, device=cuda), None)
+    with pytest.raises(ValueError):  # C = 192: not a multiple of 128
+        c = 192
+        tfm.fused_mlp_residual(torch.zeros(8, c, device=cuda), *(torch.zeros(*s, device=cuda) for s in
+                               ((c,), (c,), (4 * c, c), (4 * c,), (c, 4 * c), (c,))))

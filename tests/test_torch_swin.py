@@ -1,18 +1,35 @@
-"""The port's Swin backbone against rba_tpu.models.swin at fp32 on the CPU (atol 1e-4)."""
+"""The port's Swin backbone against rba_tpu.models.swin at fp32 on the CPU (atol 1e-4).
+
+Path 2 (``attention="fused_softmax"``, ``mlp_impl="fused"``) runs at a small config
+whose two stages take the fused MLP (C = 128 and 256).  On the CPU the JAX package
+takes neither kernel branch, so at fp32 the port's plain versions are held against
+its XLA chain, the same function.  In bf16 the softmax branch is held against the
+three steps composed from ``rba_tpu`` pieces, Pallas ``masked_softmax_bf16`` in
+interpret mode in the middle, within one bf16 ulp of the largest output.
+"""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from rba_tpu import config as jconfig
 from rba_tpu.config import tiny_test_config as j_tiny
 from rba_tpu.models import swin as jswin
+from rba_tpu.ops.pallas.masked_softmax import masked_softmax_bf16
+from rba_tpu_torch import config as tconfig
 from rba_tpu_torch.config import tiny_test_config
 from rba_tpu_torch.convert import load_jax_params
+from rba_tpu_torch.kernels import fused_mlp, masked_softmax
 from rba_tpu_torch.models import swin as tswin
-from tests.torch_port_common import max_abs, perturbed, t, to_jax
+from tests.torch_port_common import max_abs, perturbed, record, t, to_jax
 
 ATOL = 1e-4
+# embed 128, two stages of two blocks, heads (4, 8), window 4: both stages take the fused MLP
+PATH2_SWIN = dict(embed_dim=128, depths=(2, 2), num_heads=(4, 8), window_size=4, out_features=("res2", "res3"),
+                  mlp_impl="fused")
 
 
 @pytest.fixture(scope="module")
@@ -83,3 +100,94 @@ def test_cached_constants_serve_inference_and_grad_mode(tiny_swin, rng):
     for name in a:
         assert b[name].requires_grad
         torch.testing.assert_close(a[name], b[name].detach(), rtol=0, atol=0)
+
+
+@pytest.fixture(scope="module")
+def path2_swin():
+    jcfg = dataclasses.replace(jconfig.SwinConfig(), **PATH2_SWIN)
+    tcfg = dataclasses.replace(tconfig.SwinConfig(), **PATH2_SWIN)
+    params = perturbed(jswin.swin_init(jax.random.PRNGKey(2), jcfg), seed=4)
+    model = tswin.Swin(tcfg)
+    load_jax_params(model, params)
+    return jcfg, tcfg, params, model
+
+
+def test_path2_swin_apply_matches(path2_swin, rng, request):
+    """swin_apply through Kernel C's branch and Kernel D on a 32x32 image, fp32."""
+    jcfg, tcfg, params, model = path2_swin
+    images = rng.randn(1, 32, 32, 3).astype(np.float32)
+    want = jswin.swin_apply(to_jax(params), jcfg, jnp.asarray(images), compute_dtype=jnp.float32)
+    before = fused_mlp.fused_mlp_residual.launches, masked_softmax.masked_softmax.launches
+    with torch.no_grad():
+        got = tswin.swin_apply(model, tcfg, t(images), compute_dtype=torch.float32, attention="fused_softmax")
+    # the CPU runs the plain versions: no launch is counted
+    assert (fused_mlp.fused_mlp_residual.launches, masked_softmax.masked_softmax.launches) == before
+    assert sorted(got) == sorted(want) == ["res2", "res3"]
+    record(request, **{f"max_abs_{name}": max_abs(got[name], want[name]) for name in got})
+    for name in got:
+        assert max_abs(got[name], want[name]) < ATOL, name
+
+
+@pytest.mark.parametrize("shift", [0, 2])
+def test_path2_block_matches(path2_swin, rng, request, shift):
+    """One stage-0 block (C = 128) on a padded (1, 9, 13) map: the softmax branch and
+    the fused MLP tail against rba_tpu's block, fp32."""
+    _, _, params, model = path2_swin
+    x = rng.randn(1, 9, 13, 128).astype(np.float32)
+    want = jswin.swin_block_apply(to_jax(params["layers"][0]["blocks"][1]), jnp.asarray(x), num_heads=4, ws=4,
+                                  shift=shift, qk_scale=None, mlp_impl="fused")
+    blk = model.layers[0].blocks[1]
+    assert fused_mlp.beneficial(9 * 13, 128)
+    with torch.no_grad():
+        got = tswin.swin_block_apply(blk, t(x), 4, 4, shift, None, attention="fused_softmax", mlp_impl="fused")
+    record(request, max_abs=max_abs(got, want))
+    assert max_abs(got, want) < ATOL
+
+
+def test_mlp_tail_is_unfused_when_tracking_gradients(path2_swin, rng):
+    """Kernel D is inference only, as in rba_tpu: with gradients tracked the unfused
+    chain runs, and the output carries a gradient."""
+    _, _, _, model = path2_swin
+    x = t(rng.randn(1, 8, 8, 128))
+    blk = model.layers[0].blocks[0]
+    y = tswin.swin_block_apply(blk, x, 4, 4, 0, None, attention="fused_softmax", mlp_impl="fused")
+    assert y.requires_grad
+    with torch.no_grad():
+        torch.testing.assert_close(
+            tswin.swin_block_apply(blk, x, 4, 4, 0, None, attention="fused_softmax", mlp_impl="fused"),
+            y.detach(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_softmax_branch_bf16_matches_rba_tpu_steps(rng, request, masked):
+    """The bf16 softmax branch (q·kᵀ, Kernel C, · v) against the JAX package's three
+    steps: the einsum of ``rba_tpu/models/swin.py:265``, ``masked_softmax_bf16`` in
+    interpret mode, the einsum of ``:326-327``.  Within one bf16 ulp of the largest
+    output."""
+    nh, hd, ws, hp, wp, b = 4, 32, 4, 8, 12, 2
+    n, c = ws * ws, nh * hd
+    nw = (hp // ws) * (wp // ws)
+    qkv = np.asarray(jnp.asarray(rng.randn(b * nw, n, 3 * c), jnp.bfloat16).astype(jnp.float32))
+    bias = rng.randn(nh, n, n).astype(np.float32)
+    mask = jswin.shifted_window_mask(hp, wp, ws, ws // 2) if masked else None
+    scale = hd**-0.5
+
+    jq = jnp.asarray(qkv, jnp.bfloat16).reshape(b * nw, n, 3, nh, hd)
+    q, k, v = jq[..., 0, :, :], jq[..., 1, :, :], jq[..., 2, :, :]
+    s = jnp.einsum("wqhd,wkhd->whqk", q * scale, k, preferred_element_type=jnp.float32)
+    p = masked_softmax_bf16(s.reshape(b, nw, nh, n, n), jnp.asarray(bias), mask, out_dtype=jnp.bfloat16,
+                            interpret=True).reshape(b * nw, nh, n, n)
+    want = jnp.einsum("whqk,wkhd->wqhd", p, v, preferred_element_type=jnp.float32).astype(jnp.bfloat16)
+    want = np.asarray(want.astype(jnp.float32)).reshape(b * nw, n, c)
+
+    got = tswin.softmax_attention(t(qkv).bfloat16(), t(bias), None if mask is None else t(mask), nh, scale)
+    assert got.dtype == torch.bfloat16
+    record(request, max_abs=max_abs(got.float(), want), tol=2.0**-7 * np.abs(want).max())
+    assert max_abs(got.float(), want) <= 2.0**-7 * np.abs(want).max()
+
+
+def test_unknown_attention_raises(tiny_swin):
+    _, model = tiny_swin
+    with pytest.raises(ValueError, match="attention"):
+        tswin.swin_apply(model, tiny_test_config().swin, torch.zeros(1, 32, 32, 3), compute_dtype=torch.float32,
+                         attention="sdpa")

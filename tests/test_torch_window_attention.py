@@ -1,5 +1,17 @@
 """The plain version of the window-attention kernel against the Pallas kernels it
-replaces, run in interpret mode on the CPU (rtol 1e-4, atol 1e-5, fp32)."""
+replaces, run in interpret mode on the CPU.
+
+fp32: rtol 1e-4, atol 1e-5.  bf16 (q, k, v in bf16, as the bf16 backbone serves
+them): within one bf16 ulp of the largest output, the bound ``chip_smoke.py``
+holds the kernel to, and at least 99.9 % of the elements within one bf16 ulp of
+their own value.  The second bound is the one that tells the probabilities'
+rounding apart: with fp32 probabilities, as the port had them before, 88-92 % of
+the elements met it at these shapes while the largest difference still stayed
+within one ulp of the largest output.  The bf16 cases of the v3 test assert that
+the former placement misses the second bound, and record the largest difference
+of both placements and their share within the per-element bound (properties
+``max_abs_vs_v3_*`` and ``ulp_share_*`` of the test case in a ``--junitxml`` report).
+"""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,48 +21,87 @@ from rba_tpu.models import swin as jswin
 from rba_tpu.ops.pallas.window_attention import window_attention_fused_v2, window_attention_fused_v3
 from rba_tpu_torch.kernels import window_attention as twa
 from rba_tpu_torch.models import swin as tswin
-from tests.torch_port_common import t
+from tests.torch_port_common import record, t
 
 TOL = dict(rtol=1e-4, atol=1e-5)
+BF16_ULP = 2.0**-7  # one bf16 ulp relative to the value, at most
+BF16_SHARE = 0.999  # least share of elements within one ulp of their own value
 
 # (ws, nh, hd, hp, wp): N = 16 at hd 16 (tiny config), N = 144 at hd 32 (Swin-B/L)
 SHAPES = [(4, 2, 16, 8, 12), (12, 2, 32, 24, 24)]
+# each shape in fp32 and with bf16 q/k/v
+CASES = [(s, d) for d in (np.float32, jnp.bfloat16) for s in SHAPES]
+CASE_IDS = ["N16", "N144", "N16_bf16", "N144_bf16"]
 
 
-def _inputs(rng, ws, nh, hd, hp, wp, masked):
+def _inputs(rng, ws, nh, hd, hp, wp, masked, dtype=np.float32):
     b, n = 2, ws * ws
     nw = (hp // ws) * (wp // ws)
-    qkv = rng.randn(b, nw, n, 3 * nh * hd).astype(np.float32)
+    qkv = np.asarray(jnp.asarray(rng.randn(b, nw, n, 3 * nh * hd), dtype).astype(jnp.float32))
     bias = rng.randn(nh, n, n).astype(np.float32)
     mask = jswin.shifted_window_mask(hp, wp, ws, ws // 2) if masked else None
     return qkv, bias, mask, hd**-0.5
 
 
+def _torch(a, dtype):
+    x = t(a)
+    return x.bfloat16() if dtype == jnp.bfloat16 else x
+
+
+def bf16_ulp_share(got, want) -> float:
+    """Share of the elements of ``got`` within one bf16 ulp of ``want`` (plus 1e-6)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) <= BF16_ULP * np.abs(want) + 1e-6).mean())
+
+
+def _check(got, want, dtype):
+    got = got.float().numpy().reshape(want.shape)
+    if dtype == jnp.bfloat16:
+        assert np.abs(got - want).max() <= BF16_ULP * np.abs(want).max()
+        assert bf16_ulp_share(got, want) >= BF16_SHARE
+    else:
+        np.testing.assert_allclose(got, want, **TOL)
+
+
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("shape", SHAPES, ids=["N16", "N144"])
+@pytest.mark.parametrize("shape", CASES, ids=CASE_IDS)
 def test_plain_matches_pallas_v2(rng, shape, masked):
-    ws, nh, hd, hp, wp = shape
-    qkv, bias, mask, scale = _inputs(rng, ws, nh, hd, hp, wp, masked)
-    want = window_attention_fused_v2(jnp.asarray(qkv), jnp.asarray(bias), mask, nh, scale, interpret=True)
+    (ws, nh, hd, hp, wp), dtype = shape
+    qkv, bias, mask, scale = _inputs(rng, ws, nh, hd, hp, wp, masked, dtype)
+    want = window_attention_fused_v2(jnp.asarray(qkv, dtype), jnp.asarray(bias), mask, nh, scale, interpret=True)
     b, nw, n, c3 = qkv.shape
-    got = twa.window_attention(t(qkv.reshape(b * nw, n, c3)), t(bias), None if mask is None else t(mask), nh, scale)
-    np.testing.assert_allclose(got.numpy().reshape(want.shape), np.asarray(want), **TOL)
+    got = twa.window_attention(_torch(qkv.reshape(b * nw, n, c3), dtype), t(bias),
+                               None if mask is None else t(mask), nh, scale)
+    _check(got, np.asarray(want.astype(jnp.float32)), dtype)
+
+
+def _pallas_v3(qkv, bias, mask, nh, hd, scale, dtype):
+    """Pallas v3 in interpret mode on the fused (B, nW, N, 3C) qkv, as (B·nW, N, C) fp32."""
+    b, nw, n, _ = qkv.shape
+    split = qkv.reshape(b, nw, n, 3, nh, hd)
+    q, k, v = (jnp.asarray(split[:, :, :, i].transpose(0, 1, 3, 2, 4), dtype) for i in range(3))  # (B, nW, nh, N, hd)
+    want = window_attention_fused_v3(q, k, v, jnp.asarray(bias), mask, scale, interpret=True)
+    return np.asarray(want.astype(jnp.float32)).transpose(0, 1, 3, 2, 4).reshape(b * nw, n, nh * hd)
 
 
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("shape", SHAPES, ids=["N16", "N144"])
-def test_plain_matches_pallas_v3(rng, shape, masked):
-    ws, nh, hd, hp, wp = shape
-    qkv, bias, mask, scale = _inputs(rng, ws, nh, hd, hp, wp, masked)
+@pytest.mark.parametrize("shape", CASES, ids=CASE_IDS)
+def test_plain_matches_pallas_v3(rng, request, shape, masked):
+    (ws, nh, hd, hp, wp), dtype = shape
+    qkv, bias, mask, scale = _inputs(rng, ws, nh, hd, hp, wp, masked, dtype)
+    want = _pallas_v3(qkv, bias, mask, nh, hd, scale, dtype)
     b, nw, n, c3 = qkv.shape
-    split = qkv.reshape(b, nw, n, 3, nh, hd)
-    q, k, v = (np.ascontiguousarray(split[:, :, :, i].transpose(0, 1, 3, 2, 4)) for i in range(3))  # (B, nW, nh, N, hd)
-    want = window_attention_fused_v3(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias), mask,
-                                     scale, interpret=True)
-    want = np.asarray(want).transpose(0, 1, 3, 2, 4).reshape(b * nw, n, nh * hd)
-    got = twa.window_attention_reference(t(qkv.reshape(b * nw, n, c3)), t(bias),
-                                         None if mask is None else t(mask), nh, scale)
-    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    x, m = _torch(qkv.reshape(b * nw, n, c3), dtype), None if mask is None else t(mask)
+    got = twa.window_attention_reference(x, t(bias), m, nh, scale)
+    _check(got, want, dtype)
+    if dtype == jnp.bfloat16:
+        # the port before the repair: fp32 probabilities, only the output rounded
+        before = twa.window_attention_reference(x.float(), t(bias), m, nh, scale).bfloat16().float().numpy()
+        after = got.float().numpy()
+        record(request, max_abs_vs_v3_after=np.abs(after - want).max(), max_abs_vs_v3_before=np.abs(before - want).max(),
+               ulp_share_after=bf16_ulp_share(after, want), ulp_share_before=bf16_ulp_share(before, want),
+               tol=BF16_ULP * np.abs(want).max())
+        assert bf16_ulp_share(before, want) < 0.95
 
 
 @pytest.mark.parametrize("hw_ws_shift", [(8, 12, 4, 2), (24, 36, 12, 6), (12, 12, 12, 6)])
@@ -62,13 +113,22 @@ def test_window_constants_match(hw_ws_shift):
 
 
 def test_bf16_plain_keeps_fp32_math(rng):
-    """In bf16 the plain version widens q, k, v to fp32 and rounds only the output."""
-    qkv, bias, mask, scale = _inputs(rng, 4, 2, 16, 8, 12, True)
-    x = t(qkv.reshape(-1, 16, 96)).bfloat16()
-    got = twa.window_attention_reference(x, t(bias), t(mask), 2, scale)
-    want = twa.window_attention_reference(x.float(), t(bias), t(mask), 2, scale).bfloat16()
+    """In bf16 the plain version widens q, k, v to fp32, computes the scores, the
+    softmax and the ``· v`` sum in fp32, and rounds twice: the probabilities before
+    the ``· v`` sum, as Pallas v3 does, and the output."""
+    nh, hd = 2, 32
+    qkv, bias, mask, scale = _inputs(rng, 12, nh, hd, 24, 24, True, jnp.bfloat16)
+    b, nw, n, c3 = qkv.shape
+    x = t(qkv.reshape(b * nw, n, c3)).bfloat16()
+    got = twa.window_attention_reference(x, t(bias), t(mask), nh, scale)
     assert got.dtype == torch.bfloat16
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+    q, k, v = x.float().reshape(b * nw, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    s = torch.matmul(q * scale, k.transpose(-1, -2)) + t(bias)
+    s = (s.reshape(b, nw, nh, n, n) + t(mask)[None, :, None]).reshape(b * nw, nh, n, n)
+    p = torch.softmax(s, dim=-1)
+    placed = torch.matmul(p.bfloat16().float(), v).permute(0, 2, 1, 3).reshape(b * nw, n, nh * hd).bfloat16()
+    torch.testing.assert_close(got, placed, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("bad", ["hd64", "n200", "mask_shape", "bias_dtype"])

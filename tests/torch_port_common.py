@@ -42,3 +42,9 @@ def max_abs(a, b) -> float:
     b = b.detach().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
     assert a.shape == b.shape, (a.shape, b.shape)
     return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
+
+
+def record(request, **values) -> None:
+    """Attach measured values to the running test; a ``--junitxml`` report lists them
+    as the test case's properties."""
+    request.node.user_properties += [(k, float(v)) for k, v in values.items()]
