@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own by
 ``nvcc`` for ``sm_90a`` into ``build/rba_tpu_torch/lib<name>.so`` at the root of
-the checkout (listed in ``.gitignore``), on first use or when the source is
-newer than the library.  ``build_all`` starts one ``nvcc`` per source at once
-and waits for all of them.  Nothing is built at import time.
+the checkout (listed in ``.gitignore``), on first use or when the source, or
+any shared header ``csrc/*.cuh``, is newer than the library.  ``build_all``
+starts one ``nvcc`` per source at once and waits for all of them.  Nothing is
+built at import time.
 
 The build directory is the checkout's ``build/``: the port runs from a source
 checkout or an editable install, not from a copy installed into site-packages.
@@ -41,8 +42,12 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any header in ``csrc``."""
     lib = _lib_path(name)
-    return not lib.exists() or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+    if not lib.exists():
+        return True
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def build_all(names: List[str] | None = None) -> Dict[str, float]:

@@ -6,8 +6,13 @@ chip.  Weights and biases come as the port's fp32 parameters in ``nn.Linear``'s
 (out, in) layout.  The dtype placement is the Pallas kernel's, which the plain
 version repeats: LayerNorm moments in fp32, each product accumulated in fp32 and
 rounded to the compute dtype before its bias add, exact (erf) gelu in fp32
-rounded, the residual add in the compute dtype.  The source note in the .cu
-file gives the bound and the design.
+rounded, the residual add in the compute dtype.
+
+bf16 runs on the tensor cores (``mma.sync``, bf16 products with fp32 sums): the
+wrapper hands the kernel bf16 copies of ``w1`` and ``w2``, rounded as the plain
+version rounds them, which the kernel stages with ``cp.async``.  fp32 runs on
+CUDA cores, in full fp32.  The source note in the .cu file gives the bound and
+both designs.
 """
 from __future__ import annotations
 
@@ -76,8 +81,8 @@ def _check(x, gamma, beta, w1, b1, w2, b2):
             raise ValueError("x and the MLP's parameters must be on one device")
         if not p.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if w1.data_ptr() % 16 or w2.data_ptr() % 16:
-        raise ValueError("w1 and w2 must be 16-byte aligned (the kernel loads them as float4)")
+    if any(p.data_ptr() % 16 for p in (x, gamma, beta, w1, w2)):
+        raise ValueError("x, gamma, beta, w1 and w2 must be 16-byte aligned (the kernel loads them 16 bytes at a time)")
     if not x.is_contiguous():
         raise ValueError("fused_mlp_residual takes a contiguous x")
     return x.numel() // c, c
@@ -109,6 +114,8 @@ def fused_mlp_residual(
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_residual runs on cuda or cpu, not {x.device}")
     t, c = _check(x, gamma, beta, w1, b1, w2, b2)
+    if x.dtype == torch.bfloat16:  # the tensor-core kernel reads the weights in bf16
+        w1, w2 = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
     lib, fn = _kernel()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):

@@ -2,8 +2,14 @@
 
 Replaces the Pallas kernels of ``rba_tpu/ops/pallas/window_attention.py``
 (``window_attention_fused``, ``_v2``, ``_v3``) with the v2 interface: fused qkv
-(B·nW, N, 3C) in, (B·nW, N, C) out, heads split inside.  The source note in the
-.cu file gives the bound and the design.
+(B·nW, N, 3C) in, (B·nW, N, C) out, heads split inside.
+
+bf16 runs on the tensor cores (``mma.sync``: q·kᵀ and p·v in bf16 with fp32
+sums, the scores and the softmax in fp32 registers, the probabilities rounded to
+bf16 as the Pallas kernels round them).  The kernel scales the fp32 product,
+``(q·k)·scale``, where Pallas and the plain version scale q first, ``(q·scale)·k``:
+the two differ by a few fp32 ulps of a logit.  fp32 runs on CUDA cores, in full
+fp32.  The source note in the .cu file gives the bound and both designs.
 """
 from __future__ import annotations
 
@@ -61,6 +67,8 @@ def _check(qkv, rel_bias, mask, nh):
         if bw % mask.shape[0]:
             raise ValueError(f"B·nW={bw} is not a multiple of the mask's nW={mask.shape[0]}")
         tensors.append(mask)
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("qkv, rel_bias and mask must be 16-byte aligned (the kernel loads them 16 bytes at a time)")
     for t in tensors:
         if t.device != qkv.device:
             raise ValueError("qkv, rel_bias and mask must be on one device")

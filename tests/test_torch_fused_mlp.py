@@ -84,7 +84,7 @@ def test_dispatch_rule_matches_rba_tpu():
             assert tfm.beneficial(t_, c) == jfm.beneficial(t_, c), (t_, c)
 
 
-@pytest.mark.parametrize("bad", ["c192", "c1024", "x_fp16", "w1_layout", "w2_bf16", "x_strided"])
+@pytest.mark.parametrize("bad", ["c192", "c1024", "x_fp16", "w1_layout", "w2_bf16", "x_strided", "x_misaligned"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     c = 128
     x = torch.zeros(8, c)
@@ -101,6 +101,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         p["w1"] = torch.zeros(c, 4 * c)  # JAX's (in, out) layout
     elif bad == "w2_bf16":
         p["w2"] = p["w2"].bfloat16()
+    elif bad == "x_misaligned":  # contiguous, but 4 bytes past a 16-byte boundary
+        x = torch.zeros(x.numel() + 1)[1:].view(x.shape)
     else:
         x = torch.zeros(8, 2 * c)[:, :c]
     with pytest.raises((ValueError, TypeError)):

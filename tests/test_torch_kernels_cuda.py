@@ -25,10 +25,15 @@ def cuda():
     return torch.device("cuda")
 
 
+BF16_ULP = 2.0**-7  # one bf16 ulp relative to the value, at most
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(4, 2, 16, 8, 12), (12, 4, 32, 36, 48)], ids=["N16", "N144"])
+@pytest.mark.parametrize("shape", [(4, 2, 16, 8, 12), (12, 4, 32, 36, 48), (7, 2, 16, 14, 21), (7, 4, 32, 21, 28)],
+                         ids=["N16", "N144", "N49_hd16", "N49_hd32"])
 @pytest.mark.parametrize("masked", [False, True])
 def test_window_attention_kernel(cuda, dtype, shape, masked):
+    """N = 49 (a 7x7 window) pads the keys and query rows to 64 in the bf16 kernel."""
     ws, nh, hd, hp, wp = shape
     gen = torch.Generator(device=cuda).manual_seed(0)
     n, nw = ws * ws, (hp // ws) * (wp // ws)
@@ -42,6 +47,27 @@ def test_window_attention_kernel(cuda, dtype, shape, masked):
     want = twa.window_attention_reference(qkv, bias, mask, nh, hd**-0.5)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:  # tests/test_torch_window_attention.py's per-element bound
+        d, w = (got.float() - want.float()).abs(), want.float().abs()
+        assert float((d <= BF16_ULP * w + 1e-6).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("n", [145, 150, 160])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_kernel_any_n(cuda, n, masked):
+    """Windows of N > 144 keys (the mask read from L2), an N that is not a multiple of
+    4 (4-byte copies) and an odd N (4-byte mask loads), with a random 0 / -100 mask."""
+    nh, hd, nw = 2, 32, 3
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    qkv = torch.randn(2 * nw, n, 3 * nh * hd, generator=gen, device=cuda).bfloat16()
+    bias = torch.randn(nh, n, n, generator=gen, device=cuda)
+    mask = (torch.rand(nw, n, n, generator=gen, device=cuda) < 0.3).float() * -100 if masked else None
+    got = twa.window_attention(qkv, bias, mask, nh, hd**-0.5)
+    torch.cuda.synchronize()
+    want = twa.window_attention_reference(qkv, bias, mask, nh, hd**-0.5)
+    d, w = (got.float() - want.float()).abs(), want.float().abs()
+    assert float(d.max()) <= BF16_ULP * float(w.max())
+    assert float((d <= BF16_ULP * w + 1e-6).float().mean()) >= 0.999
 
 
 @pytest.mark.parametrize("k", [7, 19, 40])
@@ -79,7 +105,8 @@ def test_masked_softmax_kernel(cuda, out_dtype, shape, masked):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t_c", [(1000, 128), (4096, 256), (512, 384), (256, 512)])
+@pytest.mark.parametrize("t_c", [(1000, 128), (4096, 256), (512, 384), (256, 512), (1000, 256), (1000, 384),
+                                 (1000, 512)])
 def test_fused_mlp_kernel(cuda, dtype, t_c):
     t, c = t_c
     gen = torch.Generator(device=cuda).manual_seed(0)

@@ -104,6 +104,44 @@ def test_plain_matches_pallas_v3(rng, request, shape, masked):
         assert bf16_ulp_share(before, want) < 0.95
 
 
+def tensor_core_order(qkv, bias, mask, nh, scale):
+    """The arithmetic of the bf16 tensor-core kernel, in its order, in plain torch:
+    bf16 q and k into an fp32 product, then ``· scale``, + bias, + mask, the softmax
+    with a division by the row sum, the probabilities rounded to bf16, the fp32
+    ``· v`` sum rounded to bf16.  The plain version (and Pallas) scale q before the
+    product instead."""
+    bw, n, c3 = qkv.shape
+    hd = c3 // 3 // nh
+    q, k, v = qkv.bfloat16().float().reshape(bw, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale + bias
+    if mask is not None:
+        nw = mask.shape[0]
+        s = (s.reshape(bw // nw, nw, nh, n, n) + mask[None, :, None]).reshape(bw, nh, n, n)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = (e / e.sum(-1, keepdim=True)).bfloat16().float()
+    return torch.matmul(p, v).permute(0, 2, 1, 3).reshape(bw, n, nh * hd).bfloat16()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shape", SHAPES, ids=["N16", "N144"])
+def test_tensor_core_order_matches_pallas_v3(rng, request, shape, masked):
+    """Scaling the fp32 product instead of q costs nothing measurable: the kernel's
+    order, emulated, meets the bf16 bounds against Pallas v3 and against the plain
+    version (records the largest difference and the per-element share of both)."""
+    ws, nh, hd, hp, wp = shape
+    qkv, bias, mask, scale = _inputs(rng, ws, nh, hd, hp, wp, masked, jnp.bfloat16)
+    want = _pallas_v3(qkv, bias, mask, nh, hd, scale, jnp.bfloat16)
+    b, nw, n, c3 = qkv.shape
+    x, m = t(qkv.reshape(b * nw, n, c3)).bfloat16(), None if mask is None else t(mask)
+    got = tensor_core_order(x, t(bias), m, nh, scale)
+    plain = twa.window_attention_reference(x, t(bias), m, nh, scale).float().numpy().reshape(want.shape)
+    emulated = got.float().numpy().reshape(want.shape)
+    record(request, max_abs_vs_v3=np.abs(emulated - want).max(), ulp_share_vs_v3=bf16_ulp_share(emulated, want),
+           max_abs_vs_plain=np.abs(emulated - plain).max(), ulp_share_vs_plain=bf16_ulp_share(emulated, plain))
+    _check(got, want, jnp.bfloat16)
+    _check(got, plain, jnp.bfloat16)
+
+
 @pytest.mark.parametrize("hw_ws_shift", [(8, 12, 4, 2), (24, 36, 12, 6), (12, 12, 12, 6)])
 def test_window_constants_match(hw_ws_shift):
     hp, wp, ws, shift = hw_ws_shift
@@ -131,7 +169,7 @@ def test_bf16_plain_keeps_fp32_math(rng):
     torch.testing.assert_close(got, placed, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("bad", ["hd64", "n200", "mask_shape", "bias_dtype"])
+@pytest.mark.parametrize("bad", ["hd64", "n200", "mask_shape", "bias_dtype", "qkv_misaligned"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     n, nh, hd = 16, 2, 16
     qkv = torch.zeros(4, n, 3 * nh * hd)
@@ -143,6 +181,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         qkv, bias = torch.zeros(4, 200, 3 * nh * hd), torch.zeros(nh, 200, 200)
     elif bad == "mask_shape":
         mask = torch.zeros(3, n, n)
+    elif bad == "qkv_misaligned":  # contiguous, but 4 bytes past a 16-byte boundary
+        qkv = torch.zeros(qkv.numel() + 1)[1:].view(qkv.shape)
     else:
         bias = bias.double()
     with pytest.raises((ValueError, TypeError)):
