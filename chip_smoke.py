@@ -34,9 +34,13 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-# Published H100 SXM peaks (dense): HBM bytes/s and fp32 CUDA-core / bf16 tensor-core FLOP/s
+# Published H100 SXM peaks (dense): HBM bytes/s and fp32 CUDA-core / bf16 and TF32 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
+# instructions per second over all lanes, from the fp32 peak (one fma per lane and clock):
+# the ALU pipe has 128 lanes per SM, the special-function pipe (ex2, rcp) 16
+ALU_OPS_PER_S = PEAK_FLOPS["float32"] / 2
+SFU_OPS_PER_S = ALU_OPS_PER_S / 8
 
 IMAGE_HW = (1024, 2048)
 N_REQUESTS = 4  # distinct images served after one warm-up request
@@ -56,18 +60,31 @@ def _smi(query: str) -> str:
                           capture_output=True, text=True, check=True).stdout.strip()
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` in ms, by CUDA events around ``iters`` calls after warm-up."""
+def cuda_ms_batches(fn, iters: int = 20, warmup: int = 3, batches: int = 3) -> list:
+    """Mean device time of ``fn`` in ms for each of ``batches`` batches, one after the
+    other: CUDA events around ``iters`` calls, after ``warmup`` calls before the first."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    means = []
+    for _ in range(batches):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        means.append(start.elapsed_time(end) / iters)
+    return means
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` in ms, by CUDA events around ``iters`` calls after warm-up."""
+    return cuda_ms_batches(fn, iters, warmup, batches=1)[0]
+
+
+def _fmt(times) -> str:
+    return "/".join(f"{t:.4f}" for t in times)
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -117,7 +134,7 @@ def window_attention_phase(cfg, gen):
     from rba_tpu_torch.models.swin import shifted_window_mask
 
     ws, n = cfg.swin.window_size, cfg.swin.window_size**2
-    rows, totals = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    rows, totals = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ms_batches=[0.0] * 3)
     worst = 0.0
     for s, masked, nw, nh, c, hp, wp, count in stage_shapes(cfg):
         hd = c // nh
@@ -143,7 +160,8 @@ def window_attention_phase(cfg, gen):
         worst = max(worst, err)
         # times
         am = (bias[None] + mask[:, None] if masked else bias[None]).to(torch.bfloat16)
-        t_k = cuda_ms(lambda: window_attention(qkv, bias, mask, nh, scale))
+        t_all = cuda_ms_batches(lambda: window_attention(qkv, bias, mask, nh, scale))
+        t_k = t_all[0]
         t_p = cuda_ms(lambda: window_attention_reference(qkv, bias, mask, nh, scale))
         t_l = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=scale))
         nbytes = qkv.numel() * 2 + nw * n * c * 2 + bias.numel() * 4 + (mask.numel() * 4 if masked else 0)
@@ -151,16 +169,19 @@ def window_attention_phase(cfg, gen):
         b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
         row = dict(stage=s, masked=masked, nW=nw, nh=nh, N=n, hd=hd, blocks_per_image=count,
                    max_abs_err_bf16=err, tol_bf16=tol, bf16_ulp_share=share, max_abs_err_fp32=err32, tol_fp32=tol32,
-                   ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+                   ms=t_k, ms_batches=t_all, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                   flops=flops)
         rows.append(row)
         log(f"window_attention stage {s} {'shifted' if masked else 'plain   '} nW={nw:4d} nh={nh:2d}: "
             f"err bf16 {err:.3e} (tol {tol:.3e}), share within 1 ulp {share:.6f} (tol {BF16_SHARE}), "
             f"fp32 {err32:.3e} (tol {tol32:.0e}) | "
-            f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            f"kernel {t_k:.4f} ms (3 batches {_fmt(t_all)}), plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
         if not ok:
             raise RuntimeError(f"window_attention disagrees with its plain version: {row}")
         for key, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b_ms)):
             totals[key] += count * t
+        totals["ms_batches"] = [a + count * t for a, t in zip(totals["ms_batches"], t_all)]
     return rows, totals, worst
 
 
@@ -179,17 +200,42 @@ def fused_rba_phase(cfg, gen):
     want = fused_rba_score_reference(mask_cls, masks, masks_layout="bhwq")
     torch.cuda.synchronize()
     err, tol = max_abs(got, want), 1e-4
-    t_k = cuda_ms(lambda: fused_rba_score(mask_cls, masks, masks_layout="bhwq"))
+    t_all = cuda_ms_batches(lambda: fused_rba_score(mask_cls, masks, masks_layout="bhwq"))
+    t_k = t_all[0]
     t_p = cuda_ms(lambda: fused_rba_score_reference(mask_cls, masks, masks_layout="bhwq"), iters=5)
     nbytes = masks.numel() * 4 + mask_cls.numel() * 4 + got.numel() * 4
     flops = 2.0 * q * k * got.numel()  # the class contraction alone
     b_ms, b_by = bound_ms(nbytes, flops, "float32")
-    row = dict(Q=q, K=k, h=h, w=w, max_abs_err=err, tol=tol, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+    # The bound of the design as built: the contraction as three TF32 products on the
+    # tensor cores, and per pixel the CUDA-core work around it: ex2 and rcp for each
+    # query's sigmoid and each class's tanh, and about 9 ALU instructions per query
+    # (blend, sigmoid's add and scale, the split into two TF32 terms).
+    built = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "tf32 operations": 3 * flops / PEAK_FLOPS["tf32"] * 1e3,
+             "special-function operations": 2.0 * (q + k) * got.numel() / SFU_OPS_PER_S * 1e3,
+             "alu operations": 9.0 * q * got.numel() / ALU_OPS_PER_S * 1e3}
+    bb_by = max(built, key=built.get)
+    row = dict(Q=q, K=k, h=h, w=w, max_abs_err=err, tol=tol, ms=t_k, ms_batches=t_all, plain_ms=t_p, bound_ms=b_ms,
+               bound_by=b_by, bound_built_ms=built[bb_by], bound_built_by=bb_by, bound_built_terms=built,
                bytes=nbytes, flops=flops)
-    log(f"fused_rba_score Q={q} K={k} {h}x{w}: err {err:.3e} (tol {tol:.0e}) | kernel {t_k:.4f} ms, "
-        f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    if err > tol:
+    log(f"fused_rba_score Q={q} K={k} {h}x{w}: err {err:.3e} (tol {tol:.0e}) | kernel {t_k:.4f} ms "
+        f"(3 batches {_fmt(t_all)}), plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}, fp32 CUDA-core contraction); "
+        f"bound of the design as built {built[bb_by]:.4f} ms ({bb_by}; "
+        + ", ".join(f"{k2} {v:.4f}" for k2, v in built.items()) + ")")
+    if not err <= tol:
         raise RuntimeError(f"fused_rba_score disagrees with its plain version: {row}")
+    # correctness alone: two batch elements with different cls, and a K that needs a
+    # second pass of 24 classes, on masks whose width is not a whole tile of patches
+    for b, k2, h2, w2 in ((2, k, 64, 200), (2, 40, 64, 200)):
+        cls2 = torch.randn(b, q, k2 + 1, generator=gen, device="cuda")
+        masks2 = torch.randn(b, h2, w2, q, generator=gen, device="cuda") * 2
+        got2 = fused_rba_score(cls2, masks2, masks_layout="bhwq")
+        torch.cuda.synchronize()
+        err2 = max_abs(got2, fused_rba_score_reference(cls2, masks2, masks_layout="bhwq"))
+        row[f"max_abs_err_B{b}_K{k2}"] = err2
+        log(f"fused_rba_score B={b} Q={q} K={k2} {h2}x{w2}: err {err2:.3e} (tol {tol:.0e})")
+        if not err2 <= tol:
+            raise RuntimeError(f"fused_rba_score disagrees with its plain version at B={b}, K={k2}: {err2}")
     return row
 
 
@@ -204,7 +250,7 @@ def masked_softmax_phase(cfg, gen):
     from rba_tpu_torch.models.swin import shifted_window_mask
 
     ws, n = cfg.swin.window_size, cfg.swin.window_size**2
-    rows, totals = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    rows, totals = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, cast_ms=0.0, ms_batches=[0.0] * 3)
     worst = 0.0
     for s, masked, nw, nh, c, hp, wp, count in stage_shapes(cfg):
         scores = torch.randn(nw, nh, n, n, generator=gen, device="cuda") * 3
@@ -218,22 +264,36 @@ def masked_softmax_phase(cfg, gen):
                         masked_softmax_reference(scores, bias, mask, torch.float32))
         tol32 = 1e-6
         worst = max(worst, err)
-        t_k = cuda_ms(lambda: masked_softmax(scores, bias, mask, torch.bfloat16))
+        t_all = cuda_ms_batches(lambda: masked_softmax(scores, bias, mask, torch.bfloat16))
+        t_k = t_all[0]
         t_p = cuda_ms(lambda: masked_softmax_reference(scores, bias, mask, torch.bfloat16))
+        # the same fp32 reads and bf16 writes with no arithmetic, bias or mask: what the memory gives
+        t_c = cuda_ms(lambda: scores.to(torch.bfloat16))
         nbytes = scores.numel() * (4 + 2) + bias.numel() * 4 + (mask.numel() * 4 if masked else 0)
         flops = 7.0 * scores.numel()  # per score: 1-2 adds, max, subtract, exp, sum, divide
         b_ms, b_by = bound_ms(nbytes, flops, "float32")
         row = dict(stage=s, masked=masked, nW=nw, nh=nh, N=n, blocks_per_image=count, max_abs_err_bf16=err,
-                   max_bf16_ulps=ulps, max_abs_err_fp32=err32, tol_fp32=tol32, ms=t_k, plain_ms=t_p,
-                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+                   max_bf16_ulps=ulps, max_abs_err_fp32=err32, tol_fp32=tol32, ms=t_k, ms_batches=t_all, plain_ms=t_p,
+                   cast_ms=t_c, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
         rows.append(row)
         log(f"masked_softmax stage {s} {'shifted' if masked else 'plain   '} nW={nw:4d} nh={nh:2d}: "
             f"err bf16 {err:.3e} ({ulps:.2f} ulp, tol 1) fp32 {err32:.3e} (tol {tol32:.0e}) | "
-            f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            f"kernel {t_k:.4f} ms (3 batches {_fmt(t_all)}), plain {t_p:.4f} ms, cast to bf16 alone {t_c:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
         if not (ulps <= 1.0 and err32 <= tol32):
             raise RuntimeError(f"masked_softmax disagrees with its plain version: {row}")
-        for key, t in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", b_ms)):
+        for key, t in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", b_ms), ("cast_ms", t_c)):
             totals[key] += count * t
+        totals["ms_batches"] = [a + count * t for a, t in zip(totals["ms_batches"], t_all)]
+        if masked and s == 1:  # a batch of two images: window w takes mask[w % nW]
+            scores2 = torch.randn(2 * nw, nh, n, n, generator=gen, device="cuda") * 3
+            got2 = masked_softmax(scores2, bias, mask, torch.bfloat16)
+            torch.cuda.synchronize()
+            ulps2 = bf16_ulps(got2, masked_softmax_reference(scores2, bias, mask, torch.bfloat16))
+            row["max_bf16_ulps_batch2"] = ulps2
+            log(f"masked_softmax stage {s} shifted, batch 2 (2 nW = {2 * nw} windows): {ulps2:.2f} ulp (tol 1)")
+            if not ulps2 <= 1.0:
+                raise RuntimeError(f"masked_softmax disagrees with its plain version at batch 2: {ulps2} ulp")
     return rows, totals, worst
 
 
@@ -254,7 +314,7 @@ def fused_mlp_phase(gen):
     def randn(*shape, scale=1.0, shift=0.0):
         return torch.randn(*shape, generator=gen, device="cuda") * scale + shift
 
-    rows, totals = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    rows, totals = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ms_batches=[0.0] * 3)
     worst = 0.0
     for t, c, count in FUSED_MLP_SHAPES:
         x32 = randn(t, c) * 2
@@ -276,24 +336,26 @@ def fused_mlp_phase(gen):
                 ok = err <= tol and share >= 0.999
                 if count:
                     worst = max(worst, err)
-            t_k = cuda_ms(lambda: fused_mlp_residual(x, *params))
+            t_all = cuda_ms_batches(lambda: fused_mlp_residual(x, *params))
+            t_k = t_all[0]
             t_p = cuda_ms(lambda: fused_mlp_residual_reference(x, *params))
             nbytes = 2 * x.numel() * x.element_size() + sum(p.numel() for p in params) * 4
             flops = 2.0 * 2 * t * c * 4 * c
             dname = "bfloat16" if dtype == torch.bfloat16 else "float32"
             b_ms, b_by = bound_ms(nbytes, flops, dname)
             row = dict(T=t, C=c, dtype=dname, calls_per_image=count, max_abs_err=err, tol=tol,
-                       share_within_2e_2=share, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                       share_within_2e_2=share, ms=t_k, ms_batches=t_all, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                        bytes=nbytes, flops=flops)
             rows.append(row)
             log(f"fused_mlp T={t:6d} C={c:3d} {dname:8s}: err {err:.3e} (tol {tol:.3e}"
                 + (f", {share:.6f} within 2e-2" if share is not None else "") + ") | "
-                f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+                f"kernel {t_k:.4f} ms (3 batches {_fmt(t_all)}), plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
             if not ok:
                 raise RuntimeError(f"fused_mlp_residual disagrees with its plain version: {row}")
             if dtype == torch.bfloat16:  # the serving dtype
                 for key, tm in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", b_ms)):
                     totals[key] += count * tm
+                totals["ms_batches"] = [a + count * tm for a, tm in zip(totals["ms_batches"], t_all)]
     return rows, totals, worst
 
 
@@ -384,13 +446,14 @@ def serve_phase(name, cfg, model, images, attention, per_image):
     return out, scores, scores32
 
 
-def profile_phase(path, cfg, model, image, attention, tensor_core_kernels, top: int = 10):
+def profile_phase(path, cfg, model, image, attention, redesigned, top: int = 10):
     """torch.profiler over one request through ``maskformer_infer_rba``: each layer's
     host span, device span and device busy time (read from the entry's own
     ``record_function`` spans), the card's idle share of the request's wall time, and
-    the kernels that take the most device time.  Fails unless each of
-    ``tensor_core_kernels`` (the bf16 kernels' names) ran and its CUDA-core fp32
-    counterpart did not."""
+    the kernels that take the most device time.  ``redesigned`` maps the name of each
+    kernel the path must run to the name of the kernel it superseded (or the fp32
+    CUDA-core counterpart that a bf16 request must not take): fails unless the first
+    ran and the second did not."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -409,14 +472,14 @@ def profile_phase(path, cfg, model, image, attention, tensor_core_kernels, top: 
     if busy_ms == 0:
         log(f"{path} profile: the profiler recorded no device time (not measured)")
         return dict(wall_ms=wall_ms, busy_ms=None, idle_share=None, layers=None, top=[])
-    tensor_core = []
-    for name in tensor_core_kernels:  # "x_mma_kernel<" ran, "x_kernel<" (fp32, CUDA cores) did not
-        ran = [r for r in kernels if f"{name}_mma_kernel<" in r[0]]
-        old = [r[0] for r in kernels if f"{name}_kernel<" in r[0]]
-        if not ran or old:
-            raise RuntimeError(f"{path}: the bf16 request ran {[r[0] for r in ran]} and {old} for {name}; expected "
-                               "the tensor-core kernel only")
-        tensor_core += ran
+    hand = []
+    for new, old in redesigned.items():
+        ran = [r for r in kernels if new in r[0]]
+        stale = [r[0] for r in kernels if old in r[0]]
+        if not ran or stale:
+            raise RuntimeError(f"{path}: the request ran {[r[0] for r in ran]} and {stale}; expected {new} "
+                               f"and no {old}")
+        hand += ran
     events = list(prof.events())
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     host_spans = {e.name: e.time_range for e in events if e.device_type == DeviceType.CPU and e.name in LAYERS}
@@ -434,13 +497,13 @@ def profile_phase(path, cfg, model, image, attention, tensor_core_kernels, top: 
                             device_span_ms=span.elapsed_us() / 1e3 if span else 0.0, device_busy_ms=busy)
     out = dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms, layers=layers,
                top=[dict(kernel=k[:120], ms=t, calls=c) for k, t, c in kernels[:top]],
-               tensor_core=[dict(kernel=k[:120], ms=t, calls=c) for k, t, c in tensor_core])
+               hand_kernels=[dict(kernel=k[:120], ms=t, calls=c) for k, t, c in hand])
     log(f"{path} profile of one request (profiler on): wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
         f"idle share {out['idle_share']:.3f}; by layer, host span / device span / device busy ms: "
         + "; ".join(f"{k} {v['host_ms']:.2f} / {v['device_span_ms']:.2f} / {v['device_busy_ms']:.2f}"
                     for k, v in layers.items()))
     for title, rows in ((f"{path} top kernels by device time:", out["top"]),
-                        (f"{path} its bf16 tensor-core kernels:", out["tensor_core"])):
+                        (f"{path} its hand kernels:", out["hand_kernels"])):
         log(title)
         for r in rows:
             log(f"  {r['ms']:8.3f} ms  x{r['calls']:<4d} {r['kernel']}")
@@ -484,17 +547,20 @@ def main() -> int:
     n_blocks = sum(cfg.swin.depths)
     fused_mlp_blocks = sum(d for i, d in enumerate(cfg.swin.depths) if cfg.swin.stage_dim(i) <= 256)
     paths = [
-        ("path1", cfg, "fused", {"window_attention": n_blocks, "fused_rba_score": 1}, ["window_attention"]),
+        ("path1", cfg, "fused", {"window_attention": n_blocks, "fused_rba_score": 1},
+         {"window_attention_mma_kernel": "window_attention_kernel", "fused_rba_mma_kernel": "fused_rba_kernel"}),
         ("path2", cfg2, "fused_softmax",
-         {"masked_softmax": n_blocks, "fused_mlp_residual": fused_mlp_blocks, "fused_rba_score": 1}, ["fused_mlp"]),
+         {"masked_softmax": n_blocks, "fused_mlp_residual": fused_mlp_blocks, "fused_rba_score": 1},
+         {"fused_mlp_mma_kernel": "fused_mlp_kernel", "masked_softmax_walk_kernel": "masked_softmax_kernel",
+          "fused_rba_mma_kernel": "fused_rba_kernel"}),
     ]
-    for name, pcfg, attention, per_image, tensor_core in paths:
+    for name, pcfg, attention, per_image, redesigned in paths:
         t0 = time.perf_counter()
         model = build_model(pcfg, seed=0)
         torch.cuda.synchronize()
         log(f"build_model(swin_b_1dl, mlp_impl={pcfg.swin.mlp_impl!r}) on the card: {time.perf_counter() - t0:.2f} s")
         serve[name], scores[name], scores32[name] = serve_phase(name, pcfg, model, images, attention, per_image)
-        prof[name] = profile_phase(name, pcfg, model, images[1], attention, tensor_core)
+        prof[name] = profile_phase(name, pcfg, model, images[1], attention, redesigned)
         del model
 
     # the two paths compute one function on the same seeded weights
@@ -509,20 +575,24 @@ def main() -> int:
         dict(name="window_attention", route="cuda", source="rba_tpu_torch/csrc/window_attention.cu",
              replaces="rba_tpu/ops/pallas/window_attention.py:169",
              launches=serve["path1"]["launches"]["window_attention"], max_abs_err=wa_err, ms=wa["ms"],
-             plain_ms=wa["plain_ms"], bound_ms=wa["bound_ms"], bound_by="bytes", library_ms=wa["library_ms"]),
+             plain_ms=wa["plain_ms"], bound_ms=wa["bound_ms"], bound_by="bytes", library_ms=wa["library_ms"],
+             ms_batches=wa["ms_batches"]),
         dict(name="fused_rba_score", route="cuda", source="rba_tpu_torch/csrc/fused_rba.cu",
              replaces="rba_tpu/ops/pallas/fused_rba.py:111",
              launches=serve["path2"]["launches"]["fused_rba_score"], max_abs_err=rba_row["max_abs_err"],
              ms=rba_row["ms"], plain_ms=rba_row["plain_ms"], bound_ms=rba_row["bound_ms"],
-             bound_by=rba_row["bound_by"], library_ms=None),
+             bound_by=rba_row["bound_by"], library_ms=None, ms_batches=rba_row["ms_batches"],
+             bound_built_ms=rba_row["bound_built_ms"], bound_built_by=rba_row["bound_built_by"]),
         dict(name="masked_softmax", route="cuda", source="rba_tpu_torch/csrc/masked_softmax.cu",
              replaces="rba_tpu/ops/pallas/masked_softmax.py:77",
              launches=serve["path2"]["launches"]["masked_softmax"], max_abs_err=ms_err, ms=ms["ms"],
-             plain_ms=ms["plain_ms"], bound_ms=ms["bound_ms"], bound_by="bytes", library_ms=None),
+             plain_ms=ms["plain_ms"], bound_ms=ms["bound_ms"], bound_by="bytes", library_ms=None,
+             ms_batches=ms["ms_batches"], cast_ms=ms["cast_ms"]),
         dict(name="fused_mlp_residual", route="cuda", source="rba_tpu_torch/csrc/fused_mlp.cu",
              replaces="rba_tpu/ops/pallas/fused_mlp.py:166",
              launches=serve["path2"]["launches"]["fused_mlp_residual"], max_abs_err=mlp_err, ms=mlp["ms"],
-             plain_ms=mlp["plain_ms"], bound_ms=mlp["bound_ms"], bound_by="operations", library_ms=None),
+             plain_ms=mlp["plain_ms"], bound_ms=mlp["bound_ms"], bound_by="operations", library_ms=None,
+             ms_batches=mlp["ms_batches"]),
     ]
     if args.out:
         args.out.mkdir(parents=True, exist_ok=True)
@@ -531,7 +601,8 @@ def main() -> int:
                  masked_softmax=ms_rows, fused_mlp=mlp_rows, serve=serve, paths_fp32_max_diff=cross32,
                  paths_bf16_max_diff_not_gated=cross16, profile=prof, kernels=kernels), indent=1))
     log("(window_attention, masked_softmax and fused_mlp_residual times are per image: each call of one "
-        "1024x2048 request, summed)")
+        "1024x2048 request, summed; ms is the mean of the first batch of 20 calls, ms_batches the means of "
+        "three batches one after the other)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,7 @@
-// Helpers shared by the bf16 tensor-core kernels (built for sm_90a): 16-byte
+// Helpers shared by the tensor-core kernels (built for sm_90a): 16-byte
 // cp.async staging into shared memory, mbarrier-counted bulk copies, ldmatrix
-// fragment loads and the m16n8k16 bf16 mma with fp32 sums.
+// fragment loads, the m16n8k16 bf16 mma and the m16n8k8 TF32 mma, both with
+// fp32 sums.
 //
 // Fragment layout of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, for
 // lane l with g = l / 4 and t = l % 4 (PTX ISA, "Matrix fragments for mma.m16n8k16"):
@@ -12,6 +13,12 @@
 // So the C fragments of two neighbouring 8-column tiles are, once packed to bf16,
 // the A fragment of the 16-deep product that follows: a0, a1 from the first tile's
 // (c0, c1), (c2, c3), and a2, a3 from the second's.
+//
+// Fragment layout of mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, same g and t
+// (PTX ISA, "Matrix fragments for mma.m16n8k8"), one TF32 value per .b32:
+//   A (16 x 8, row-major):  a0 = A[g][t]   a1 = A[g+8][t]   a2 = A[g][t+4]   a3 = A[g+8][t+4]
+//   B (8 x 8, "col"):       b0 = B[t][g]   b1 = B[t+4][g]
+//   C, D (16 x 8, fp32): as above.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -89,6 +96,23 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v rounded to TF32 (10 mantissa bits, nearest, ties away from zero): an fp32 bit
+// pattern with the low 13 bits clear
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// d += a . b on the tensor cores: a 16x8 TF32, b 8x8 TF32, d 16x8 fp32
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -4,8 +4,11 @@ Replaces ``rba_tpu/ops/pallas/fused_rba.py`` ``fused_rba_score``: x4 bilinear
 upsample of the low-res mask logits, sigmoid, contraction over the queries with
 ``softmax(cls)[..., :K]`` and ``-Σ_K tanh``, without the (Q, 4h, 4w) tensor.
 The softmax over the (B, Q, K+1) class logits is a small PyTorch prologue; the
-kernel does the rest.  The source note in the .cu file gives the bound and the
-design.
+kernel does the rest: persistent blocks stage the low-res rows of a tile in
+shared memory, each 4x4 output patch blends its four low-res pixels, and the
+class contraction runs on the tensor cores as three TF32 products of split
+operands, which keeps fp32 accuracy.  The source note in the .cu file gives the
+bound and the design.
 """
 from __future__ import annotations
 
@@ -16,6 +19,18 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+
+SMEM_LIMIT = 227 * 1024  # shared memory one block can have on the H100
+_TILE_COLS = 33  # low-res pixels per staged row (csrc/fused_rba.cu kTileCols)
+_PASS_CLASSES = 24  # classes per pass over the queries (8 * kPassTiles)
+
+
+def smem_bytes(q: int, k: int) -> int:
+    """Shared memory the kernel needs for Q queries and K classes: cls split into two
+    TF32 terms in fragment order, and two staging buffers of 2 low-res rows."""
+    qp = -(-q // 8) * 8
+    kp = -(-k // _PASS_CLASSES) * _PASS_CLASSES
+    return 4 * (qp * kp * 2 + 4 * _TILE_COLS * qp)
 
 
 def _bqhw(mask_pred: torch.Tensor, masks_layout: str) -> torch.Tensor:
@@ -75,8 +90,9 @@ def fused_rba_score(
     if tuple(mask_cls.shape[:2]) != (b, q) or mask_cls.shape[2] < 2:
         raise ValueError(f"mask_cls {tuple(mask_cls.shape)} does not match masks with B={b}, Q={q}")
     k = mask_cls.shape[2] - 1
-    if q * k * 4 > 227 * 1024:
-        raise ValueError(f"Q·K = {q * k} class weights exceed the kernel's shared memory")
+    if smem_bytes(q, k) > SMEM_LIMIT:
+        raise ValueError(f"Q = {q}, K = {k} need {smem_bytes(q, k)} bytes of shared memory, "
+                         f"more than the {SMEM_LIMIT} a block can have")
     cls = torch.softmax(mask_cls, dim=-1)[..., :k].contiguous()
     lib, fn = _kernel()
     out = torch.empty(b, 4 * h, 4 * w, dtype=torch.float32, device=m.device)

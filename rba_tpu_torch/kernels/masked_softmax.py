@@ -5,8 +5,11 @@ Replaces ``rba_tpu/ops/pallas/masked_softmax.py`` ``masked_softmax_bf16``: fp32
 scores plus the relative-position bias and the optional additive shift mask,
 an fp32 softmax, and the probabilities written in the output dtype.  The scores
 come as (B·nW, nh, N, N), the layout of the port's q·kᵀ product; window ``w``
-takes ``mask[w % nW]``.  The source note in the .cu file gives the bound and the
-design.
+takes ``mask[w % nW]``.  A warp keeps one (head, row) with its bias row in
+registers and walks the windows, the warps of a block share the mask row, and
+rows of ``N % 4 == 0`` keys move as 16-byte loads and 8-byte stores; any other
+``N <= 160`` takes the scalar layout.  The source note in the .cu file gives the
+bound and the design.
 """
 from __future__ import annotations
 

@@ -83,6 +83,60 @@ def test_fused_rba_kernel(cuda, k, layout):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("bqk", [(1, 37, 19), (2, 37, 5), (2, 100, 19), (1, 8, 30)],
+                         ids=["Q37", "Q37_B2", "Q100_B2", "Q8_K30"])
+@pytest.mark.parametrize("hw", [(1, 1), (2, 3), (9, 40)])
+def test_fused_rba_kernel_edges(cuda, bqk, hw):
+    """A Q that is not a multiple of 8 or of 4 (4-byte staging, padded queries), two
+    batch elements with different cls, more than 24 classes (a second pass), masks of
+    1 x 1 and 2 x 3 (every output pixel touches the clamped edge) and more than one
+    32-patch tile per row (w = 40)."""
+    b, q, k = bqk
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    mask_cls = torch.randn(b, q, k + 1, generator=gen, device=cuda) * 2
+    m = torch.randn(b, *hw, q, generator=gen, device=cuda) * 2  # bhwq
+    before = tfr.fused_rba_score.launches
+    got = tfr.fused_rba_score(mask_cls, m, masks_layout="bhwq")
+    torch.cuda.synchronize()
+    assert tfr.fused_rba_score.launches == before + 1
+    want = tfr.fused_rba_score_reference(mask_cls, m, masks_layout="bhwq")
+    assert got.shape == want.shape == (b, 4 * hw[0], 4 * hw[1])
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [49, 145, 160])
+@pytest.mark.parametrize("masked", [False, True])
+def test_masked_softmax_kernel_any_n(cuda, out_dtype, n, masked):
+    """N = 49 and 145 (rows not 16-byte aligned: the scalar layout), N = 160 (the most
+    keys; 40 groups of 4), 3 heads (a block with idle warps) and a batch of 2 nW
+    windows with a random 0 / -100 mask."""
+    nh, nw = 3, 5
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    scores = torch.randn(2 * nw, nh, n, n, generator=gen, device=cuda) * 3
+    bias = torch.randn(nh, n, n, generator=gen, device=cuda)
+    mask = (torch.rand(nw, n, n, generator=gen, device=cuda) < 0.3).float() * -100 if masked else None
+    got = tms.masked_softmax(scores, bias, mask, out_dtype)
+    torch.cuda.synchronize()
+    want = tms.masked_softmax_reference(scores, bias, mask, out_dtype)
+    if out_dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-7, atol=2.0**-133)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def test_masked_softmax_kernel_unaligned_view(cuda):
+    """Scores that start 4 bytes into an allocation take the scalar layout, not the
+    16-byte loads."""
+    n, nh, nw = 144, 2, 3
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    scores = (torch.randn(nw * nh * n * n + 1, generator=gen, device=cuda) * 3)[1:].view(nw, nh, n, n)
+    bias = torch.randn(nh, n, n, generator=gen, device=cuda)
+    got = tms.masked_softmax(scores, bias, None, torch.float32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tms.masked_softmax_reference(scores, bias, None, torch.float32), rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(4, 2, 8, 12), (12, 4, 36, 48)], ids=["N16", "N144"])
 @pytest.mark.parametrize("masked", [False, True])
@@ -136,6 +190,9 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
         twa.window_attention(qkv, torch.zeros(2, 16, 16, device=cuda), None, 2, 0.125)
     with pytest.raises(ValueError):  # N = 200 > 160 keys
         tms.masked_softmax(torch.zeros(1, 2, 200, 200, device=cuda), torch.zeros(2, 200, 200, device=cuda), None)
+    with pytest.raises(ValueError):  # Q = 2000: the staged rows exceed a block's shared memory
+        tfr.fused_rba_score(torch.zeros(1, 2000, 20, device=cuda), torch.zeros(1, 4, 4, 2000, device=cuda),
+                            masks_layout="bhwq")
     with pytest.raises(ValueError):  # C = 192: not a multiple of 128
         c = 192
         tfm.fused_mlp_residual(torch.zeros(8, c, device=cuda), *(torch.zeros(*s, device=cuda) for s in
