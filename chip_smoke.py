@@ -8,6 +8,9 @@ requests at 1024x2048 through both serving paths and check the score maps.
 - Path 2: ``maskformer_infer_rba(..., attention="fused_softmax")`` on ``swin_b_1dl()``
   with ``mlp_impl="fused"``: Kernel C (masked softmax) in every block, Kernel D
   (fused MLP) in the blocks of stages 0 and 1, Kernel B once.
+- Evaluation: ``OODEvaluator(cfg, model).evaluate_dataset`` over structured synthetic
+  1024x2048 scenes through path 1 (Kernel A in every block, Kernel B once per image),
+  with score histograms on the card, and the exact all-pixel path beside it.
 
 Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
@@ -25,12 +28,15 @@ import argparse
 import dataclasses
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -48,6 +54,9 @@ E2E_FP32_TOL = 1e-3  # score-map bound of rba_tpu's selfcheck
 BF16_ULP = 2.0**-7  # one bf16 ulp, relative to the value, at most
 BF16_TINY = 2.0**-133  # spacing of bf16's subnormals
 BF16_SHARE = 0.999  # least share of bf16 outputs within one ulp of their own value
+EVAL_IMAGES = 8  # images of the eval phase
+BOUND_SLACK = 1e-12  # float64 rounding of the certified bounds' sums
+HIST_REPS = 5  # histogram updates in the profile of the update
 
 
 def log(msg: str) -> None:
@@ -446,6 +455,17 @@ def serve_phase(name, cfg, model, images, attention, per_image):
     return out, scores, scores32
 
 
+def _device_kernels(prof):
+    """(name, device ms, calls) of a profile's device events, the longest first, less the
+    annotation spans that mirror each record_function of ``maskformer.LAYERS``."""
+    from torch.autograd import DeviceType
+
+    from rba_tpu_torch.models.maskformer import LAYERS
+
+    return sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.key not in LAYERS), key=lambda r: -r[1])
+
+
 def profile_phase(path, cfg, model, image, attention, redesigned, top: int = 10):
     """torch.profiler over one request through ``maskformer_infer_rba``: each layer's
     host span, device span and device busy time (read from the entry's own
@@ -465,9 +485,7 @@ def profile_phase(path, cfg, model, image, attention, redesigned, top: int = 10)
         maskformer_infer_rba(model, cfg, image, attention=attention)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events, less the annotation spans that mirror each record_function
-    kernels = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and e.key not in LAYERS), key=lambda r: -r[1])
+    kernels = _device_kernels(prof)
     busy_ms = sum(r[1] for r in kernels)
     if busy_ms == 0:
         log(f"{path} profile: the profiler recorded no device time (not measured)")
@@ -507,6 +525,219 @@ def profile_phase(path, cfg, model, image, attention, redesigned, top: int = 10)
         log(title)
         for r in rows:
             log(f"  {r['ms']:8.3f} ms  x{r['calls']:<4d} {r['kernel']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# OOD evaluation of Swin-B RbA scores on 1024x2048 images (path 1)
+# ---------------------------------------------------------------------------
+
+def _eval_timed(fn, *args, **kw):
+    """(result, seconds, whether the evaluation fell back to the exact path) of one call,
+    by the host clock around work that ends in a synchronize."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out, ms = _timed(fn, *args, **kw)
+    fell_back = any("re-running the exact all-pixel path" in str(w.message) for w in caught)
+    return out, ms / 1e3, fell_back
+
+
+def _profile(name, fn, top: int = 8):
+    """torch.profiler over one call of ``fn``: wall, device busy time, idle share and the
+    kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _device_kernels(prof)
+    busy_ms = sum(r[1] for r in kernels)
+    out = dict(wall_ms=wall_ms, busy_ms=busy_ms or None, idle_share=1 - busy_ms / wall_ms if busy_ms else None,
+               top=[dict(kernel=k[:120], ms=t, calls=c) for k, t, c in kernels[:top]])
+    log(f"eval: profile of {name} (profiler on): wall {wall_ms:.2f} ms, device busy "
+        + (f"{busy_ms:.2f} ms, idle share {out['idle_share']:.3f}" if busy_ms else "not measured"))
+    for r in out["top"]:
+        log(f"  {r['ms']:8.3f} ms  x{r['calls']:<4d} {r['kernel']}")
+    return out
+
+
+def _count_syncs(fn) -> int:
+    """How many times one call of ``fn`` makes the host wait for the card, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def eval_phase(cfg, busy_ms):
+    """The port's OOD evaluation at full Swin-B width on EVAL_IMAGES structured synthetic
+    1024x2048 scenes, made in memory before any timing: the streaming path at cohort 1
+    (launches counted) and 4 (histograms equal count for count), the exact path and its
+    host metrics, the exact metrics inside the certified bounds of histograms of the same
+    score maps, fp32 kernels against their plain versions by metrics, the histogram's
+    device time per image, and the energy score through asinh-binned histograms.
+    ``busy_ms`` is one path-1 request's device busy time, for the histogram's share."""
+    from rba_tpu_torch.data.ood_datasets import SyntheticStructured
+    from rba_tpu_torch.evalx.evaluator import OODEvaluator, make_cohort_fn
+    from rba_tpu_torch.evalx.metrics import (StreamingOODMetrics, histogram_update, metrics_from_histograms,
+                                             to_device)
+    from rba_tpu_torch.models.maskformer import build_model, maskformer_infer_rba
+
+    t0 = time.perf_counter()
+    ds = SyntheticStructured(n=EVAL_IMAGES, hw=IMAGE_HW, seed=0)
+    samples = [ds[i] for i in range(len(ds))]
+    gen_s = time.perf_counter() - t0
+    log(f"eval: generated SyntheticStructured(n={EVAL_IMAGES}, hw={IMAGE_HW}, seed=0) in memory in {gen_s:.2f} s "
+        "of host time (before any timing)")
+    model = build_model(cfg, seed=0)
+    ev = OODEvaluator(cfg, model)
+    wrappers = _wrappers()
+    out = dict(images=EVAL_IMAGES, generate_s=gen_s)
+    ev.score_fn(samples[0].image[None])  # warm-up, and the first metrics call's scipy import
+    metrics_from_histograms(np.ones(2), np.ones(2), with_bounds=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the streaming path: evaluate_dataset at cohort 1, its launches counted, then the
+    # device loop alone (score + histogram per image, no read-back) and cohort 4
+    for fn in wrappers.values():
+        fn.launches = 0
+    m1, s1, fb1 = _eval_timed(ev.evaluate_dataset, samples, cohort=1)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    passes = 2 if fb1 else 1  # a fall-back scores every image again on the exact path
+    n_blocks = sum(cfg.swin.depths)
+    expected = {"window_attention": n_blocks * EVAL_IMAGES * passes, "fused_rba_score": EVAL_IMAGES * passes,
+                "masked_softmax": 0, "fused_mlp_residual": 0}
+    log(f"eval: evaluate_dataset(cohort=1) {s1:.3f} s, {EVAL_IMAGES / s1:.2f} images/s, "
+        f"{'fell back to the exact path (not certified)' if fb1 else 'certified streaming result'}; "
+        f"metrics {m1}; launches {launches}")
+    if launches != expected:
+        raise RuntimeError(f"eval: launches {launches}, expected {expected}")
+    stream = StreamingOODMetrics()
+
+    def stream_all():
+        for smp in samples:
+            stream.update(ev.score_fn(smp.image[None])[0], smp.label.astype("uint8"))
+
+    _, s_loop = _timed(stream_all)
+    s_loop /= 1e3
+    t0 = time.perf_counter()  # what evaluate_dataset does after its loop, on the host
+    stream_certified = not stream.clipped and stream.certified()
+    qerr = stream.quantization_error(stream.compute())
+    s_cert = time.perf_counter() - t0
+    log(f"eval: streaming device loop alone (upload, score, histogram update per image, no read-back): "
+        f"{s_loop:.3f} s, {EVAL_IMAGES / s_loop:.2f} images/s; then clipped + certified() + compute() "
+        f"{s_cert:.3f} s of host time; certified {stream_certified}, quantization error {qerr}")
+    probe = StreamingOODMetrics()
+
+    def one_step():
+        probe.update(ev.score_fn(samples[1].image[None])[0], samples[1].label.astype("uint8"))
+
+    step = _profile("one streaming step (upload, score, histogram update)", one_step)
+    step["host_syncs"] = _count_syncs(one_step)
+    log(f"eval: host synchronisations in one streaming step (sync-debug warnings): {step['host_syncs']}")
+    m4, s4, fb4 = _eval_timed(ev.evaluate_dataset, samples, cohort=4)
+    log(f"eval: evaluate_dataset(cohort=4) {s4:.3f} s, {EVAL_IMAGES / s4:.2f} images/s, fell back {fb4}; "
+        f"metrics {m4}")
+    cohort = StreamingOODMetrics()
+    fn = make_cohort_fn(cfg, model, "rba", False, cohort.bins, cohort.range, "linear")
+    for i in range(0, EVAL_IMAGES, 4):
+        packed = torch.stack([torch.cat([to_device(smp.image, "cuda"),
+                                         to_device(smp.label.astype("uint8"), "cuda")[..., None]], -1)
+                              for smp in samples[i:i + 4]])
+        cohort.absorb(*fn(packed), packed.shape[0] * IMAGE_HW[0] * IMAGE_HW[1])
+    same = bool(torch.equal(cohort.counts, stream.counts)) and float(cohort.smin) == float(stream.smin) \
+        and float(cohort.smax) == float(stream.smax)
+    log(f"eval: cohort-4 histograms equal to cohort 1's count for count: {same}; metrics equal: {m4 == m1}")
+    if not (same and m4 == m1 and fb4 == fb1):
+        raise RuntimeError("eval: cohort 4 differs from cohort 1")
+
+    # the exact path: scores to the host, then numpy's all-pixel metrics
+    (scores, gts), s_scores, _ = _eval_timed(ev.compute_anomaly_scores, samples)
+    t0 = time.perf_counter()
+    exact = ev.evaluate_ood(scores, gts)
+    s_host = time.perf_counter() - t0
+    log(f"eval: exact path: scoring with score maps to the host {s_scores:.3f} s ({EVAL_IMAGES / s_scores:.2f} "
+        f"images/s); exact_ood_metrics on {scores.size} pixels {s_host:.3f} s of host time; metrics {exact}")
+    if fb1 and exact != m1:
+        raise RuntimeError(f"eval: the fall-back gave {m1}, the exact path {exact}")
+    fresh = StreamingOODMetrics()
+    for s, lab in zip(scores, gts):
+        fresh.update(to_device(s, "cuda"), lab.astype("uint8"))
+    bounds = fresh.compute()
+    clipped, certified = fresh.clipped, fresh.certified()
+    names = {"auroc": "AUROC", "aupr": "AUPRC", "fpr95": "FPR@95TPR"}
+    inside = {k: bounds[f"{n}_lo"] - BOUND_SLACK <= exact[k] <= bounds[f"{n}_hi"] + BOUND_SLACK
+              for k, n in names.items()}
+    log(f"eval: certified bounds of histograms of the same score maps (clipped {clipped}, certified {certified}): "
+        + ", ".join(f"{k} {bounds[f'{n}_lo']:.6f} <= {exact[k]:.6f} <= {bounds[f'{n}_hi']:.6f}"
+                    for k, n in names.items()))
+    if clipped or not all(inside.values()):
+        raise RuntimeError(f"eval: exact metrics outside their certified bounds: {inside} (clipped {clipped})")
+
+    # fp32: the metrics of the kernels' score maps against the plain versions'
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    fp32 = {}
+    for plain in (False, True):
+        ev32 = OODEvaluator(cfg32, model, score=lambda x, plain=plain: maskformer_infer_rba(
+            model, cfg32, to_device(x, "cuda"), plain=plain))
+        fp32["plain" if plain else "kernels"] = ev32.evaluate_ood(*ev32.compute_anomaly_scores(samples[:2]))
+    fp32_diff = max(abs(fp32["kernels"][k] - fp32["plain"][k]) for k in names)
+    log(f"eval: fp32 metrics on 2 images, kernels {fp32['kernels']} vs plain versions {fp32['plain']}: "
+        f"max diff {fp32_diff:.3e} (bound {E2E_FP32_TOL:.0e})")
+    if not fp32_diff <= E2E_FP32_TOL:
+        raise RuntimeError(f"eval: fp32 metrics of kernels and plain versions differ by {fp32_diff}")
+
+    # the histogram's device time on one real score map of this evaluation
+    s_dev, lab_dev = to_device(scores[0], "cuda"), to_device(gts[0].astype("uint8"), "cuda")
+    hist_ms = cuda_ms_batches(lambda: histogram_update(s_dev, lab_dev))
+    timing = StreamingOODMetrics()
+    upd_ms = cuda_ms_batches(lambda: timing.update(s_dev, lab_dev))
+    upd_prof = _profile(f"{HIST_REPS} histogram updates (StreamingOODMetrics.update)",
+                        lambda: [timing.update(s_dev, lab_dev) for _ in range(HIST_REPS)])
+    # update must queue device work only: it raises here if it synchronises with the host
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        timing.update(s_dev, gts[0].astype("uint8"))  # labels from the host, through pinned memory
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    nbytes = s_dev.numel() * 5  # each score and label read once; the counts are the atomics' cost
+    share = upd_ms[0] / busy_ms if busy_ms else None
+    log(f"eval: histogram_update per image {_fmt(hist_ms)} ms (3 batches; zero-filled 2x2^22 int64 included), "
+        f"StreamingOODMetrics.update per image {_fmt(upd_ms)} ms (the evaluation's own step), "
+        f"bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; no host synchronisation in update (checked); "
+        "share of a path-1 request's device busy time "
+        + (f"{share:.3f}" if share is not None else "not measured"))
+
+    # the energy score: unbounded, binned in asinh space
+    m_e, s_e, fb_e = _eval_timed(OODEvaluator(cfg, model, score="energy").evaluate_dataset, samples[:2])
+    log(f"eval: energy score on 2 images through asinh histograms: {m_e}, "
+        f"{'fell back to the exact path' if fb_e else 'certified'}, {s_e:.3f} s")
+    if not all(math.isfinite(v) for v in m_e.values()):
+        raise RuntimeError(f"eval: energy metrics not finite: {m_e}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"eval: peak device memory of the phase {peak_gib:.2f} GiB")
+    out.update(cohort1=dict(metrics=m1, s=s1, images_per_s=EVAL_IMAGES / s1, fell_back=fb1, launches=launches),
+               streaming_loop=dict(s=s_loop, images_per_s=EVAL_IMAGES / s_loop, certified=stream_certified,
+                                   quantization_error=qerr, certify_host_s=s_cert, profile_one_step=step),
+               cohort4=dict(metrics=m4, s=s4, images_per_s=EVAL_IMAGES / s4, fell_back=fb4, histograms_equal=same),
+               exact=dict(metrics=exact, scoring_s=s_scores, host_metrics_s=s_host, pixels=int(scores.size)),
+               bounds=dict(bounds, clipped=clipped, certified=certified),
+               fp32=dict(fp32, max_diff=fp32_diff, bound=E2E_FP32_TOL),
+               histogram=dict(histogram_update_ms=hist_ms, update_ms=upd_ms, update_profile=upd_prof,
+                              update_profile_reps=HIST_REPS, bytes_bound_ms=nbytes / HBM_BYTES_PER_S
+                              * 1e3, share_of_busy=share),
+               energy=dict(metrics=m_e, s=s_e, fell_back=fb_e), peak_gib=peak_gib)
     return out
 
 
@@ -571,18 +802,22 @@ def main() -> int:
     if not cross32 <= E2E_FP32_TOL:
         raise RuntimeError(f"fp32 score maps of path 2 and path 1 differ by {cross32} > {E2E_FP32_TOL}")
 
+    evaluation = eval_phase(cfg, prof["path1"]["busy_ms"])
+    eval_launches = evaluation["cohort1"]["launches"]
+
     kernels = [
         dict(name="window_attention", route="cuda", source="rba_tpu_torch/csrc/window_attention.cu",
              replaces="rba_tpu/ops/pallas/window_attention.py:169",
              launches=serve["path1"]["launches"]["window_attention"], max_abs_err=wa_err, ms=wa["ms"],
              plain_ms=wa["plain_ms"], bound_ms=wa["bound_ms"], bound_by="bytes", library_ms=wa["library_ms"],
-             ms_batches=wa["ms_batches"]),
+             ms_batches=wa["ms_batches"], launches_eval=eval_launches["window_attention"]),
         dict(name="fused_rba_score", route="cuda", source="rba_tpu_torch/csrc/fused_rba.cu",
              replaces="rba_tpu/ops/pallas/fused_rba.py:111",
              launches=serve["path2"]["launches"]["fused_rba_score"], max_abs_err=rba_row["max_abs_err"],
              ms=rba_row["ms"], plain_ms=rba_row["plain_ms"], bound_ms=rba_row["bound_ms"],
              bound_by=rba_row["bound_by"], library_ms=None, ms_batches=rba_row["ms_batches"],
-             bound_built_ms=rba_row["bound_built_ms"], bound_built_by=rba_row["bound_built_by"]),
+             bound_built_ms=rba_row["bound_built_ms"], bound_built_by=rba_row["bound_built_by"],
+             launches_eval=eval_launches["fused_rba_score"]),
         dict(name="masked_softmax", route="cuda", source="rba_tpu_torch/csrc/masked_softmax.cu",
              replaces="rba_tpu/ops/pallas/masked_softmax.py:77",
              launches=serve["path2"]["launches"]["masked_softmax"], max_abs_err=ms_err, ms=ms["ms"],
@@ -599,10 +834,11 @@ def main() -> int:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             dict(card=smi, torch=torch.__version__, build_s=built, window_attention=wa_rows, fused_rba=rba_row,
                  masked_softmax=ms_rows, fused_mlp=mlp_rows, serve=serve, paths_fp32_max_diff=cross32,
-                 paths_bf16_max_diff_not_gated=cross16, profile=prof, kernels=kernels), indent=1))
+                 paths_bf16_max_diff_not_gated=cross16, profile=prof, eval=evaluation, kernels=kernels), indent=1))
     log("(window_attention, masked_softmax and fused_mlp_residual times are per image: each call of one "
         "1024x2048 request, summed; ms is the mean of the first batch of 20 calls, ms_batches the means of "
-        "three batches one after the other)")
+        "three batches one after the other; launches count one request of a serving path, launches_eval the "
+        f"eval phase's evaluate_dataset over {EVAL_IMAGES} images)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

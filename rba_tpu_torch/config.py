@@ -5,13 +5,16 @@ A copy, not an import, of the matching dataclasses in ``rba_tpu/config.py``
 of ``InputConfig`` and the model part of ``RbAConfig``) and of its presets.
 Field names and defaults are the same, so a config of one package can be
 rebuilt field by field in the other.  Options the port does not run yet keep
-their field and are refused by ``check_supported``.
+their field and are refused by ``check_supported``.  ``load_d2_config`` reads a
+Detectron2 ``config.yaml`` (with its ``_BASE_`` chain) into these fields, with the
+values ``rba_tpu.config.load_d2_config`` gives them.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -123,6 +126,173 @@ def check_supported(cfg: RbAConfig) -> None:
         )
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}")
+
+
+# ---------------------------------------------------------------------------
+# Detectron2 YAML: _BASE_ inheritance and the !!python eval tag, which the
+# reference configs use for MIN_SIZE_TRAIN.  yaml is imported where a file is
+# read, so the package imports without PyYAML.
+# ---------------------------------------------------------------------------
+
+def _eval_constructor(loader, node):
+    (expr,) = loader.construct_sequence(node)
+    # the corpus only uses range/int arithmetic; no builtins beyond these
+    return eval(expr, {"__builtins__": {}}, {"range": range, "int": int, "float": float})
+
+
+def _d2_yaml_loader():
+    import yaml
+
+    class _D2YamlLoader(yaml.SafeLoader):
+        pass
+
+    _D2YamlLoader.add_constructor("tag:yaml.org,2002:python/object/apply:eval", _eval_constructor)
+    return _D2YamlLoader
+
+
+def _deep_merge(base: Dict, child: Dict) -> Dict:
+    out = dict(base)
+    for k, v in child.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = _deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def load_yaml_with_base(path: str) -> Dict[str, Any]:
+    """Load a D2 YAML, following relative ``_BASE_`` chains and deep-merging
+    the child over its base (child wins)."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.load(f, Loader=_d2_yaml_loader()) or {}
+    base_rel = raw.pop("_BASE_", None)
+    if base_rel:
+        base_path = base_rel if os.path.isabs(base_rel) else os.path.join(
+            os.path.dirname(os.path.abspath(path)), base_rel
+        )
+        raw = _deep_merge(load_yaml_with_base(base_path), raw)
+    return raw
+
+
+def _get(d: Dict[str, Any], path: str, default=None):
+    cur: Any = d
+    for part in path.split("."):
+        if not isinstance(cur, dict) or part not in cur:
+            return default
+        cur = cur[part]
+    return cur
+
+
+# config feature names → backbone output keys: the MiT backbone's stage1..4 are
+# emitted as res2..res5
+_FEATURE_ALIASES = {"stage1": "res2", "stage2": "res3", "stage3": "res4", "stage4": "res5"}
+
+
+def _features(names) -> Tuple[str, ...]:
+    return tuple(_FEATURE_ALIASES.get(n, n) for n in names)
+
+
+def _int(v, default: int) -> int:
+    """Tolerant int coercion: the reference corpus contains a literal typo
+    (wideresnet 1dl config ``DEC_LAYERS: 2z``) that YAML reads as a string —
+    take the leading integer rather than refusing the whole config."""
+    if isinstance(v, bool):
+        return int(v)
+    if isinstance(v, (int, float)):
+        return int(v)
+    import re
+
+    m = re.match(r"\s*(-?\d+)", str(v))
+    return int(m.group(1)) if m else default
+
+
+_BACKBONES = {
+    "D2SwinTransformer": "swin",
+    "D2ViT": "vit",
+    "D2MViT": "mvit",
+    "build_wideresnet38_backbone": "wideresnet38",
+    "build_wideresnet_backbone": "wideresnet38",
+    "WiderResNetA2": "wideresnet38",
+    "WiderResNet38A2": "wideresnet38",
+    "build_resnet_backbone": "resnet",
+    "build_resnet_deeplab_backbone": "resnet",
+}
+
+
+def load_d2_config(path: str, **overrides) -> RbAConfig:
+    """Read a frozen Detectron2 ``config.yaml`` of the reference release into the
+    port's config.  Only the keys behind the port's fields are read, each as
+    ``rba_tpu.config.load_d2_config`` reads it; a backbone or head that the port does
+    not run yet loads and is refused by ``check_supported``."""
+    raw = load_yaml_with_base(path)
+
+    model = raw.get("MODEL", {})
+    swin_raw = model.get("SWIN", {})
+    mf = model.get("MASK_FORMER", {})
+    head = model.get("SEM_SEG_HEAD", {})
+
+    name_raw = str(_get(model, "BACKBONE.NAME", ""))
+    backbone = _BACKBONES.get(_get(model, "BACKBONE.NAME", "D2SwinTransformer"), "swin")
+    if name_raw.startswith("mit"):
+        backbone = name_raw  # keep the variant (mit_b0..mit_b5)
+
+    swin = SwinConfig(
+        patch_size=swin_raw.get("PATCH_SIZE", 4),
+        embed_dim=swin_raw.get("EMBED_DIM", 128),
+        depths=tuple(swin_raw.get("DEPTHS", (2, 2, 18, 2))),
+        num_heads=tuple(swin_raw.get("NUM_HEADS", (4, 8, 16, 32))),
+        window_size=swin_raw.get("WINDOW_SIZE", 12),
+        mlp_ratio=swin_raw.get("MLP_RATIO", 4.0),
+        qkv_bias=swin_raw.get("QKV_BIAS", True),
+        qk_scale=swin_raw.get("QK_SCALE", None),
+        ape=swin_raw.get("APE", False),
+        patch_norm=swin_raw.get("PATCH_NORM", True),
+        out_features=tuple(swin_raw.get("OUT_FEATURES", ("res2", "res3", "res4", "res5"))),
+    )
+    pixel_decoder = PixelDecoderConfig(
+        conv_dim=head.get("CONVS_DIM", 256),
+        mask_dim=head.get("MASK_DIM", 256),
+        norm=head.get("NORM", "GN"),
+        transformer_in_features=_features(head.get("DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES", ("res5",))),
+        in_features=_features(head.get("IN_FEATURES", ("res2", "res3", "res4", "res5"))),
+        transformer_enc_layers=head.get("TRANSFORMER_ENC_LAYERS", 6),
+        transformer_nheads=mf.get("NHEADS", 8),
+        enc_n_points=head.get("DEFORMABLE_TRANSFORMER_ENCODER_N_POINTS", 4),
+        name=head.get("PIXEL_DECODER_NAME", "MSDeformAttnPixelDecoder"),
+    )
+    decoder = DecoderConfig(
+        hidden_dim=mf.get("HIDDEN_DIM", 256),
+        num_queries=mf.get("NUM_OBJECT_QUERIES", 100),
+        nheads=mf.get("NHEADS", 8),
+        dim_feedforward=mf.get("DIM_FEEDFORWARD", 2048),
+        # the reference's from_config subtracts 1 from DEC_LAYERS
+        dec_layers=max(_int(mf.get("DEC_LAYERS", 2), 2) - 1, 1),
+        pre_norm=mf.get("PRE_NORM", False),
+        mask_dim=head.get("MASK_DIM", 256),
+        enforce_input_project=mf.get("ENFORCE_INPUT_PROJ", False),
+        num_feature_levels=len(head.get("DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES", ("res5",))),
+        ood_prediction=mf.get("DENSE_HYBRID_LOSS", False),
+        name=mf.get("TRANSFORMER_DECODER_NAME", "MultiScaleMaskedTransformerDecoder"),
+    )
+    input_cfg = InputConfig(
+        pixel_mean=tuple(model.get("PIXEL_MEAN", (123.675, 116.28, 103.53))),
+        pixel_std=tuple(model.get("PIXEL_STD", (58.395, 57.12, 57.375))),
+        size_divisibility=mf.get("SIZE_DIVISIBILITY", 32),
+    )
+    cfg = RbAConfig(
+        backbone_name=backbone,
+        sem_seg_head_name=head.get("NAME", "MaskFormerHead"),
+        swin=swin,
+        pixel_decoder=pixel_decoder,
+        decoder=decoder,
+        input=input_cfg,
+        num_classes=head.get("NUM_CLASSES", 19),
+    )
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg
 
 
 # Presets matching the released checkpoints' architectures.

@@ -5,9 +5,14 @@ a leaf ``kernel`` becomes ``weight`` (a linear's (in, out) transposed to
 (out, in); an HWIO conv kernel to OIHW), a norm's ``scale`` becomes
 ``weight``, ``bias`` stays, and any other leaf (bias tables, embeddings) keeps
 its name.  Leaves may be numpy arrays or anything ``np.asarray`` takes.
+
+``load_params`` reads the pytree from the JAX package's flat ``params.npz``
+(``|``-joined paths), and ``load_checkpoint_params`` builds a model from a model
+directory that holds one.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
@@ -61,3 +66,50 @@ def load_jax_params(model: nn.Module, params: Any) -> nn.Module:
                 raise ValueError(f"{name}: pytree shape {tuple(arr.shape)}, model shape {tuple(p.shape)}")
             p.copy_(torch.tensor(arr, dtype=torch.float32))
     return model
+
+
+_SEP = "|"  # the path separator of the JAX package's params.npz keys
+
+
+def _unflatten(flat: Dict[str, np.ndarray]):
+    root: Dict = {}
+    for key, v in flat.items():
+        parts = key.split(_SEP)
+        cur = root
+        for p in parts[:-1]:
+            cur = cur.setdefault(p, {})
+        cur[parts[-1]] = v
+
+    # convert {"0": .., "1": ..} dicts into lists
+    def listify(node):
+        if isinstance(node, dict):
+            node = {k: listify(v) for k, v in node.items()}
+            if node and all(k.isdigit() for k in node):
+                return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return listify(root)
+
+
+def load_params(path: str):
+    """The parameter pytree stored in a flat ``params.npz`` of the JAX package."""
+    with np.load(path, allow_pickle=False) as z:
+        return _unflatten({k: z[k] for k in z.files})
+
+
+def load_checkpoint_params(model_dir: str, cfg, device=None) -> nn.Module:
+    """The model of ``cfg`` on ``device`` (the card by default, as ``build_model``)
+    holding the weights of ``model_dir/params.npz``.  Released Detectron2 checkpoints
+    (``model_final.pth`` / ``.pkl``) need the Detectron2 loader, which the port does
+    not have yet."""
+    from .models.maskformer import build_model
+
+    npz = os.path.join(model_dir, "params.npz")
+    if os.path.exists(npz):
+        return load_jax_params(build_model(cfg, device=device), load_params(npz))
+    for cand in ("model_final.pth", "model_final.pkl"):
+        if os.path.exists(os.path.join(model_dir, cand)):
+            raise NotImplementedError(
+                f"{model_dir} holds {cand} and no params.npz: the Detectron2 checkpoint loader is not "
+                "ported yet (ROADMAP.md B.5); convert it to params.npz with the JAX package")
+    raise FileNotFoundError(f"no checkpoint (params.npz / model_final.pth) in {model_dir}")

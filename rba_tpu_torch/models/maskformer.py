@@ -169,6 +169,11 @@ def rba_score(sem_seg: torch.Tensor) -> torch.Tensor:
     return -torch.tanh(sem_seg.float()).sum(dim=-3)
 
 
+def energy_score(sem_seg: torch.Tensor, temperature: float = 1.0) -> torch.Tensor:
+    """Energy (PEBAL) outlier score: -T·logsumexp(logit_k / T) over the class axis."""
+    return -temperature * torch.logsumexp(sem_seg.float() / temperature, dim=-3)
+
+
 def _on_model(model: nn.Module, images: torch.Tensor) -> torch.Tensor:
     return images.to(next(model.parameters()).device)
 

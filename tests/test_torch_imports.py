@@ -1,4 +1,4 @@
-"""The port imports neither jax nor rba_tpu, and its entry point defaults to the GPU.
+"""The port imports neither jax nor rba_tpu, and its entry points default to the GPU.
 
 jax is imported at interpreter start-up in some images, so ``sys.modules`` cannot
 show this; the test reads the import statements of every source file instead.
@@ -47,3 +47,15 @@ def test_build_model_defaults_to_the_gpu():
     else:
         with pytest.raises(RuntimeError, match="GPU"):
             build_model(tiny_test_config())
+
+
+def test_sweep_defaults_to_the_gpu(tmp_path):
+    from rba_tpu_torch.evalx import sweep
+
+    args = ["--models_folder", str(tmp_path), "--datasets_folder", str(tmp_path), "--out_path", str(tmp_path / "out"),
+            "--precision", "parity"]
+    if torch.cuda.is_available():
+        sweep.main(args)  # an empty zoo: nothing to evaluate
+    else:
+        with pytest.raises(RuntimeError, match="GPU"):
+            sweep.main(args)

@@ -6,6 +6,20 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+# the dict of tests/test_evaluator.py::test_sweep_cli_on_synthetic: tiny_test_config in D2 keys
+D2_TINY = {
+    "MODEL": {
+        "BACKBONE": {"NAME": "D2SwinTransformer"},
+        "SWIN": {"EMBED_DIM": 32, "DEPTHS": [2, 2], "NUM_HEADS": [2, 4], "WINDOW_SIZE": 4,
+                 "OUT_FEATURES": ["res2", "res3"]},
+        "SEM_SEG_HEAD": {"CONVS_DIM": 64, "MASK_DIM": 64, "NUM_CLASSES": 7,
+                         "DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES": ["res3"],
+                         "IN_FEATURES": ["res2", "res3"], "TRANSFORMER_ENC_LAYERS": 2},
+        "MASK_FORMER": {"HIDDEN_DIM": 64, "NUM_OBJECT_QUERIES": 10, "NHEADS": 4, "DIM_FEEDFORWARD": 128,
+                        "DEC_LAYERS": 3},
+    }
+}
+
 
 def perturbed(params, seed: int, scale: float = 0.02):
     """The pytree as float32 numpy arrays plus seeded N(0, scale²) noise on every leaf,
