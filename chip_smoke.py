@@ -8,9 +8,16 @@ requests at 1024x2048 through both serving paths and check the score maps.
 - Path 2: ``maskformer_infer_rba(..., attention="fused_softmax")`` on ``swin_b_1dl()``
   with ``mlp_impl="fused"``: Kernel C (masked softmax) in every block, Kernel D
   (fused MLP) in the blocks of stages 0 and 1, Kernel B once.
+- Fast serve cell: path 1 on ``fast_serving(swin_b_1dl())`` (bf16 pixel-decoder
+  inputs, bf16 window-attention softmax where the path has one, bf16 one-hot
+  deformable sampling): Kernel A in every block, Kernel B once; the one-hot
+  sampling's kernels and their share of the pixel decoder's busy time.
+- ``attention="xla"``: rba_tpu's default window attention in plain PyTorch, at
+  parity and at ``fast_serving``, beside path 1 (reported, not gated).
 - Evaluation: ``OODEvaluator(cfg, model).evaluate_dataset`` over structured synthetic
   1024x2048 scenes through path 1 (Kernel A in every block, Kernel B once per image),
-  with score histograms on the card, and the exact all-pixel path beside it.
+  with score histograms on the card, and the exact all-pixel path beside it; then
+  ``OODEvaluator(fast_serving(cfg), model)`` over the same scenes.
 
 Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
@@ -57,6 +64,9 @@ BF16_SHARE = 0.999  # least share of bf16 outputs within one ulp of their own va
 EVAL_IMAGES = 8  # images of the eval phase
 BOUND_SLACK = 1e-12  # float64 rounding of the certified bounds' sums
 HIST_REPS = 5  # histogram updates in the profile of the update
+
+
+T_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
@@ -455,15 +465,44 @@ def serve_phase(name, cfg, model, images, attention, per_image):
     return out, scores, scores32
 
 
+def _annotations():
+    """The names of the port's record_function spans: the layers of a request
+    (``maskformer.LAYERS``) and each deformable-sampling call."""
+    from rba_tpu_torch.models.maskformer import LAYERS
+    from rba_tpu_torch.ops.deform_sampling import SPAN
+
+    return (*LAYERS, SPAN)
+
+
 def _device_kernels(prof):
     """(name, device ms, calls) of a profile's device events, the longest first, less the
-    annotation spans that mirror each record_function of ``maskformer.LAYERS``."""
+    annotation spans that mirror each record_function of ``_annotations()``."""
     from torch.autograd import DeviceType
 
-    from rba_tpu_torch.models.maskformer import LAYERS
-
+    spans = _annotations()
     return sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.key not in LAYERS), key=lambda r: -r[1])
+                   if e.device_type == DeviceType.CUDA and e.key not in spans), key=lambda r: -r[1])
+
+
+def _sampling_busy(device, layer_busy_ms):
+    """Device busy ms of the kernels that start inside the deformable-sampling spans
+    (one per encoder layer), those kernels by name, and their share of the pixel
+    decoder's busy time."""
+    from rba_tpu_torch.ops.deform_sampling import SPAN
+
+    spans = [e.time_range for e in device if e.name == SPAN]
+    spans_all = _annotations()
+    inside = [e for e in device if e.name not in spans_all
+              and any(sp.start <= e.time_range.start < sp.end for sp in spans)]
+    by_name = {}
+    for e in inside:
+        ms, calls = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    return dict(spans=len(spans), busy_ms=busy,
+                share_of_pixel_decoder=busy / layer_busy_ms if layer_busy_ms else None,
+                kernels=[dict(kernel=k[:120], ms=ms, calls=c)
+                         for k, (ms, c) in sorted(by_name.items(), key=lambda r: -r[1][0])])
 
 
 def profile_phase(path, cfg, model, image, attention, redesigned, top: int = 10):
@@ -500,6 +539,7 @@ def profile_phase(path, cfg, model, image, attention, redesigned, top: int = 10)
         hand += ran
     events = list(prof.events())
     device = [e for e in events if e.device_type == DeviceType.CUDA]
+    spans_all = _annotations()
     host_spans = {e.name: e.time_range for e in events if e.device_type == DeviceType.CPU and e.name in LAYERS}
     dev_spans = {e.name: e.time_range for e in device if e.name in LAYERS}
     missing = [name for name in LAYERS if name not in host_spans]
@@ -510,18 +550,23 @@ def profile_phase(path, cfg, model, image, attention, redesigned, top: int = 10)
     for name in LAYERS:
         span = dev_spans.get(name)
         busy = (sum(e.time_range.elapsed_us() for e in device
-                    if e.name not in LAYERS and span.start <= e.time_range.start < span.end) / 1e3 if span else 0.0)
+                    if e.name not in spans_all and span.start <= e.time_range.start < span.end) / 1e3 if span else 0.0)
         layers[name] = dict(host_ms=host_spans[name].elapsed_us() / 1e3,
                             device_span_ms=span.elapsed_us() / 1e3 if span else 0.0, device_busy_ms=busy)
+    sampling = _sampling_busy(device, layers["pixel_decoder"]["device_busy_ms"])
     out = dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms, layers=layers,
                top=[dict(kernel=k[:120], ms=t, calls=c) for k, t, c in kernels[:top]],
-               hand_kernels=[dict(kernel=k[:120], ms=t, calls=c) for k, t, c in hand])
+               hand_kernels=[dict(kernel=k[:120], ms=t, calls=c) for k, t, c in hand], sampling=sampling)
     log(f"{path} profile of one request (profiler on): wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
         f"idle share {out['idle_share']:.3f}; by layer, host span / device span / device busy ms: "
         + "; ".join(f"{k} {v['host_ms']:.2f} / {v['device_span_ms']:.2f} / {v['device_busy_ms']:.2f}"
                     for k, v in layers.items()))
+    share = sampling["share_of_pixel_decoder"]
+    log(f"{path} deformable sampling ({sampling['spans']} calls): device busy {sampling['busy_ms']:.3f} ms, "
+        + (f"{share:.3f} of the pixel decoder's busy time" if share is not None else "pixel decoder not measured"))
     for title, rows in ((f"{path} top kernels by device time:", out["top"]),
-                        (f"{path} its hand kernels:", out["hand_kernels"])):
+                        (f"{path} its hand kernels:", out["hand_kernels"]),
+                        (f"{path} the deformable sampling's kernels:", sampling["kernels"])):
         log(title)
         for r in rows:
             log(f"  {r['ms']:8.3f} ms  x{r['calls']:<4d} {r['kernel']}")
@@ -578,19 +623,10 @@ def _count_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def eval_phase(cfg, busy_ms):
-    """The port's OOD evaluation at full Swin-B width on EVAL_IMAGES structured synthetic
-    1024x2048 scenes, made in memory before any timing: the streaming path at cohort 1
-    (launches counted) and 4 (histograms equal count for count), the exact path and its
-    host metrics, the exact metrics inside the certified bounds of histograms of the same
-    score maps, fp32 kernels against their plain versions by metrics, the histogram's
-    device time per image, and the energy score through asinh-binned histograms.
-    ``busy_ms`` is one path-1 request's device busy time, for the histogram's share."""
+def make_scenes():
+    """EVAL_IMAGES structured synthetic 1024x2048 scenes, made in memory, and the host
+    seconds that took."""
     from rba_tpu_torch.data.ood_datasets import SyntheticStructured
-    from rba_tpu_torch.evalx.evaluator import OODEvaluator, make_cohort_fn
-    from rba_tpu_torch.evalx.metrics import (StreamingOODMetrics, histogram_update, metrics_from_histograms,
-                                             to_device)
-    from rba_tpu_torch.models.maskformer import build_model, maskformer_infer_rba
 
     t0 = time.perf_counter()
     ds = SyntheticStructured(n=EVAL_IMAGES, hw=IMAGE_HW, seed=0)
@@ -598,7 +634,22 @@ def eval_phase(cfg, busy_ms):
     gen_s = time.perf_counter() - t0
     log(f"eval: generated SyntheticStructured(n={EVAL_IMAGES}, hw={IMAGE_HW}, seed=0) in memory in {gen_s:.2f} s "
         "of host time (before any timing)")
-    model = build_model(cfg, seed=0)
+    return samples, gen_s
+
+
+def eval_phase(cfg, busy_ms, model, samples, gen_s):
+    """The port's OOD evaluation at full Swin-B width on EVAL_IMAGES structured synthetic
+    1024x2048 scenes (``make_scenes``), on ``model``: the streaming path at cohort 1
+    (launches counted) and 4 (histograms equal count for count), the exact path and its
+    host metrics, the exact metrics inside the certified bounds of histograms of the same
+    score maps, fp32 kernels against their plain versions by metrics, the histogram's
+    device time per image, and the energy score through asinh-binned histograms.
+    ``busy_ms`` is one path-1 request's device busy time, for the histogram's share."""
+    from rba_tpu_torch.evalx.evaluator import OODEvaluator, make_cohort_fn
+    from rba_tpu_torch.evalx.metrics import (StreamingOODMetrics, histogram_update, metrics_from_histograms,
+                                             to_device)
+    from rba_tpu_torch.models.maskformer import maskformer_infer_rba
+
     ev = OODEvaluator(cfg, model)
     wrappers = _wrappers()
     out = dict(images=EVAL_IMAGES, generate_s=gen_s)
@@ -741,6 +792,89 @@ def eval_phase(cfg, busy_ms):
     return out
 
 
+# ---------------------------------------------------------------------------
+# fast_serving and the "xla" branch on path 1's model
+# ---------------------------------------------------------------------------
+
+def fast_phase(cfg, model, images):
+    """The fast serve cell: ``fast_serving(cfg)`` through path 1, counted (Kernel A in
+    every block, Kernel B once per request, no Kernel C or D), against the plain
+    versions on the same weights, and one request profiled: busy time, idle share, top
+    kernels, and the one-hot sampling's kernels and share of the pixel decoder's busy
+    time.  Gates: finite (1, 1024, 2048) maps, the launch counts, the fp32 requests
+    against the plain versions (as on paths 1 and 2), and the redesigned kernels with
+    none they superseded."""
+    from rba_tpu_torch.config import fast_serving
+
+    fcfg = fast_serving(cfg)
+    per_image = {"window_attention": sum(cfg.swin.depths), "fused_rba_score": 1}
+    serve, _, _ = serve_phase("fast", fcfg, model, images, "fused", per_image)
+    prof = profile_phase("fast", fcfg, model, images[1], "fused",
+                         {"window_attention_mma_kernel": "window_attention_kernel",
+                          "fused_rba_mma_kernel": "fused_rba_kernel"})
+    return dict(serve=serve, profile=prof)
+
+
+def xla_phase(cfg, model, images):
+    """rba_tpu's default window attention (``attention="xla"``, plain PyTorch, Kernel B
+    only) at parity and at ``fast_serving``: ms/image (median of N_REQUESTS requests),
+    launches, and one request profiled, beside path 1.  Reported, not gated, apart from
+    the kernels the profile must show (Kernel B, and no Kernel A)."""
+    from rba_tpu_torch.config import fast_serving
+    from rba_tpu_torch.models.maskformer import maskformer_infer_rba
+
+    wrappers = _wrappers()
+    out = {}
+    for name, c in (("parity", cfg), ("fast", fast_serving(cfg))):
+        infer = functools.partial(maskformer_infer_rba, model, c, attention="xla")
+        infer(images[0])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers.values():
+            fn.launches = 0
+        times, finite = [], True
+        for i in range(1, N_REQUESTS + 1):
+            rba, ms = _timed(infer, images[i])
+            times.append(ms)
+            finite = finite and tuple(rba.shape) == (1, *IMAGE_HW) and bool(torch.isfinite(rba).all())
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        log(f"xla_{name} (attention='xla') served {N_REQUESTS} requests: launches {launches}; ms/image "
+            f"{statistics.median(times):.2f} (median; all {[round(t, 2) for t in times]}), finite (1, 1024, 2048) "
+            f"maps {finite}, peak memory {peak_gib:.2f} GiB")
+        prof = profile_phase(f"xla_{name}", c, model, images[1], "xla",
+                             {"fused_rba_mma_kernel": "window_attention"})
+        out[name] = dict(launches=launches, ms_per_image=statistics.median(times), ms_all=times, finite=finite,
+                         peak_gib=peak_gib, profile=prof)
+    return out
+
+
+def fast_eval_phase(cfg, model, samples):
+    """``OODEvaluator(fast_serving(cfg), model).evaluate_dataset`` at cohort 1 over the
+    eval phase's scenes: images/s, whether it certified, and its launches (gated)."""
+    from rba_tpu_torch.config import fast_serving
+    from rba_tpu_torch.evalx.evaluator import OODEvaluator
+
+    ev = OODEvaluator(fast_serving(cfg), model)
+    ev.score_fn(samples[0].image[None])  # warm-up
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    m, s, fell_back = _eval_timed(ev.evaluate_dataset, samples, cohort=1)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    passes = 2 if fell_back else 1  # a fall-back scores every image again on the exact path
+    expected = {"window_attention": sum(cfg.swin.depths) * EVAL_IMAGES * passes,
+                "fused_rba_score": EVAL_IMAGES * passes, "masked_softmax": 0, "fused_mlp_residual": 0}
+    log(f"eval fast_serving: evaluate_dataset(cohort=1) {s:.3f} s, {EVAL_IMAGES / s:.2f} images/s, "
+        f"{'fell back to the exact path (not certified)' if fell_back else 'certified streaming result'}; "
+        f"metrics {m}; launches {launches}")
+    if launches != expected:
+        raise RuntimeError(f"eval fast_serving: launches {launches}, expected {expected}")
+    if not all(math.isfinite(v) for v in m.values()):
+        raise RuntimeError(f"eval fast_serving: metrics not finite: {m}")
+    return dict(metrics=m, s=s, images_per_s=EVAL_IMAGES / s, fell_back=fell_back, launches=launches)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, help="directory for chip_smoke.json, the run's measurements")
@@ -802,22 +936,36 @@ def main() -> int:
     if not cross32 <= E2E_FP32_TOL:
         raise RuntimeError(f"fp32 score maps of path 2 and path 1 differ by {cross32} > {E2E_FP32_TOL}")
 
-    evaluation = eval_phase(cfg, prof["path1"]["busy_ms"])
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    fast = fast_phase(cfg, model, images)
+    xla = xla_phase(cfg, model, images)
+    log(f"path 1 / fast / xla at parity / xla at fast_serving, device busy of one request (ms): "
+        f"{prof['path1']['busy_ms']} / {fast['profile']['busy_ms']} / {xla['parity']['profile']['busy_ms']} / "
+        f"{xla['fast']['profile']['busy_ms']}; ms/image {serve['path1']['ms_per_image']:.2f} / "
+        f"{fast['serve']['ms_per_image']:.2f} / {xla['parity']['ms_per_image']:.2f} / "
+        f"{xla['fast']['ms_per_image']:.2f} ({time.perf_counter() - t0:.1f} s for the fast and xla phases)")
+    samples, gen_s = make_scenes()
+    t0 = time.perf_counter()
+    evaluation = eval_phase(cfg, prof["path1"]["busy_ms"], model, samples, gen_s)
+    evaluation["fast_serving"] = fast_eval_phase(cfg, model, samples)
     eval_launches = evaluation["cohort1"]["launches"]
+    log(f"eval phases: {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         dict(name="window_attention", route="cuda", source="rba_tpu_torch/csrc/window_attention.cu",
              replaces="rba_tpu/ops/pallas/window_attention.py:169",
              launches=serve["path1"]["launches"]["window_attention"], max_abs_err=wa_err, ms=wa["ms"],
              plain_ms=wa["plain_ms"], bound_ms=wa["bound_ms"], bound_by="bytes", library_ms=wa["library_ms"],
-             ms_batches=wa["ms_batches"], launches_eval=eval_launches["window_attention"]),
+             ms_batches=wa["ms_batches"], launches_eval=eval_launches["window_attention"],
+             launches_fast=fast["serve"]["launches"]["window_attention"]),
         dict(name="fused_rba_score", route="cuda", source="rba_tpu_torch/csrc/fused_rba.cu",
              replaces="rba_tpu/ops/pallas/fused_rba.py:111",
              launches=serve["path2"]["launches"]["fused_rba_score"], max_abs_err=rba_row["max_abs_err"],
              ms=rba_row["ms"], plain_ms=rba_row["plain_ms"], bound_ms=rba_row["bound_ms"],
              bound_by=rba_row["bound_by"], library_ms=None, ms_batches=rba_row["ms_batches"],
              bound_built_ms=rba_row["bound_built_ms"], bound_built_by=rba_row["bound_built_by"],
-             launches_eval=eval_launches["fused_rba_score"]),
+             launches_eval=eval_launches["fused_rba_score"], launches_fast=fast["serve"]["launches"]["fused_rba_score"]),
         dict(name="masked_softmax", route="cuda", source="rba_tpu_torch/csrc/masked_softmax.cu",
              replaces="rba_tpu/ops/pallas/masked_softmax.py:77",
              launches=serve["path2"]["launches"]["masked_softmax"], max_abs_err=ms_err, ms=ms["ms"],
@@ -834,11 +982,13 @@ def main() -> int:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             dict(card=smi, torch=torch.__version__, build_s=built, window_attention=wa_rows, fused_rba=rba_row,
                  masked_softmax=ms_rows, fused_mlp=mlp_rows, serve=serve, paths_fp32_max_diff=cross32,
-                 paths_bf16_max_diff_not_gated=cross16, profile=prof, eval=evaluation, kernels=kernels), indent=1))
+                 paths_bf16_max_diff_not_gated=cross16, profile=prof, fast=fast, xla=xla, eval=evaluation,
+                 elapsed_s=time.perf_counter() - T_START, kernels=kernels), indent=1))
     log("(window_attention, masked_softmax and fused_mlp_residual times are per image: each call of one "
         "1024x2048 request, summed; ms is the mean of the first batch of 20 calls, ms_batches the means of "
-        "three batches one after the other; launches count one request of a serving path, launches_eval the "
-        f"eval phase's evaluate_dataset over {EVAL_IMAGES} images)")
+        f"three batches one after the other; launches count the {N_REQUESTS} requests of a serving path, "
+        f"launches_eval the eval phase's evaluate_dataset over {EVAL_IMAGES} images, launches_fast the fast cell's "
+        f"{N_REQUESTS} requests; {time.perf_counter() - T_START:.1f} s in all)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -56,7 +56,14 @@ class PixelDecoderConfig:
     transformer_nheads: int = 8
     enc_n_points: int = 4
     transformer_dim_feedforward: int = 1024
+    common_stride: int = 4
     name: str = "MSDeformAttnPixelDecoder"
+    # deformable sampling per level: "gather", "onehot" (a dense (Lq, HW) row matrix of
+    # the corners' weights), or "auto": onehot where N·M·Lq·H·W <= sampling_onehot_cap
+    sampling_method: str = "auto"
+    # "bfloat16": the one-hot row matrix and the values rounded to bf16, fp32 sums
+    sampling_dtype: str = "float32"
+    sampling_onehot_cap: int = 192 * 1024 * 1024
 
     @property
     def num_feature_levels(self) -> int:
@@ -113,19 +120,22 @@ def check_supported(cfg: RbAConfig) -> None:
         "Swin attention layouts other than partition": cfg.swin.attn_layout != "partition",
         f"Swin mlp_impl={cfg.swin.mlp_impl!r}": cfg.swin.mlp_impl not in ("xla", "fused"),
         "Swin absolute position embedding": cfg.swin.ape,
-        "fast_math (the fast_serving slice)": cfg.fast_math,
-        "a bf16 pixel decoder (the fast_serving slice)": cfg.pixel_decoder_dtype != "float32",
         "weight_quant": cfg.weight_quant != "none",
         "param_dtype other than float32": cfg.param_dtype != "float32",
         "GroupNorm-free pixel decoders": cfg.pixel_decoder.norm != "GN",
+        f"sampling_method={cfg.pixel_decoder.sampling_method!r}":
+            cfg.pixel_decoder.sampling_method not in ("auto", "gather", "onehot"),
     }
     missing = [name for name, hit in later.items() if hit]
     if missing:
         raise NotImplementedError(
             "not ported yet (a later slice of the PyTorch port): " + ", ".join(missing)
         )
-    if cfg.compute_dtype not in ("float32", "bfloat16"):
-        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}")
+    for name in ("compute_dtype", "pixel_decoder_dtype"):
+        if getattr(cfg, name) not in ("float32", "bfloat16"):
+            raise ValueError(f"{name} {getattr(cfg, name)!r}")
+    if cfg.pixel_decoder.sampling_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"sampling_dtype {cfg.pixel_decoder.sampling_dtype!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -260,6 +270,7 @@ def load_d2_config(path: str, **overrides) -> RbAConfig:
         transformer_enc_layers=head.get("TRANSFORMER_ENC_LAYERS", 6),
         transformer_nheads=mf.get("NHEADS", 8),
         enc_n_points=head.get("DEFORMABLE_TRANSFORMER_ENCODER_N_POINTS", 4),
+        common_stride=head.get("COMMON_STRIDE", 4),
         name=head.get("PIXEL_DECODER_NAME", "MSDeformAttnPixelDecoder"),
     )
     decoder = DecoderConfig(
@@ -293,6 +304,23 @@ def load_d2_config(path: str, **overrides) -> RbAConfig:
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
+
+
+def fast_serving(cfg: RbAConfig) -> RbAConfig:
+    """``rba_tpu``'s fast serving mode (``rba_tpu/config.py`` ``fast_serving``): the pixel
+    decoder's inputs in bf16, the bf16 window-attention softmax (``fast_math``), and the
+    one-hot deformable sampling rounded to bf16, with its dispatch cap raised to 256M
+    elements.  Norms, softmaxes, the sums of the sampling and the decoder stay fp32."""
+    return dataclasses.replace(
+        cfg,
+        pixel_decoder_dtype="bfloat16",
+        fast_math=True,
+        pixel_decoder=dataclasses.replace(
+            cfg.pixel_decoder,
+            sampling_onehot_cap=256 * 1024 * 1024,
+            sampling_dtype="bfloat16",
+        ),
+    )
 
 
 # Presets matching the released checkpoints' architectures.

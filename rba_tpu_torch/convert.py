@@ -111,5 +111,5 @@ def load_checkpoint_params(model_dir: str, cfg, device=None) -> nn.Module:
         if os.path.exists(os.path.join(model_dir, cand)):
             raise NotImplementedError(
                 f"{model_dir} holds {cand} and no params.npz: the Detectron2 checkpoint loader is not "
-                "ported yet (ROADMAP.md B.5); convert it to params.npz with the JAX package")
+                "ported yet (ROADMAP.md A.1); convert it to params.npz with the JAX package")
     raise FileNotFoundError(f"no checkpoint (params.npz / model_final.pth) in {model_dir}")

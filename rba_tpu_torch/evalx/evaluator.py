@@ -80,15 +80,17 @@ def prefetch(dataset, limit: int, depth: int = 3):
         yield item
 
 
-def _score_batch(model, cfg: RbAConfig, images: torch.Tensor, score: str, smoothing: bool) -> torch.Tensor:
-    """(B, H, W, 3) images on the model's device → (B, H, W) fp32 anomaly scores."""
+def _score_batch(model, cfg: RbAConfig, images: torch.Tensor, score: str, smoothing: bool,
+                 attention: str = "fused") -> torch.Tensor:
+    """(B, H, W, 3) images on the model's device → (B, H, W) fp32 anomaly scores, through
+    Swin's ``attention`` branch."""
     if score == "dense_hybrid":
         raise NotImplementedError(
             "score 'dense_hybrid' needs the DenseHybrid ood_pred head, which a later slice of the port adds")
     if score == "rba" and not smoothing:
         # the fused RbA tail; exact because evaluation feeds original-resolution images
-        return maskformer_infer_rba(model, cfg, images)
-    logits = maskformer_infer(model, cfg, images)["sem_seg"]
+        return maskformer_infer_rba(model, cfg, images, attention=attention)
+    logits = maskformer_infer(model, cfg, images, attention=attention)["sem_seg"]
     if score == "rba":
         s = rba_score(logits)
     elif score in ("pebal", "energy"):
@@ -104,20 +106,20 @@ def _device(model) -> torch.device:
     return next(model.parameters()).device
 
 
-def make_score_fn(cfg: RbAConfig, model, score: str = "rba", smoothing: bool = False):
+def make_score_fn(cfg: RbAConfig, model, score: str = "rba", smoothing: bool = False, attention: str = "fused"):
     """(image batch, uint8 numpy or tensor) → (B, H, W) anomaly scores on the model's
     device.  Host images go up as uint8 (4x fewer bytes) and are cast there."""
     check_supported(cfg)
     device = _device(model)
 
     def score_fn(images) -> torch.Tensor:
-        return _score_batch(model, cfg, to_device(images, device).float(), score, smoothing)
+        return _score_batch(model, cfg, to_device(images, device).float(), score, smoothing, attention)
 
     return score_fn
 
 
 def make_cohort_fn(cfg: RbAConfig, model, score: str, smoothing: bool,
-                   bins: int, score_range, transform: str):
+                   bins: int, score_range, transform: str, attention: str = "fused"):
     """Cohort scoring: takes a packed (k, H, W, 4) uint8 array (RGB image + label
     plane), uploaded in one host-to-device copy, scores each image at batch 1 and
     accumulates (pos, neg) score histograms and the observed min/max on the device;
@@ -131,7 +133,7 @@ def make_cohort_fn(cfg: RbAConfig, model, score: str, smoothing: bool,
         lo = torch.full((), torch.inf, device=device)  # a fill, not a blocking copy
         hi = torch.full((), -torch.inf, device=device)
         for img, lab in zip(packed[..., :3], packed[..., 3]):
-            s = _score_batch(model, cfg, img[None].float(), score, smoothing)[0]
+            s = _score_batch(model, cfg, img[None].float(), score, smoothing, attention)[0]
             _histogram_into(counts, s, lab, bins, score_range, transform)
             s_lo, s_hi = _scored_range(s, lab)
             lo, hi = torch.minimum(lo, s_lo), torch.maximum(hi, s_hi)
@@ -150,18 +152,22 @@ class OODEvaluator:
 
     ``score`` may be a name ("rba" | "pebal"/"energy" | "dense_hybrid") or a
     custom callable (images_uint8 (B,H,W,3) → (B,H,W) scores), mirroring the
-    reference's pluggable ``anomaly_score_func``."""
+    reference's pluggable ``anomaly_score_func``.  ``attention`` is Swin's
+    window-attention branch (``"fused"``, ``"fused_softmax"`` or ``"xla"``; see
+    ``models/swin.py``), the port's counterpart of ``rba_tpu``'s environment switches."""
 
-    def __init__(self, cfg: RbAConfig, model, score="rba", use_gaussian_smoothing: bool = False):
+    def __init__(self, cfg: RbAConfig, model, score="rba", use_gaussian_smoothing: bool = False,
+                 attention: str = "fused"):
         self.cfg = cfg
         self.model = model
+        self.attention = attention
         self.device = _device(model)
         self.score_name = score if isinstance(score, str) else None
         self.smoothing = use_gaussian_smoothing
         if callable(score):
             self.score_fn = score
         else:
-            self.score_fn = make_score_fn(cfg, model, score, use_gaussian_smoothing)
+            self.score_fn = make_score_fn(cfg, model, score, use_gaussian_smoothing, attention)
 
     # ------------------------------------------------------------------
     # reference-parity (exact) path
@@ -175,7 +181,7 @@ class OODEvaluator:
             gts.append(sample.label)
             if return_preds:
                 x = to_device(sample.image[None], self.device).float()
-                sem = maskformer_infer(self.model, self.cfg, x)["sem_seg"]
+                sem = maskformer_infer(self.model, self.cfg, x, attention=self.attention)["sem_seg"]
                 preds.append(sem.argmax(dim=1)[0].cpu().numpy())
         scores = np.stack(scores)
         gts = np.stack(gts)
@@ -210,7 +216,7 @@ class OODEvaluator:
         metrics = StreamingOODMetrics(score_range=score_range, transform=transform, device=self.device)
         if cohort > 1 and self.score_name is not None:
             fn = make_cohort_fn(self.cfg, self.model, self.score_name, self.smoothing,
-                                metrics.bins, metrics.range, transform)
+                                metrics.bins, metrics.range, transform, self.attention)
             device = self.device
 
             def packed_iter():

@@ -9,9 +9,12 @@ maps, and write ``results.pkl`` / ``results.json``.
 Usage:
     python -m rba_tpu_torch.evalx.sweep \\
         --models_folder ckpts/ --datasets_folder datasets/ \\
-        --model_mode all --dataset_mode all --score_func rba --precision parity
+        --model_mode all --dataset_mode all --score_func rba --precision fast
 
-It runs on the card unless ``--device`` names another (``--device cpu``).  Pass
+It runs on the card unless ``--device`` names another (``--device cpu``).
+``--attention`` picks Swin's window-attention branch: ``fused`` (Kernel A, the
+default), ``fused_softmax`` (Kernel C) or ``xla`` (``rba_tpu``'s default chain in
+plain PyTorch), where ``rba_tpu`` reads its environment switches.  Pass
 ``--shard i/n`` to run the i-th shard of the (model, dataset) work list; results
 merge by file layout.
 """
@@ -58,9 +61,13 @@ def parse_args(argv=None):
     p.add_argument("--exact", action="store_true",
                    help="all-pixel sklearn-equivalent metrics instead of streaming histograms")
     p.add_argument("--precision", default="fast", choices=["fast", "parity", "fp32"],
-                   help="model numerics: 'fast' (bf16 pixel decoder + bf16 attention softmax; "
-                        "not ported yet), 'parity' (bf16 backbone, fp32-pinned pixel decoder, the "
-                        "reference's AMP semantics), 'fp32' (everything fp32)")
+                   help="model numerics: 'fast' (fast_serving: bf16 pixel decoder inputs, bf16 "
+                        "attention softmax, bf16 one-hot deformable sampling), 'parity' (bf16 backbone, "
+                        "fp32-pinned pixel decoder, the reference's AMP semantics), 'fp32' (everything fp32)")
+    p.add_argument("--attention", default="fused", choices=["fused", "fused_softmax", "xla"],
+                   help="Swin's window-attention branch: 'fused' (Kernel A), 'fused_softmax' (Kernel C; "
+                        "under --precision fast the bf16 softmax of 'xla'), 'xla' (rba_tpu's default chain "
+                        "in plain PyTorch)")
     p.add_argument("--shard", default=None, help="i/n work-list sharding for multi-host sweeps")
     p.add_argument("--fuse_models", action="store_true",
                    help="upload each image once and score it with ALL models "
@@ -102,15 +109,13 @@ def save_results(out_path: str, model_name: str, results: dict, verbose: bool):
 
 def load_model(model_dir: str, precision: str = "fast", device=None):
     """(config, model) from ``model_dir``: ``config.yaml`` and ``params.npz``."""
-    from ..config import load_d2_config
+    from ..config import fast_serving, load_d2_config
     from ..convert import load_checkpoint_params
 
-    if precision == "fast":
-        raise NotImplementedError(
-            "--precision fast needs the fast_serving mode (bf16 pixel decoder and fast_math), which a "
-            "later slice of the port adds; pass --precision parity")
     cfg = load_d2_config(os.path.join(model_dir, "config.yaml"))
-    if precision == "fp32":
+    if precision == "fast":
+        cfg = fast_serving(cfg)
+    elif precision == "fp32":
         cfg = dataclasses.replace(cfg, compute_dtype="float32")
     return cfg, load_checkpoint_params(model_dir, cfg, device=device)
 
@@ -142,7 +147,7 @@ def main(argv=None):
     args = parse_args(argv)
     if args.tta or args.sliding_window:
         raise NotImplementedError(
-            "--tta and --sliding-window are not ported yet (ROADMAP.md A.7, serving variants)")
+            "--tta and --sliding-window are not ported yet (ROADMAP.md A.2, serving variants)")
     if args.device is None and not torch.cuda.is_available():
         raise RuntimeError("the sweep runs on the GPU by default and none is available; "
                            "pass --device cpu to run on the CPU")
@@ -222,7 +227,7 @@ def main(argv=None):
                     continue
                 cfg, model = load_model(model_dir, precision=args.precision, device=device)
                 evs[model_name] = OODEvaluator(cfg, model, score=args.score_func,
-                                               use_gaussian_smoothing=args.smoothing)
+                                               use_gaussian_smoothing=args.smoothing, attention=args.attention)
             if not evs:
                 continue
             print(f"evaluating {len(evs)} models on {ds_name} "
@@ -246,7 +251,7 @@ def main(argv=None):
             cfg, model = load_model(model_dir, precision=args.precision, device=device)
             loaded.clear()  # keep one model in memory
             loaded[model_dir] = OODEvaluator(cfg, model, score=args.score_func,
-                                             use_gaussian_smoothing=args.smoothing)
+                                             use_gaussian_smoothing=args.smoothing, attention=args.attention)
         evaluator = loaded[model_dir]
         print(f"evaluating {model_name} on {ds_name} ({len(datasets[ds_name])} images)")
         if args.exact or args.store_anomaly_scores:

@@ -1,11 +1,12 @@
 """MaskFormer with the RbA score (counterpart of ``rba_tpu/models/maskformer.py``).
 
-The serving path: ``preprocess`` → Swin → MSDeformAttn pixel decoder (fp32) →
-masked-attention decoder → RbA tail.  ``maskformer_infer_rba`` hands the
+The serving path: ``preprocess`` → Swin → MSDeformAttn pixel decoder (fp32, or bf16
+inputs under ``fast_serving``) → masked-attention decoder (fp32) → RbA tail.  ``maskformer_infer_rba`` hands the
 decoder's ``bhwq`` masks to the fused RbA kernel, as the JAX package's TPU
 branch does.  Its ``attention`` argument picks Swin's window-attention branch:
-``"fused"`` (Kernel A, path 1) or ``"fused_softmax"`` (Kernel C, path 2, which
-with ``SwinConfig.mlp_impl="fused"`` also runs Kernel D); see ``models/swin.py``.
+``"fused"`` (Kernel A, path 1), ``"fused_softmax"`` (Kernel C, path 2, which
+with ``SwinConfig.mlp_impl="fused"`` also runs Kernel D) or ``"xla"`` (``rba_tpu``'s
+default chain in plain PyTorch); see ``models/swin.py``.
 ``maskformer_infer_rba(..., plain=True)`` runs the plain PyTorch versions of
 the kernels instead, which is how each path is held against them on the card.
 Each layer of a request runs inside a ``torch.profiler.record_function`` span
@@ -108,8 +109,8 @@ def build_model(cfg: RbAConfig, device=None, seed: int = 0) -> RbAModel:
     return model.eval()
 
 
-def _compute_dtype(cfg: RbAConfig):
-    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+def _dtype(name: str):
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
 
 
 def preprocess(cfg: RbAConfig, images: torch.Tensor) -> torch.Tensor:
@@ -140,11 +141,12 @@ def maskformer_forward(
     (B, H/4, W/4, Q).  ``attention``: Swin's window-attention branch (``swin_apply``)."""
     check_supported(cfg)
     with record_function("backbone"):
-        features = swin_apply(model.backbone, cfg.swin, images, _compute_dtype(cfg), plain=plain,
-                              attention=attention)
+        features = swin_apply(model.backbone, cfg.swin, images, _dtype(cfg.compute_dtype), plain=plain,
+                              attention=attention, fast_math=cfg.fast_math)
     head = model.sem_seg_head
     with record_function("pixel_decoder"):
-        mask_features, _, ms_feats = pixel_decoder_apply(head["pixel_decoder"], cfg.pixel_decoder, features)
+        mask_features, _, ms_feats = pixel_decoder_apply(head["pixel_decoder"], cfg.pixel_decoder, features,
+                                                         _dtype(cfg.pixel_decoder_dtype))
     with record_function("transformer_decoder"):
         return decoder_apply(
             head["predictor"], cfg.decoder, ms_feats[: cfg.decoder.num_feature_levels], mask_features,
@@ -189,8 +191,8 @@ def maskformer_infer_rba(
     """RbA score map: the full-resolution tail (x4 upsample → sigmoid → class
     contraction → -Σ tanh) runs as the fused RbA kernel on the decoder's bhwq masks,
     and the padding is cropped off.  Equal to ``maskformer_infer(...)["rba"]`` when the
-    output size is the input size.  ``attention``: ``"fused"`` (Kernel A) or
-    ``"fused_softmax"`` (Kernel C), Swin's window-attention branch."""
+    output size is the input size.  ``attention``: ``"fused"`` (Kernel A),
+    ``"fused_softmax"`` (Kernel C) or ``"xla"``, Swin's window-attention branch."""
     images = _on_model(model, images)
     h_img, w_img = images.shape[1], images.shape[2]
     with record_function("preprocess"):
@@ -209,14 +211,16 @@ def maskformer_infer(
     images: torch.Tensor,  # (B, H, W, 3) raw RGB
     out_hw: Optional[Tuple[int, int]] = None,
     include_void: bool = False,
+    attention: str = "fused",
 ) -> Dict[str, torch.Tensor]:
-    """{"sem_seg": (B, K, h, w), "rba": (B, h, w)} at ``out_hw`` (default: the input size)."""
+    """{"sem_seg": (B, K, h, w), "rba": (B, h, w)} at ``out_hw`` (default: the input size).
+    ``attention``: Swin's window-attention branch (``swin_apply``)."""
     images = _on_model(model, images)
     h_img, w_img = images.shape[1], images.shape[2]
     out_hw = out_hw or (h_img, w_img)
     x = preprocess(cfg, images)
     hp, wp = x.shape[1], x.shape[2]
-    out = maskformer_forward(model, cfg, x)
+    out = maskformer_forward(model, cfg, x, attention=attention)
     mask_pred = resize_bilinear(out["pred_masks"], (hp, wp), align_corners=False)
     sem = semantic_inference(out["pred_logits"], mask_pred, include_void=include_void)
     sem = resize_bilinear(sem[:, :, :h_img, :w_img], out_hw, align_corners=False)

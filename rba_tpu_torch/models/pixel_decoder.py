@@ -1,6 +1,13 @@
 """MSDeformAttn pixel decoder (counterpart of ``rba_tpu/models/pixel_decoder.py``).
 
-Runs in fp32, as the reference pins it.  Parameter names follow the JAX pytree:
+Runs in fp32, as the reference pins it, or with ``dtype=torch.bfloat16`` (the
+``fast_serving`` mode) in ``rba_tpu``'s bf16 mode: the inputs of its convs are cast
+to bf16, and each op then takes PyTorch's type promotion, which is jnp's here (a bf16
+operand meeting an fp32 one gives fp32).  So the input projection, the position
+embedding, the first encoder layer's three input projections, the FPN lateral convs
+and the 2× upsample's passes run in bf16; the sampling returns fp32, and from there
+the encoder, the FPN output convs and ``mask_features`` run in fp32.  Parameter names
+follow the JAX pytree:
 ``input_proj.0.conv``, ``transformer.encoder.layers.3.self_attn.value_proj``,
 ``fpn.1.output.gn``, ``mask_features``.
 """
@@ -93,6 +100,7 @@ def ms_deform_attn_apply(
     reference_points: torch.Tensor,  # (N, Lq, L, 2) in [0, 1]
     value_input: torch.Tensor,  # (N, S, C)
     spatial_shapes: Sequence[Tuple[int, int]],
+    cfg: PixelDecoderConfig,
 ) -> torch.Tensor:
     n, lq, c = query.shape
     nh, nl, npts = attn.n_heads, len(spatial_shapes), attn.n_points
@@ -102,12 +110,13 @@ def ms_deform_attn_apply(
     aw = torch.softmax(aw.float(), dim=-1).reshape(n, lq, nh, nl, npts)
     normalizer = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32, device=query.device)
     loc = reference_points[:, :, None, :, None, :] + offsets / normalizer[None, None, None, :, None, :]
-    out = ms_deform_attn_core(value, spatial_shapes, loc, aw)
+    out = ms_deform_attn_core(value, spatial_shapes, loc, aw, method=cfg.sampling_method,
+                              sampling_dtype=cfg.sampling_dtype, onehot_cap=cfg.sampling_onehot_cap)
     return apply_linear(attn.output_proj, out)
 
 
-def encoder_layer_apply(layer: EncoderLayer, src, pos, reference_points, spatial_shapes):
-    src2 = ms_deform_attn_apply(layer.self_attn, src + pos, reference_points, src, spatial_shapes)
+def encoder_layer_apply(layer: EncoderLayer, src, pos, reference_points, spatial_shapes, cfg: PixelDecoderConfig):
+    src2 = ms_deform_attn_apply(layer.self_attn, src + pos, reference_points, src, spatial_shapes, cfg)
     src = apply_norm(layer.norm1, src + src2)
     ffn = apply_linear(layer.linear2, F.relu(apply_linear(layer.linear1, src)))
     return apply_norm(layer.norm2, src + ffn)
@@ -131,9 +140,11 @@ def pixel_decoder_apply(
     model: PixelDecoder,
     cfg: PixelDecoderConfig,
     features: Dict[str, torch.Tensor],  # NHWC backbone maps
+    dtype=torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
-    """(mask_features, transformer encoder output, multi-scale features), all NHWC fp32."""
-    dtype = torch.float32
+    """(mask_features, transformer encoder output, multi-scale features), all NHWC fp32.
+    ``dtype`` is the inputs' dtype: fp32, or bf16 in ``fast_serving`` (see the module's
+    docstring)."""
     srcs, poss, spatial_shapes = [], [], []
     for i, f in enumerate(cfg.transformer_in_features[::-1]):
         proj = model.input_proj[i]
@@ -152,7 +163,7 @@ def pixel_decoder_apply(
 
     y = src_flat
     for layer in model.transformer.encoder.layers:
-        y = encoder_layer_apply(layer, y, pos_flat, ref_pts, spatial_shapes)
+        y = encoder_layer_apply(layer, y, pos_flat, ref_pts, spatial_shapes, cfg)
 
     out: List[torch.Tensor] = []
     start = 0
@@ -163,7 +174,7 @@ def pixel_decoder_apply(
     fpn_feats = cfg.in_features[: len(model.fpn)]
     for f, p in zip(fpn_feats[::-1], list(model.fpn)[::-1]):
         lat = apply_group_norm(p["lateral"]["gn"], apply_conv(p["lateral"]["conv"], features[f].to(dtype)))
-        up = resize_bilinear_nhwc(out[-1], (lat.shape[1], lat.shape[2]))
+        up = resize_bilinear_nhwc(out[-1], (lat.shape[1], lat.shape[2]), compute_dtype=dtype)
         z = apply_conv(p["output"]["conv"], lat + up)
         out.append(F.relu(apply_group_norm(p["output"]["gn"], z)))
 

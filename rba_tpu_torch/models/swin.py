@@ -2,17 +2,24 @@
 
 NHWC activations.  Parameter names follow the JAX pytree: ``layers.0.blocks.1.attn.qkv``
 holds ``params["layers"][0]["blocks"][1]["attn"]["qkv"]``.  LayerNorm and the
-attention softmax run in fp32; the matmuls in the compute dtype.
+attention softmax run in fp32 (the softmax in the compute dtype under ``fast_math``);
+the matmuls in the compute dtype.
 
-Window attention takes one of two branches, chosen by the caller's ``attention``
+Window attention takes one of three branches, chosen by the caller's ``attention``
 argument (the JAX package picks them with environment variables, which the port
 does not read):
 
 - ``"fused"``: ``kernels.window_attention`` (Kernel A), the counterpart of the
-  ``RBA_TPU_FUSED_ATTENTION`` branch (``rba_tpu/models/swin.py:207-220``);
+  ``RBA_TPU_FUSED_ATTENTION`` branch (``rba_tpu/models/swin.py:207-220``), which
+  ``rba_tpu`` takes before it reads ``fast_math``;
 - ``"fused_softmax"``: q·kᵀ in fp32 by ``torch.matmul``, then
   ``kernels.masked_softmax`` (Kernel C), then ``· v``; the counterpart of the
   ``RBA_TPU_FUSED_SOFTMAX`` branch (``rba_tpu/models/swin.py:256-284, 326-327``).
+  ``rba_tpu`` ignores that branch under ``fast_math``, and so does the port: it then
+  runs the bf16 softmax of the ``"xla"`` branch and launches no Kernel C;
+- ``"xla"``: ``rba_tpu``'s default chain in plain PyTorch (``swin.py:236-330``):
+  compute-dtype scores, the factorized fp32 softmax, or under ``fast_math`` the
+  softmax in the compute dtype (``:285-295``).
 
 With ``SwinConfig.mlp_impl == "fused"``, no gradient tracked and C where
 ``kernels.fused_mlp.beneficial`` holds, a block's MLP tail goes through
@@ -35,7 +42,7 @@ from ..kernels.masked_softmax import masked_softmax, masked_softmax_reference
 from ..kernels.window_attention import window_attention, window_attention_reference
 from ..ops.nn import apply_linear, apply_norm
 
-ATTENTION = ("fused", "fused_softmax")  # the window-attention branches
+ATTENTION = ("fused", "fused_softmax", "xla")  # the window-attention branches
 
 
 @functools.lru_cache(maxsize=64)
@@ -130,6 +137,59 @@ def _rel_bias(attn: WindowAttention, ws: int, nh: int) -> torch.Tensor:
     return bias.permute(2, 0, 1).contiguous()  # (nh, N, N)
 
 
+def _split_heads(qkv: torch.Tensor, nh: int, scale: float):
+    """q, k, v as (B·nW, nh, N, hd) from (B·nW, N, 3C), q times ``scale`` in qkv's dtype
+    (the scale rounded to it first, as JAX rounds a Python scalar)."""
+    bw, n, c3 = qkv.shape
+    q, k, v = qkv.reshape(bw, n, 3, nh, c3 // (3 * nh)).permute(2, 0, 3, 1, 4)
+    return q * torch.tensor(scale, dtype=qkv.dtype).item(), k, v
+
+
+def _merge_heads(out: torch.Tensor) -> torch.Tensor:
+    bw, nh, n, hd = out.shape
+    return out.permute(0, 2, 1, 3).reshape(bw, n, nh * hd)
+
+
+def _fast_softmax(s: torch.Tensor, rel_bias: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """``rba_tpu``'s ``fast_math`` softmax (``swin.py:285-295``) in the scores' dtype:
+    bias and mask added in it, then ``jax.nn.softmax``'s steps on it (max, subtract and
+    exp in the dtype, the sum in fp32 rounded to the dtype, the divide in the dtype)."""
+    dt = s.dtype
+    a = s + rel_bias.to(dt)
+    if mask is not None:
+        nw, n = mask.shape[0], mask.shape[-1]
+        a = (a.reshape(-1, nw, a.shape[1], n, n) + mask.to(dt)[None, :, None]).reshape(a.shape)
+    e = torch.exp(a - a.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True, dtype=torch.float32).to(dt)
+
+
+def xla_attention(
+    qkv: torch.Tensor,  # (B·nW, N, 3C)
+    rel_bias: torch.Tensor,  # (nh, N, N) fp32
+    mask: Optional[torch.Tensor],  # (nW, N, N) fp32 additive, or None
+    nh: int,
+    scale: float,
+    fast_math: bool = False,
+) -> torch.Tensor:  # (B·nW, N, C), qkv's dtype
+    """The ``"xla"`` branch, ``rba_tpu``'s default chain: q·kᵀ rounded to the compute
+    dtype; the factorized fp32 softmax exp(s − max s)·exp(b − max b)·keep / Σ with
+    keep = (mask == 0), probabilities rounded to the compute dtype (under
+    ``fast_math``, ``_fast_softmax``); then ``· v`` summed in fp32 and rounded."""
+    q, k, v = _split_heads(qkv, nh, scale)
+    s = torch.matmul(q, k.transpose(-1, -2))
+    if fast_math:
+        p = _fast_softmax(s, rel_bias, mask)
+    else:
+        s32 = s.float()
+        eb = torch.exp(rel_bias - rel_bias.amax(dim=-1, keepdim=True))
+        num = torch.exp(s32 - s32.amax(dim=-1, keepdim=True)) * eb
+        if mask is not None:
+            nw, n = mask.shape[0], mask.shape[-1]
+            num = (num.reshape(-1, nw, nh, n, n) * (mask == 0).float()[None, :, None]).reshape(num.shape)
+        p = (num / num.sum(dim=-1, keepdim=True)).to(qkv.dtype)
+    return _merge_heads(torch.matmul(p, v))
+
+
 def softmax_attention(
     qkv: torch.Tensor,  # (B·nW, N, 3C)
     rel_bias: torch.Tensor,  # (nh, N, N) fp32
@@ -137,20 +197,29 @@ def softmax_attention(
     nh: int,
     scale: float,
     plain: bool = False,
+    fast_math: bool = False,
 ) -> torch.Tensor:  # (B·nW, N, C), qkv's dtype
-    """The ``"fused_softmax"`` branch: ``q * scale`` in the compute dtype (the scale
-    rounded to it first, as JAX rounds a Python scalar), q·kᵀ into fp32, Kernel C
-    (bias and mask added, fp32 softmax, probabilities in the compute dtype), then
-    ``· v`` summed in fp32 and rounded to the compute dtype."""
-    bw, n, c3 = qkv.shape
-    c = c3 // 3
-    q, k, v = qkv.reshape(bw, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4)  # (B·nW, nh, N, hd)
-    q = q * torch.tensor(scale, dtype=qkv.dtype).item()
+    """The ``"fused_softmax"`` branch: ``q * scale`` in the compute dtype, q·kᵀ into
+    fp32, Kernel C (bias and mask added, fp32 softmax, probabilities in the compute
+    dtype), then ``· v`` summed in fp32 and rounded to the compute dtype.  Under
+    ``fast_math`` it is the ``"xla"`` branch's bf16 softmax chain and launches no
+    Kernel C, as ``rba_tpu`` ignores its fused-softmax switch there."""
+    if fast_math:
+        return xla_attention(qkv, rel_bias, mask, nh, scale, fast_math=True)
+    q, k, v = _split_heads(qkv, nh, scale)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
     softmax = masked_softmax_reference if plain else masked_softmax
     p = softmax(s, rel_bias, mask, qkv.dtype)
-    out = torch.matmul(p.float(), v.float()).to(qkv.dtype)
-    return out.permute(0, 2, 1, 3).reshape(bw, n, c)
+    return _merge_heads(torch.matmul(p.float(), v.float()).to(qkv.dtype))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=False)``.  Below fp32 it takes the steps of its jaxpr,
+    each rounded to x's dtype: 0.5·x times erfc((−x)·0.70703125), where (−x)·c is
+    taken as x·(−c), the same rounding of the same product."""
+    if x.dtype == torch.float32:
+        return F.gelu(x)
+    return (x * 0.5) * torch.special.erfc(x * -0.70703125)
 
 
 def _mlp_tail(blk: SwinBlock, x: torch.Tensor, mlp_impl: str, plain: bool) -> torch.Tensor:
@@ -163,7 +232,7 @@ def _mlp_tail(blk: SwinBlock, x: torch.Tensor, mlp_impl: str, plain: bool) -> to
         fc1, fc2 = blk.mlp["fc1"], blk.mlp["fc2"]
         return fused(x.contiguous(), blk.norm2.weight, blk.norm2.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias)
     y = apply_norm(blk.norm2, x)
-    y = apply_linear(blk.mlp["fc2"], F.gelu(apply_linear(blk.mlp["fc1"], y)))
+    y = apply_linear(blk.mlp["fc2"], gelu(apply_linear(blk.mlp["fc1"], y)))
     return x + y
 
 
@@ -177,6 +246,7 @@ def swin_block_apply(
     plain: bool = False,
     attention: str = "fused",
     mlp_impl: str = "xla",
+    fast_math: bool = False,
 ) -> torch.Tensor:
     b, h, w, c = x.shape
     shortcut = x
@@ -199,7 +269,9 @@ def swin_block_apply(
     if attention == "fused":
         attend = window_attention_reference if plain else window_attention
     elif attention == "fused_softmax":
-        attend = functools.partial(softmax_attention, plain=plain)
+        attend = functools.partial(softmax_attention, plain=plain, fast_math=fast_math)
+    elif attention == "xla":
+        attend = functools.partial(xla_attention, fast_math=fast_math)
     else:
         raise ValueError(f"attention must be one of {ATTENTION}, got {attention!r}")
     xw = attend(qkv, _rel_bias(blk.attn, ws, num_heads), mask, num_heads, scale)
@@ -230,17 +302,19 @@ def swin_apply(
     compute_dtype=torch.bfloat16,
     plain: bool = False,
     attention: str = "fused",
+    fast_math: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """{res2..res5: (B, H/s, W/s, C_s)} NHWC feature maps.  ``attention`` picks the
-    window-attention branch: ``"fused"`` (Kernel A) or ``"fused_softmax"`` (Kernel C)."""
+    window-attention branch: ``"fused"`` (Kernel A), ``"fused_softmax"`` (Kernel C) or
+    ``"xla"`` (plain PyTorch); ``fast_math`` is ``RbAConfig.fast_math``."""
     x = images.to(compute_dtype)
     p = cfg.patch_size
     h, w = x.shape[1], x.shape[2]
     if h % p or w % p:
         x = F.pad(x, (0, 0, 0, (p - w % p) % p, 0, (p - h % p) % p))
     proj = model.patch_embed["proj"]
-    x = F.conv2d(x.permute(0, 3, 1, 2), proj.weight.to(compute_dtype), proj.bias.to(compute_dtype), stride=p)
-    x = x.permute(0, 2, 3, 1)
+    x = F.conv2d(x.permute(0, 3, 1, 2), proj.weight.to(compute_dtype), stride=p).permute(0, 2, 3, 1)
+    x = x + proj.bias.to(compute_dtype)  # rounded after the product, as rba_tpu does
     if "norm" in model.patch_embed:
         x = apply_norm(model.patch_embed["norm"], x)
 
@@ -249,7 +323,7 @@ def swin_apply(
         for j, blk in enumerate(layer.blocks):
             shift = 0 if j % 2 == 0 else cfg.window_size // 2
             x = swin_block_apply(blk, x, cfg.num_heads[i], cfg.window_size, shift, cfg.qk_scale, plain,
-                                 attention, cfg.mlp_impl)
+                                 attention, cfg.mlp_impl, fast_math)
         if f"res{i + 2}" in cfg.out_features:
             outs[f"res{i + 2}"] = apply_norm(getattr(model, f"norm{i}"), x)
         if layer.downsample is not None:

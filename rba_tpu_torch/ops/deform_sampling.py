@@ -3,15 +3,28 @@
 For each (batch, query, head, level, point) the per-head value map is sampled
 bilinearly at ``loc * (W, H) - 0.5`` with zero padding outside the map,
 weighted by the softmaxed attention weight, and summed over levels x points.
-Plain PyTorch: four integer gathers and a weighted sum per level, in fp32.
-A hand kernel for it is queued in ROADMAP.md.
+Plain PyTorch, in fp32, one of two forms per level:
+
+- the gather: four integer gathers and a weighted sum;
+- the one-hot form (``sampling_dtype="bfloat16"``, ``fast_serving``): the 4P corner
+  weights of each query summed into a dense row of A (N, M, Lq, HW) in fp32, in
+  ``rba_tpu``'s corner order; A and the values rounded to bf16 once; A·V summed in
+  fp32.  What is rounded is each pixel's sum of weights, so where two points of one
+  query share a pixel this differs from a gather whose weights are rounded one by one.
+
+``method="auto"`` picks the one-hot form for a level where N·M·Lq·H·W <= the cap, as
+``rba_tpu`` does.  In fp32 the one-hot form computes the gather's sums (``rba_tpu``
+contracts it at HIGHEST precision), so fp32 levels take the gather.  A hand kernel
+for the sampling is queued in ROADMAP.md.
 """
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
 import torch
+from torch.profiler import record_function
 
+SPAN = "deform_sampling"  # the record_function span of each ms_deform_attn_core call
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))  # (dy, dx)
 
 
@@ -43,11 +56,59 @@ def _sample_level(
     return out.reshape(n, m, lq, d).permute(0, 2, 1, 3)
 
 
+def _onehot_level(
+    value: torch.Tensor,  # (N, H, W, M, D) fp32
+    loc: torch.Tensor,  # (N, Lq, M, P, 2) fp32
+    attn: torch.Tensor,  # (N, Lq, M, P) fp32
+) -> torch.Tensor:  # (N, Lq, M, D) fp32
+    """The bf16 one-hot form of ``rba_tpu/ops/deform_sampling.py`` (``_corner_indices``,
+    ``_corner_weights``, ``_build_rows``, ``_onehot_apply``)."""
+    n, h, w, m, d = value.shape
+    _, lq, _, p, _ = loc.shape
+    x = loc[..., 0] * w - 0.5
+    y = loc[..., 1] * h - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    tx, ty = x - x0, y - y0
+    x0i, y0i = x0.long(), y0.long()
+    idxs, wgts = [], []
+    for (dy, dx), wt in zip(_CORNERS, ((1 - tx) * (1 - ty), tx * (1 - ty), (1 - tx) * ty, tx * ty)):
+        yi, xi = y0i + dy, x0i + dx
+        valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        idxs.append(yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1))
+        wgts.append(torch.where(valid, wt, 0.0) * attn)
+    # corner k = 4·point + corner, (N, M, Lq, 4P)
+    idx = torch.stack(idxs, -1).reshape(n, lq, m, 4 * p).permute(0, 2, 1, 3)
+    wgt = torch.stack(wgts, -1).reshape(n, lq, m, 4 * p).permute(0, 2, 1, 3)
+    a = torch.zeros(n, m, lq, h * w, dtype=torch.float32, device=value.device)
+    for k in range(4 * p):  # one index per row and k: each pixel sums its weights in k order
+        a.scatter_add_(-1, idx[..., k : k + 1], wgt[..., k : k + 1])
+    vh = value.reshape(n, h * w, m, d).permute(0, 2, 1, 3)  # (N, M, HW, D)
+    # bf16 operands, fp32 products and sums: a bf16 matmul would round its output too
+    out = torch.matmul(a.to(torch.bfloat16).float(), vh.to(torch.bfloat16).float())
+    return out.permute(0, 2, 1, 3)
+
+
+def sampling_methods(
+    n: int, m: int, lq: int, spatial_shapes: Sequence[Tuple[int, int]], method: str = "auto",
+    onehot_cap: int = 192 * 1024 * 1024,
+) -> Tuple[str, ...]:
+    """The form of each level, ``"onehot"`` or ``"gather"``: ``"auto"`` takes the one-hot
+    form where N·M·Lq·H·W <= ``onehot_cap`` (``rba_tpu``'s per-level dispatch)."""
+    if method == "auto":
+        return tuple("onehot" if n * m * lq * h * w <= onehot_cap else "gather" for h, w in spatial_shapes)
+    if method not in ("onehot", "gather"):
+        raise ValueError(f"sampling method {method!r}")
+    return (method,) * len(spatial_shapes)
+
+
 def ms_deform_attn_core(
     value: torch.Tensor,  # (N, S, M, D) flattened multi-level values
     spatial_shapes: Sequence[Tuple[int, int]],  # (H, W) per level
     sampling_locations: torch.Tensor,  # (N, Lq, M, L, P, 2) in [0, 1]
     attention_weights: torch.Tensor,  # (N, Lq, M, L, P) softmaxed over L·P
+    method: str = "auto",
+    sampling_dtype: str = "float32",
+    onehot_cap: int = 192 * 1024 * 1024,
 ) -> torch.Tensor:  # (N, Lq, M·D) fp32
     n, s, m, d = value.shape
     _, lq, _, nlevels, p, _ = sampling_locations.shape
@@ -55,13 +116,17 @@ def ms_deform_attn_core(
         raise ValueError(f"{nlevels} levels of locations for {len(spatial_shapes)} shapes")
     if sum(h * w for h, w in spatial_shapes) != s:
         raise ValueError(f"spatial shapes {spatial_shapes} do not sum to S = {s}")
-    value = value.float()
-    sampling_locations = sampling_locations.float()
-    attention_weights = attention_weights.float()
-    out = torch.zeros(n, lq, m, d, dtype=torch.float32, device=value.device)
-    start = 0
-    for lid, (h, w) in enumerate(spatial_shapes):
-        v = value[:, start : start + h * w].reshape(n, h, w, m, d)
-        out = out + _sample_level(v, sampling_locations[:, :, :, lid], attention_weights[:, :, :, lid])
-        start += h * w
-    return out.reshape(n, lq, m * d)
+    methods = sampling_methods(n, m, lq, spatial_shapes, method, onehot_cap)
+    with record_function(SPAN):
+        value = value.float()
+        sampling_locations = sampling_locations.float()
+        attention_weights = attention_weights.float()
+        out = torch.zeros(n, lq, m, d, dtype=torch.float32, device=value.device)
+        start = 0
+        for lid, (h, w) in enumerate(spatial_shapes):
+            v = value[:, start : start + h * w].reshape(n, h, w, m, d)
+            onehot = methods[lid] == "onehot" and sampling_dtype == "bfloat16"
+            sample = _onehot_level if onehot else _sample_level
+            out = out + sample(v, sampling_locations[:, :, :, lid], attention_weights[:, :, :, lid])
+            start += h * w
+        return out.reshape(n, lq, m * d)

@@ -2,7 +2,9 @@
 
 Weights are in PyTorch layouts: a linear weight is (out, in), a conv weight is
 OIHW.  Activations keep the JAX package's layout, channels last.  As there,
-each op computes in the activation's dtype and casts the fp32 weights to it.
+each op computes in the activation's dtype and casts the fp32 weights to it;
+below fp32 a bias is added after the product is rounded, so the result is
+rounded twice, as there.
 """
 from __future__ import annotations
 
@@ -17,8 +19,14 @@ def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
     return None if t is None else t.to(dtype)
 
 
+def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    return y if bias is None else y + bias.to(y.dtype)
+
+
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return F.linear(x, weight.to(x.dtype), _cast(bias, x.dtype))
+    if x.dtype == torch.float32:
+        return F.linear(x, weight.to(x.dtype), _cast(bias, x.dtype))
+    return _add_bias(F.linear(x, weight.to(x.dtype)), bias)
 
 
 def apply_linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -62,9 +70,11 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
         raise ValueError(f"SAME padding is ported for odd kernels, got {kh}x{kw}")
     if kh == 1 and kw == 1:
         return linear(x, weight.reshape(o, i), bias)
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), _cast(bias, x.dtype),
+    fused = x.dtype == torch.float32
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), _cast(bias, x.dtype) if fused else None,
                  padding=((kh - 1) // 2, (kw - 1) // 2))
-    return y.permute(0, 2, 3, 1)
+    y = y.permute(0, 2, 3, 1)
+    return y if fused else _add_bias(y, bias)
 
 
 def apply_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

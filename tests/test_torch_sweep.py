@@ -5,7 +5,9 @@ One tiny model directory holds a Detectron2-style ``config.yaml`` and a
 Fishyscapes-LAF and SMIYC trees of ``rba_tpu.tools.selfcheck``.  Both CLIs run at
 ``--precision fp32``, streaming and ``--exact``, where every metric of
 ``results.json`` must agree within ``METRIC_TOL``, and at ``--precision parity``
-(bf16 backbone) within ``PARITY_TOL``.
+(bf16 backbone) within ``JIT_PARITY_TOL``.  The port's ``--attention xla`` branch,
+rba_tpu's default chain, is held at ``--precision parity`` and ``fast`` within
+``PARITY_TOL`` against rba_tpu's sweep compiled so that each op rounds to its dtype.
 """
 import json
 
@@ -25,12 +27,18 @@ from rba_tpu_torch.evalx import sweep as tsweep
 from tests.torch_port_common import D2_TINY, perturbed, record
 
 METRIC_TOL = 1e-4
-# At --precision parity the backbone runs in bf16, and the two packages round its
-# products and sums in other places; a pixel's score moves by bf16 rounding, which
-# reorders pixels and moves FPR95 by whole steps.  Measured at most 2.6e-3 on these
-# trees (FPR95 of fishyscapes_laf), so parity is held at 1e-2 and the 1e-4 bound
-# at fp32, where the same sweep agrees within 3.3e-5.
-PARITY_TOL = 1e-2
+# rba_tpu's sweep jits its model, and the CPU compiler then keeps bf16 intermediates
+# in fp32 where the jaxpr rounds them (XLA's xla_allow_excess_precision, on by
+# default): the jitted model rounds in fewer places than rba_tpu called op by op, or
+# jitted with that option off, and than the port.  A pixel's score moves by bf16
+# rounding, which reorders pixels and moves FPR95 by whole steps: measured at most
+# 2.8e-3 on these trees, so the jitted comparison at parity is held at 1e-2 (and at
+# fp32, where the same sweep agrees within 3.3e-5, at 1e-4).
+JIT_PARITY_TOL = 1e-2
+# The "xla" branch against rba_tpu compiled without excess precision: measured 3.5e-4
+# at parity and 5.2e-4 at fast; the remaining flips are fp32 sums in another order
+# and exp's last bit (ROADMAP.md §C).
+PARITY_TOL = 1e-3
 HW = (48, 64)
 
 
@@ -70,7 +78,11 @@ def test_sweep_matches_rba_tpu(zoo, tmp_path, request, precision, mode):
     tsweep.main(_args(zoo, tmp_path / "torch", "--device", "cpu", *extra))
     want, got = _results(tmp_path / "jax"), _results(tmp_path / "torch")
     assert sorted(got) == sorted(want) == sorted(zoo[2])
-    tol = METRIC_TOL if precision == "fp32" else PARITY_TOL
+    tol = METRIC_TOL if precision == "fp32" else JIT_PARITY_TOL
+    _check_metrics(request, got, want, tol)
+
+
+def _check_metrics(request, got, want, tol):
     worst = 0.0
     for ds, metrics in want.items():
         assert sorted(got[ds]) == sorted(metrics) == ["aupr", "auroc", "fpr95"]
@@ -79,6 +91,33 @@ def test_sweep_matches_rba_tpu(zoo, tmp_path, request, precision, mode):
             assert abs(got[ds][k] - v) <= tol, (ds, k, got[ds][k], v)
             worst = max(worst, abs(got[ds][k] - v))
     record(request, max_metric_diff=worst, tol=tol)
+
+
+@pytest.mark.parametrize("precision", ["parity", "fast"])
+def test_sweep_xla_matches_rba_tpu_rounding_each_op(zoo, tmp_path, request, monkeypatch, precision):
+    """``--attention xla`` against rba_tpu's sweep with every jit compiled with
+    ``xla_allow_excess_precision`` off, so that each op of its jaxpr rounds to its dtype
+    as rba_tpu called op by op does (the port's contract at bf16)."""
+    jit = jax.jit
+    monkeypatch.setattr(jax, "jit", lambda fun, **kw: jit(
+        fun, **kw, compiler_options={"xla_allow_excess_precision": False}))
+    jsweep.main(_args(zoo, tmp_path / "jax", "--precision", precision))
+    monkeypatch.undo()
+    tsweep.main(_args(zoo, tmp_path / "torch", "--device", "cpu", "--precision", precision, "--attention", "xla"))
+    want, got = _results(tmp_path / "jax"), _results(tmp_path / "torch")
+    assert sorted(got) == sorted(want) == sorted(zoo[2])
+    _check_metrics(request, got, want, PARITY_TOL)
+
+
+def test_default_precision_is_fast_serving(zoo, tmp_path):
+    """Without --precision the sweep runs fast_serving, rba_tpu's default."""
+    models, datasets, _ = zoo
+    common = ["--models_folder", str(models), "--datasets_folder", str(datasets), "--device", "cpu",
+              "--dataset_mode", "road_anomaly"]
+    tsweep.main(common + ["--out_path", str(tmp_path / "default")])
+    tsweep.main(common + ["--out_path", str(tmp_path / "fast"), "--precision", "fast"])
+    tsweep.main(common + ["--out_path", str(tmp_path / "parity"), "--precision", "parity"])
+    assert _results(tmp_path / "default") == _results(tmp_path / "fast") != _results(tmp_path / "parity")
 
 
 def test_load_checkpoint_params_reads_params_npz(zoo):
@@ -134,9 +173,8 @@ def test_fuse_models_equals_one_model_at_a_time(zoo, tmp_path):
 
 
 @pytest.mark.parametrize("flags, match", [
-    (["--precision", "fast"], "fast_serving"),
-    (["--tta"], "A.7"),
-    (["--sliding-window"], "A.7"),
+    (["--tta"], "A.2"),
+    (["--sliding-window"], "A.2"),
     (["--score_func", "dense_hybrid", "--dataset_mode", "road_anomaly"], "ood_pred"),
 ])
 def test_unported_options_raise(zoo, tmp_path, flags, match):
@@ -146,5 +184,5 @@ def test_unported_options_raise(zoo, tmp_path, flags, match):
 
 def test_model_final_without_params_npz_raises(tmp_path):
     (tmp_path / "model_final.pth").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="B.5"):
+    with pytest.raises(NotImplementedError, match="A.1"):
         load_checkpoint_params(str(tmp_path), tiny_test_config(), device="cpu")

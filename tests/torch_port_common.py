@@ -58,6 +58,29 @@ def max_abs(a, b) -> float:
     return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
 
 
+BF16_ULP = 2.0**-7
+
+
+def to_np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.array(jnp.asarray(x).astype(jnp.float32))  # a writable copy
+
+
+def equal_share(got, want) -> float:
+    """Share of the elements of ``got`` equal to ``want``."""
+    got, want = to_np(got), to_np(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float((got == want).mean())
+
+
+def ulp_share(got, want) -> float:
+    """Share of the elements of ``got`` within one bf16 ulp of ``want`` (plus 1e-6)."""
+    got, want = to_np(got), to_np(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float((np.abs(got - want) <= BF16_ULP * np.abs(want) + 1e-6).mean())
+
+
 def record(request, **values) -> None:
     """Attach measured values to the running test; a ``--junitxml`` report lists them
     as the test case's properties."""
