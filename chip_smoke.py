@@ -18,6 +18,17 @@ requests at 1024x2048 through both serving paths and check the score maps.
   1024x2048 scenes through path 1 (Kernel A in every block, Kernel B once per image),
   with score histograms on the card, and the exact all-pixel path beside it; then
   ``OODEvaluator(fast_serving(cfg), model)`` over the same scenes.
+- ``d2``: a seeded full-width Detectron2 ``model_final.pth`` of swin_b_1dl (under the
+  gitignored ``build/``) loaded with ``load_checkpoint_params``: every parameter equal
+  to its Detectron2 array, the ``params.npz`` cache, one path-1 request per load.
+- ``tta``: ``tta_inference`` on one 1024x2048 frame, 6 sizes from 512x1024 to
+  1792x3584, each plain and flipped (Kernel A in every block of the 12 variants).
+- ``sliding``: ``sliding_window_sem_seg`` in 1024x1024 tiles, on a 1024x2048 frame (3
+  tiles) and a 3072x4096 frame (20 tiles).
+- ``dense_hybrid``: one ``OODEvaluator(score="dense_hybrid")`` request with the
+  DenseHybrid head.
+- ``sweep_cli``: the sweep CLI over a zoo that holds only ``config.yaml`` and
+  ``model_final.pth``, plain, with ``--tta`` and with ``--sliding-window``.
 
 Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
@@ -32,10 +43,13 @@ DIR/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -56,6 +70,7 @@ ALU_OPS_PER_S = PEAK_FLOPS["float32"] / 2
 SFU_OPS_PER_S = ALU_OPS_PER_S / 8
 
 IMAGE_HW = (1024, 2048)
+BIG_FRAME_HW = (3072, 4096)  # a Mapillary Vistas-sized frame, the sliding window's use
 N_REQUESTS = 4  # distinct images served after one warm-up request
 E2E_FP32_TOL = 1e-3  # score-map bound of rba_tpu's selfcheck
 BF16_ULP = 2.0**-7  # one bf16 ulp, relative to the value, at most
@@ -129,12 +144,29 @@ def bf16_ulp_share(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((got.float() - want).abs() <= BF16_ULP * want.abs() + 1e-6).float().mean())
 
 
-def stage_shapes(cfg):
-    """The window-attention shapes of one 1024x2048 request, stage by stage, unshifted
-    and shifted: (stage, shifted, nW, nh, C, hp, wp, calls per image)."""
+def served_sizes(cfg):
+    """Every input size that the driven phases give the backbone, padded to the size
+    divisibility, in first-use order: the 1024x2048 request and the sweep's synthetic
+    images, each whole, in its TTA variants and in its sliding-window tiles, and the
+    3072x4096 frame's tiles."""
+    from rba_tpu_torch.data.ood_datasets import SyntheticAnomaly
+    from rba_tpu_torch.models.sliding_window import tile_grid
+    from rba_tpu_torch.models.tta import tta_variants
+
+    sizes = []
+    for hw in (IMAGE_HW, SyntheticAnomaly().hw):
+        sizes += [hw, *((h, w) for h, w, _ in tta_variants(cfg, *hw)), tile_grid(*hw)[:2]]
+    sizes.append(tile_grid(*BIG_FRAME_HW)[:2])
+    div = cfg.input.size_divisibility
+    return list(dict.fromkeys((-(-h // div) * div, -(-w // div) * div) for h, w in sizes))
+
+
+def stage_shapes(cfg, hw=IMAGE_HW):
+    """The window-attention shapes of one request of ``hw`` (a multiple of 32), stage by
+    stage, unshifted and shifted: (stage, shifted, nW, nh, C, hp, wp, calls per image)."""
     sw = cfg.swin
     ws = sw.window_size
-    h, w = IMAGE_HW[0] // sw.patch_size, IMAGE_HW[1] // sw.patch_size
+    h, w = hw[0] // sw.patch_size, hw[1] // sw.patch_size
     for s in range(sw.num_layers):
         hs, wsz = -(-h // 2**s), -(-w // 2**s)
         hp, wp = -(-hs // ws) * ws, -(-wsz // ws) * ws
@@ -145,7 +177,8 @@ def stage_shapes(cfg):
 
 
 # ---------------------------------------------------------------------------
-# Kernel A: window attention at the Swin-B 1024x2048 stage shapes
+# Kernel A: window attention at the Swin-B 1024x2048 stage shapes (timed) and at every
+# other shape that the driven phases give it
 # ---------------------------------------------------------------------------
 
 def window_attention_phase(cfg, gen):
@@ -201,7 +234,40 @@ def window_attention_phase(cfg, gen):
         for key, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b_ms)):
             totals[key] += count * t
         totals["ms_batches"] = [a + count * t for a, t in zip(totals["ms_batches"], t_all)]
-    return rows, totals, worst
+    # correctness alone at every other window-attention shape that the driven phases
+    # give the kernel (served_sizes: TTA variants up to 1792x3584, 1024x1024 tiles, the
+    # sweep's synthetic images), at bf16 and fp32; main() gates that these cover every
+    # shape the kernel was launched at
+    checked = {(nw, nh, c // nh, masked) for _, masked, nw, nh, c, _, _, _ in stage_shapes(cfg)}
+    for hw in served_sizes(cfg)[1:]:
+        first = len(rows)
+        for s, masked, nw, nh, c, hp, wp, _ in stage_shapes(cfg, hw):
+            if (nw, nh, c // nh, masked) in checked:
+                continue
+            checked.add((nw, nh, c // nh, masked))
+            qkv = torch.randn(nw, n, 3 * c, generator=gen, device="cuda").to(torch.bfloat16)
+            bias = torch.randn(nh, n, n, generator=gen, device="cuda")
+            mask = torch.as_tensor(shifted_window_mask(hp, wp, ws, ws // 2), device="cuda") if masked else None
+            scale = (c // nh) ** -0.5
+            got = window_attention(qkv, bias, mask, nh, scale)
+            want = window_attention_reference(qkv, bias, mask, nh, scale)
+            q32 = qkv.float()
+            err32 = max_abs(window_attention(q32, bias, mask, nh, scale),
+                            window_attention_reference(q32, bias, mask, nh, scale))
+            err, tol, share = max_abs(got, want), BF16_ULP * float(want.float().abs().max()), bf16_ulp_share(got, want)
+            rows.append(dict(image_hw=list(hw), stage=s, masked=masked, nW=nw, nh=nh, max_abs_err_bf16=err,
+                             tol_bf16=tol, bf16_ulp_share=share, max_abs_err_fp32=err32, tol_fp32=1e-4))
+            if not (err <= tol and share >= BF16_SHARE and err32 <= 1e-4):
+                raise RuntimeError(f"window_attention disagrees with its plain version at {hw}: {rows[-1]}")
+            worst = max(worst, err)
+        new = rows[first:]
+        if new:
+            log(f"window_attention at {hw[0]}x{hw[1]}, {len(new)} new shapes (nW "
+                f"{sorted({r['nW'] for r in new}, reverse=True)}): worst bf16 err / tol "
+                f"{max(r['max_abs_err_bf16'] / r['tol_bf16'] for r in new):.3f}, least share within 1 ulp "
+                f"{min(r['bf16_ulp_share'] for r in new):.6f} (tol {BF16_SHARE}), worst fp32 err "
+                f"{max(r['max_abs_err_fp32'] for r in new):.3e} (tol 1e-4)")
+    return rows, totals, worst, checked
 
 
 # ---------------------------------------------------------------------------
@@ -602,7 +668,7 @@ def _profile(name, fn, top: int = 8):
     busy_ms = sum(r[1] for r in kernels)
     out = dict(wall_ms=wall_ms, busy_ms=busy_ms or None, idle_share=1 - busy_ms / wall_ms if busy_ms else None,
                top=[dict(kernel=k[:120], ms=t, calls=c) for k, t, c in kernels[:top]])
-    log(f"eval: profile of {name} (profiler on): wall {wall_ms:.2f} ms, device busy "
+    log(f"{name}: profile (profiler on): wall {wall_ms:.2f} ms, device busy "
         + (f"{busy_ms:.2f} ms, idle share {out['idle_share']:.3f}" if busy_ms else "not measured"))
     for r in out["top"]:
         log(f"  {r['ms']:8.3f} ms  x{r['calls']:<4d} {r['kernel']}")
@@ -693,7 +759,7 @@ def eval_phase(cfg, busy_ms, model, samples, gen_s):
     def one_step():
         probe.update(ev.score_fn(samples[1].image[None])[0], samples[1].label.astype("uint8"))
 
-    step = _profile("one streaming step (upload, score, histogram update)", one_step)
+    step = _profile("eval: one streaming step (upload, score, histogram update)", one_step)
     step["host_syncs"] = _count_syncs(one_step)
     log(f"eval: host synchronisations in one streaming step (sync-debug warnings): {step['host_syncs']}")
     m4, s4, fb4 = _eval_timed(ev.evaluate_dataset, samples, cohort=4)
@@ -753,7 +819,7 @@ def eval_phase(cfg, busy_ms, model, samples, gen_s):
     hist_ms = cuda_ms_batches(lambda: histogram_update(s_dev, lab_dev))
     timing = StreamingOODMetrics()
     upd_ms = cuda_ms_batches(lambda: timing.update(s_dev, lab_dev))
-    upd_prof = _profile(f"{HIST_REPS} histogram updates (StreamingOODMetrics.update)",
+    upd_prof = _profile(f"eval: {HIST_REPS} histogram updates (StreamingOODMetrics.update)",
                         lambda: [timing.update(s_dev, lab_dev) for _ in range(HIST_REPS)])
     # update must queue device work only: it raises here if it synchronises with the host
     torch.cuda.synchronize()
@@ -875,6 +941,283 @@ def fast_eval_phase(cfg, model, samples):
     return dict(metrics=m, s=s, images_per_s=EVAL_IMAGES / s, fell_back=fell_back, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# Released checkpoints and the serving variants: the Detectron2 loader, test-time
+# augmentation, sliding window, DenseHybrid and the sweep CLI, at Swin-B width
+# ---------------------------------------------------------------------------
+
+D2_CONFIG = Path("configs/cityscapes/swin_b_1dl.yaml")  # the Detectron2 YAML of swin_b_1dl
+SCRATCH = Path("build/chip_smoke")  # gitignored: the checkpoint, the sweep's zoo and its results
+def write_d2_checkpoint(cfg, path: Path, seed: int = 0) -> dict:
+    """Write ``tests/d2_synthetic.py``'s seeded Detectron2 state dict of ``cfg``'s model
+    (every parameter under its released name, the buffers that the conversion drops, and
+    the pre-rename names ``static_query`` and a bare ``sem_seg_head.mask_features``) as a
+    ``model_final.pth``.  Returns the dict, numpy arrays."""
+    from tests.d2_synthetic import d2_state_dict
+
+    sd = d2_state_dict(cfg, seed)
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}, "iteration": 89999}, path)
+    return sd
+
+
+@contextlib.contextmanager
+def window_attention_shapes():
+    """Record the (windows, heads, head dim, masked) of every Kernel A launch that Swin
+    makes inside the block: its calls go through a recorder, and the wrapper itself, with
+    its launch count, is the same."""
+    from rba_tpu_torch.models import swin
+
+    real, seen = swin.window_attention, set()
+
+    def recorded(qkv, rel_bias, mask, nh, scale):
+        if qkv.is_cuda:
+            seen.add((qkv.shape[0], nh, qkv.shape[-1] // (3 * nh), mask is not None))
+        return real(qkv, rel_bias, mask, nh, scale)
+
+    swin.window_attention = recorded
+    try:
+        yield seen
+    finally:
+        swin.window_attention = real
+
+
+def _zero_counts():
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    return lambda: {k: fn.launches for k, fn in wrappers.items()}
+
+
+def d2_phase(image):
+    """``load_checkpoint_params`` on a directory that holds the Detectron2 ``config.yaml``
+    of swin_b_1dl and a seeded full-width ``model_final.pth``: converted onto the card,
+    every parameter equal bit for bit to the same dict converted on the CPU (which the CPU
+    tests hold leaf for leaf against rba_tpu's conversion), the ``params.npz`` cache
+    written, and a second load from the cache equal to the first; both load times; one
+    path-1 request from each model, finite and equal."""
+    from rba_tpu_torch.config import load_d2_config, swin_b_1dl
+    from rba_tpu_torch.convert import jax_params_to_state, load_checkpoint_params
+    from rba_tpu_torch.convert.d2_mapping import convert_d2_state_dict
+    from rba_tpu_torch.models.maskformer import maskformer_infer_rba
+
+    cfg = load_d2_config(str(D2_CONFIG))
+    if cfg != swin_b_1dl():
+        raise RuntimeError(f"d2: {D2_CONFIG} does not load as swin_b_1dl(): {cfg}")
+    model_dir = SCRATCH / "d2" / "swin_b_1dl"
+    shutil.rmtree(model_dir, ignore_errors=True)
+    model_dir.mkdir(parents=True)
+    shutil.copy(D2_CONFIG, model_dir / "config.yaml")
+    t0 = time.perf_counter()
+    sd = write_d2_checkpoint(cfg, model_dir / "model_final.pth")
+    write_s = time.perf_counter() - t0
+    want = {k: torch.from_numpy(v) for k, v in jax_params_to_state(convert_d2_state_dict(sd, cfg)).items()}
+    mb = (model_dir / "model_final.pth").stat().st_size / 2**20
+    t0 = time.perf_counter()
+    converted = load_checkpoint_params(str(model_dir), cfg)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if not (model_dir / "params.npz").exists():
+        raise RuntimeError("d2: the params.npz cache was not written")
+    t0 = time.perf_counter()
+    cached = load_checkpoint_params(str(model_dir), cfg)
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    params = dict(converted.named_parameters())
+    wrong = [n for n, p in params.items() if not (p.is_cuda and torch.equal(p.detach().cpu(), want[n]))]
+    differ = [n for n, q in cached.named_parameters() if not torch.equal(params[n], q)]
+    log(f"d2: model_final.pth of {len(sd)} arrays, {len(want)} parameters "
+        f"({sum(v.numel() for v in want.values()) / 1e6:.2f} M, {mb:.1f} MiB) written in {write_s:.2f} s; "
+        f"load_checkpoint_params converting it onto the card {load_s:.2f} s (params.npz cache written), from the "
+        f"cache {cache_s:.2f} s; parameters not equal to the CPU conversion: {len(wrong)}; cache-loaded "
+        f"parameters not equal: {len(differ)}")
+    if wrong or differ or sorted(params) != sorted(want):
+        raise RuntimeError(f"d2: parameters differ: {wrong[:5]} {differ[:5]}")
+    maskformer_infer_rba(converted, cfg, image)  # warm-up
+    counts = _zero_counts()
+    rba, ms = _timed(maskformer_infer_rba, converted, cfg, image)
+    launches = counts()
+    rba_cached = maskformer_infer_rba(cached, cfg, image)
+    finite = bool(torch.isfinite(rba).all())
+    same = bool(torch.equal(rba, rba_cached))
+    log(f"d2: one path-1 request from the converted model {ms:.2f} ms, launches {launches}, finite {finite}; "
+        f"equal to the cache-loaded model's: {same} (max diff {max_abs(rba, rba_cached):.3e})")
+    if not (finite and same and tuple(rba.shape) == (1, *IMAGE_HW)):
+        raise RuntimeError("d2: the request is not finite or differs between the two loads")
+    return dict(parameters=len(want), mib=mb, write_s=write_s, load_convert_s=load_s, load_cache_s=cache_s,
+                request_ms=ms, launches=launches), model_dir / "model_final.pth"
+
+
+def _sampling_form(cfg, hh: int, ww: int):
+    """(form, one-hot row-matrix elements) of the deformable sampling on the res5 level of
+    an hh×ww input: the "auto" dispatch of ``ops/deform_sampling.py``."""
+    from rba_tpu_torch.ops.deform_sampling import sampling_methods
+
+    pd, div = cfg.pixel_decoder, cfg.input.size_divisibility
+    h5, w5 = -(-hh // div) * div // 32, -(-ww // div) * div // 32
+    (method,) = sampling_methods(1, pd.transformer_nheads, h5 * w5, [(h5, w5)], pd.sampling_method,
+                                 pd.sampling_onehot_cap)
+    form = "onehot" if method == "onehot" and pd.sampling_dtype == "bfloat16" else "gather"
+    return form, pd.transformer_nheads * (h5 * w5) ** 2
+
+
+def tta_phase(cfg, model, image):
+    """``tta_inference`` on one 1024x2048 frame with the config's TEST.AUG defaults (6
+    sizes x flip) at ``fast_serving`` (the sweep's default) and at parity: ms/image, busy
+    time and idle share of one profiled frame, peak memory, each scale's sampling form,
+    launches (gated: Kernel A in every block of every variant, no Kernel B); then at an
+    fp32 backbone the kernels against their plain versions on the averaged sem_seg and
+    its RbA score (gated at E2E_FP32_TOL)."""
+    from rba_tpu_torch.config import fast_serving
+    from rba_tpu_torch.models.maskformer import rba_score
+    from rba_tpu_torch.models.tta import tta_inference, tta_variants
+
+    img = image[0]
+    variants = tta_variants(cfg, *IMAGE_HW)
+    n_blocks = sum(cfg.swin.depths)
+    expected = {"window_attention": n_blocks * len(variants), "fused_rba_score": 0, "masked_softmax": 0,
+                "fused_mlp_residual": 0}
+    out = dict(variants=[list(v) for v in variants])
+    for name, c in (("fast", fast_serving(cfg)), ("parity", cfg)):
+        forms = {f"{hh}x{ww}": _sampling_form(c, hh, ww) for hh, ww, flipped in variants if not flipped}
+        tta_inference(model, c, img)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts = _zero_counts()
+        sem, ms = _timed(tta_inference, model, c, img)
+        launches = counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        prof = _profile(f"tta {name} (one frame, {len(variants)} variants)", lambda: tta_inference(model, c, img))
+        finite = tuple(sem.shape) == (cfg.num_classes, *IMAGE_HW) and bool(torch.isfinite(sem).all())
+        log(f"tta {name}: {ms:.2f} ms/image ({len(variants)} variants), launches {launches}, finite {finite}, "
+            f"peak memory {peak_gib:.2f} GiB; sampling per scale (form, one-hot row-matrix elements): {forms}")
+        if launches != expected or not finite:
+            raise RuntimeError(f"tta {name}: launches {launches} (expected {expected}), finite {finite}")
+        out[name] = dict(ms_per_image=ms, launches=launches, peak_gib=peak_gib, sampling=forms, profile=prof)
+    fcfg = fast_serving(cfg)
+    err16 = max_abs(tta_inference(model, fcfg, img), tta_inference(model, fcfg, img, plain=True))
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    counts = _zero_counts()
+    k = tta_inference(model, c32, img)
+    launches32 = counts()
+    p = tta_inference(model, c32, img, plain=True)
+    err_sem, err_rba = max_abs(k, p), max_abs(rba_score(k[None]), rba_score(p[None]))
+    log(f"tta fp32 backbone, kernels ({launches32['window_attention']} Kernel A launches) vs plain versions: "
+        f"sem_seg max diff {err_sem:.3e}, rba_score {err_rba:.3e} (bound {E2E_FP32_TOL:.0e}, gated); at "
+        f"fast_serving's bf16 backbone the sem_seg differs by {err16:.3e} (reported, not gated)")
+    if not max(err_sem, err_rba) <= E2E_FP32_TOL or launches32 != expected:
+        raise RuntimeError(f"tta: fp32 kernels and plain versions differ by {err_sem}, {err_rba}; "
+                           f"launches {launches32}")
+    out.update(fp32_sem_seg_max_diff=err_sem, fp32_rba_max_diff=err_rba, bf16_sem_seg_max_diff_not_gated=err16)
+    return out
+
+
+def sliding_phase(cfg, model, image, gen):
+    """``sliding_window_sem_seg`` with 1024x1024 tiles and overlap 256 at ``fast_serving``:
+    a 1024x2048 frame (3 tiles; launches gated; at an fp32 backbone the kernels against
+    their plain versions, gated at E2E_FP32_TOL) and one 3072x4096 frame (20 tiles),
+    timed."""
+    from rba_tpu_torch.config import fast_serving
+    from rba_tpu_torch.models.sliding_window import sliding_window_sem_seg, tile_grid
+
+    fcfg = fast_serving(cfg)
+    n_blocks = sum(cfg.swin.depths)
+    big = torch.randint(0, 256, (*BIG_FRAME_HW, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    out = {}
+    for name, frame in (("1024x2048", image[0]), ("3072x4096", big)):
+        _, _, _, ys, xs = tile_grid(*frame.shape[:2])
+        sliding_window_sem_seg(model, fcfg, frame)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts = _zero_counts()
+        sem, ms = _timed(sliding_window_sem_seg, model, fcfg, frame)
+        launches = counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        tiles = len(ys) * len(xs)
+        finite = tuple(sem.shape) == (cfg.num_classes, *frame.shape[:2]) and bool(torch.isfinite(sem).all())
+        log(f"sliding {name}: {tiles} tiles at rows {ys}, columns {xs}; {ms:.2f} ms/image, launches {launches}, "
+            f"finite {finite}, peak memory {peak_gib:.2f} GiB")
+        if launches["window_attention"] != n_blocks * tiles or launches["fused_rba_score"] or not finite:
+            raise RuntimeError(f"sliding {name}: launches {launches} for {tiles} tiles, finite {finite}")
+        out[name] = dict(tiles=tiles, rows=ys, columns=xs, ms_per_image=ms, launches=launches, peak_gib=peak_gib)
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    counts = _zero_counts()
+    k = sliding_window_sem_seg(model, c32, image[0])
+    launches32 = counts()["window_attention"]
+    err = max_abs(k, sliding_window_sem_seg(model, c32, image[0], plain=True))
+    log(f"sliding 1024x2048 fp32 backbone, kernels ({launches32} Kernel A launches) vs plain versions: sem_seg max "
+        f"diff {err:.3e} (bound {E2E_FP32_TOL:.0e}, gated)")
+    if not err <= E2E_FP32_TOL or launches32 != out["1024x2048"]["launches"]["window_attention"]:
+        raise RuntimeError(f"sliding: fp32 kernels and plain versions differ by {err}; {launches32} launches")
+    out["fp32_sem_seg_max_diff"] = err
+    return out
+
+
+def dense_hybrid_phase(image):
+    """One ``OODEvaluator(score="dense_hybrid")`` request on ``fast_serving(swin_b_1dl())``
+    with the DenseHybrid head: finite, launches counted; at an fp32 backbone the score
+    through the kernels against its formula on the plain versions (gated at
+    E2E_FP32_TOL)."""
+    from rba_tpu_torch.config import fast_serving, swin_b_1dl
+    from rba_tpu_torch.evalx.evaluator import OODEvaluator
+    from rba_tpu_torch.models.maskformer import build_model, maskformer_infer
+
+    base = swin_b_1dl()
+    cfg = fast_serving(dataclasses.replace(base, decoder=dataclasses.replace(base.decoder, ood_prediction=True)))
+    model = build_model(cfg, seed=1)
+    ev = OODEvaluator(cfg, model, score="dense_hybrid")
+    ev.score_fn(image)  # warm-up
+    counts = _zero_counts()
+    s, ms = _timed(ev.score_fn, image)
+    launches = counts()
+    finite = tuple(s.shape) == (1, *IMAGE_HW) and bool(torch.isfinite(s).all())
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    counts = _zero_counts()
+    k = OODEvaluator(c32, model, score="dense_hybrid").score_fn(image)
+    launches32 = counts()
+    o = maskformer_infer(model, c32, image.float(), plain=True)
+    p = -torch.logsumexp(o["sem_seg"], 1) + torch.log(torch.softmax(o["ood_pred"], 1)[:, 1] + 1e-9)
+    err = max_abs(k, p)
+    log(f"dense_hybrid: one request {ms:.2f} ms, launches {launches}, finite {finite}, scores "
+        f"[{float(s.min()):.4f}, {float(s.max()):.4f}]; fp32 backbone, kernels vs plain versions: max diff {err:.3e} "
+        f"(bound {E2E_FP32_TOL:.0e}, gated)")
+    expected = {"window_attention": sum(cfg.swin.depths), "fused_rba_score": 0, "masked_softmax": 0,
+                "fused_mlp_residual": 0}
+    if not finite or launches != expected or launches32 != expected or not err <= E2E_FP32_TOL:
+        raise RuntimeError(f"dense_hybrid: finite {finite}, launches {launches} and {launches32} at fp32 "
+                           f"(expected {expected}), diff {err}")
+    return dict(ms=ms, launches=launches, fp32_max_diff=err)
+
+
+def sweep_cli_phase(pth: Path):
+    """``rba_tpu_torch.evalx.sweep.main`` on the card over a zoo that holds only the
+    Detectron2 ``config.yaml`` and the seeded ``model_final.pth``, on the synthetic
+    dataset, three times: plain, ``--tta`` and ``--sliding-window``.  Gates: each writes
+    finite AUPRC, AUROC and FPR95, and the first leaves ``params.npz`` behind."""
+    from rba_tpu_torch.evalx import sweep
+
+    zoo = SCRATCH / "zoo"
+    shutil.rmtree(zoo, ignore_errors=True)
+    shutil.rmtree(SCRATCH / "sweep_out", ignore_errors=True)
+    (zoo / "swin_b_1dl").mkdir(parents=True)
+    shutil.copy(D2_CONFIG, zoo / "swin_b_1dl" / "config.yaml")
+    os.link(pth, zoo / "swin_b_1dl" / "model_final.pth")
+    out = {}
+    for name, flags in (("plain", []), ("tta", ["--tta"]), ("sliding", ["--sliding-window"])):
+        res_dir = SCRATCH / "sweep_out" / name
+        counts = _zero_counts()
+        _, ms = _timed(sweep.main, ["--models_folder", str(zoo), "--datasets_folder", str(SCRATCH / "no_datasets"),
+                                    "--dataset_mode", "synthetic", "--out_path", str(res_dir), *flags])
+        launches = counts()
+        metrics = json.loads((res_dir / "swin_b_1dl" / "results.json").read_text())["synthetic"]
+        cached = (zoo / "swin_b_1dl" / "params.npz").exists()
+        log(f"sweep_cli {name}: {ms / 1e3:.2f} s, results {metrics}, launches {launches}, params.npz cached {cached}")
+        if sorted(metrics) != ["aupr", "auroc", "fpr95"] or not all(math.isfinite(v) for v in metrics.values()) \
+                or not cached:
+            raise RuntimeError(f"sweep_cli {name}: results {metrics}, params.npz cached {cached}")
+        out[name] = dict(s=ms / 1e3, metrics=metrics, launches=launches)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, help="directory for chip_smoke.json, the run's measurements")
@@ -898,7 +1241,7 @@ def main() -> int:
     cfg = swin_b_1dl()
     cfg2 = dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, mlp_impl="fused"))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    wa_rows, wa, wa_err = window_attention_phase(cfg, gen)
+    wa_rows, wa, wa_err, wa_checked = window_attention_phase(cfg, gen)
     rba_row = fused_rba_phase(cfg, gen)
     ms_rows, ms, ms_err = masked_softmax_phase(cfg, gen)
     mlp_rows, mlp, mlp_err = fused_mlp_phase(gen)
@@ -952,20 +1295,43 @@ def main() -> int:
     eval_launches = evaluation["cohort1"]["launches"]
     log(f"eval phases: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    with window_attention_shapes() as wa_seen:
+        d2, pth = d2_phase(images[1])
+        tta = tta_phase(cfg, model, images[1])
+        sliding = sliding_phase(cfg, model, images[1], gen)
+        del model
+        dense_hybrid = dense_hybrid_phase(images[1])
+        sweep_cli = sweep_cli_phase(pth)
+    log(f"d2, tta, sliding, dense_hybrid and sweep_cli phases: {time.perf_counter() - t0:.1f} s")
+    unchecked = sorted(wa_seen - wa_checked)
+    log(f"Kernel A in these phases: {len(wa_seen)} distinct launch shapes (windows, heads, head dim, masked), "
+        f"each held against its plain version at bf16 and fp32 in the kernel phase: {not unchecked} "
+        f"({len(wa_checked)} shapes held there)")
+    if unchecked:
+        raise RuntimeError(f"Kernel A ran at shapes that the kernel phase did not hold: {unchecked}")
+    variant_launches = {f"launches_{k}": v for k, v in (
+        ("d2", d2["launches"]), ("tta", tta["fast"]["launches"]), ("sliding", sliding["1024x2048"]["launches"]),
+        ("sliding_3072x4096", sliding["3072x4096"]["launches"]), ("dense_hybrid", dense_hybrid["launches"]),
+        ("sweep_cli_plain", sweep_cli["plain"]["launches"]), ("sweep_cli_tta", sweep_cli["tta"]["launches"]),
+        ("sweep_cli_sliding", sweep_cli["sliding"]["launches"]))}
+
     kernels = [
         dict(name="window_attention", route="cuda", source="rba_tpu_torch/csrc/window_attention.cu",
              replaces="rba_tpu/ops/pallas/window_attention.py:169",
              launches=serve["path1"]["launches"]["window_attention"], max_abs_err=wa_err, ms=wa["ms"],
              plain_ms=wa["plain_ms"], bound_ms=wa["bound_ms"], bound_by="bytes", library_ms=wa["library_ms"],
              ms_batches=wa["ms_batches"], launches_eval=eval_launches["window_attention"],
-             launches_fast=fast["serve"]["launches"]["window_attention"]),
+             launches_fast=fast["serve"]["launches"]["window_attention"],
+             **{k: v["window_attention"] for k, v in variant_launches.items()}),
         dict(name="fused_rba_score", route="cuda", source="rba_tpu_torch/csrc/fused_rba.cu",
              replaces="rba_tpu/ops/pallas/fused_rba.py:111",
              launches=serve["path2"]["launches"]["fused_rba_score"], max_abs_err=rba_row["max_abs_err"],
              ms=rba_row["ms"], plain_ms=rba_row["plain_ms"], bound_ms=rba_row["bound_ms"],
              bound_by=rba_row["bound_by"], library_ms=None, ms_batches=rba_row["ms_batches"],
              bound_built_ms=rba_row["bound_built_ms"], bound_built_by=rba_row["bound_built_by"],
-             launches_eval=eval_launches["fused_rba_score"], launches_fast=fast["serve"]["launches"]["fused_rba_score"]),
+             launches_eval=eval_launches["fused_rba_score"], launches_fast=fast["serve"]["launches"]["fused_rba_score"],
+             **{k: v["fused_rba_score"] for k, v in variant_launches.items()}),
         dict(name="masked_softmax", route="cuda", source="rba_tpu_torch/csrc/masked_softmax.cu",
              replaces="rba_tpu/ops/pallas/masked_softmax.py:77",
              launches=serve["path2"]["launches"]["masked_softmax"], max_abs_err=ms_err, ms=ms["ms"],
@@ -982,13 +1348,17 @@ def main() -> int:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             dict(card=smi, torch=torch.__version__, build_s=built, window_attention=wa_rows, fused_rba=rba_row,
                  masked_softmax=ms_rows, fused_mlp=mlp_rows, serve=serve, paths_fp32_max_diff=cross32,
-                 paths_bf16_max_diff_not_gated=cross16, profile=prof, fast=fast, xla=xla, eval=evaluation,
+                 paths_bf16_max_diff_not_gated=cross16, profile=prof, fast=fast, xla=xla, eval=evaluation, d2=d2,
+                 tta=tta, sliding=sliding, dense_hybrid=dense_hybrid, sweep_cli=sweep_cli,
                  elapsed_s=time.perf_counter() - T_START, kernels=kernels), indent=1))
     log("(window_attention, masked_softmax and fused_mlp_residual times are per image: each call of one "
         "1024x2048 request, summed; ms is the mean of the first batch of 20 calls, ms_batches the means of "
         f"three batches one after the other; launches count the {N_REQUESTS} requests of a serving path, "
         f"launches_eval the eval phase's evaluate_dataset over {EVAL_IMAGES} images, launches_fast the fast cell's "
-        f"{N_REQUESTS} requests; {time.perf_counter() - T_START:.1f} s in all)")
+        f"{N_REQUESTS} requests, launches_d2 one request of the D2-loaded model, launches_tta one TTA frame at "
+        "fast_serving, launches_sliding one 1024x2048 frame and launches_sliding_3072x4096 one 3072x4096 frame in "
+        "1024x1024 tiles, launches_dense_hybrid one DenseHybrid request, launches_sweep_cli_* each sweep run over "
+        f"the synthetic dataset; {time.perf_counter() - T_START:.1f} s in all)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -2,7 +2,8 @@
 
 A copy, not an import, of the matching dataclasses in ``rba_tpu/config.py``
 (``SwinConfig``, ``PixelDecoderConfig``, ``DecoderConfig``, the test-time part
-of ``InputConfig`` and the model part of ``RbAConfig``) and of its presets.
+of ``InputConfig``, the test-time augmentation fields of ``TestConfig`` and the
+model part of ``RbAConfig``) and of its presets.
 Field names and defaults are the same, so a config of one package can be
 rebuilt field by field in the other.  Options the port does not run yet keep
 their field and are refused by ``check_supported``.  ``load_d2_config`` reads a
@@ -93,6 +94,17 @@ class InputConfig:
 
 
 @dataclass(frozen=True)
+class TestConfig:
+    """Test-time augmentation (Detectron2's ``TEST.AUG``): the shortest edge resized to
+    each of ``aug_min_sizes`` (the longest capped at ``aug_max_size``), each also
+    flipped horizontally when ``aug_flip``."""
+    aug_enabled: bool = False
+    aug_flip: bool = True
+    aug_min_sizes: Tuple[int, ...] = (512, 768, 1024, 1280, 1536, 1792)
+    aug_max_size: int = 4096
+
+
+@dataclass(frozen=True)
 class RbAConfig:
     backbone_name: str = "swin"
     sem_seg_head_name: str = "MaskFormerHead"
@@ -100,6 +112,7 @@ class RbAConfig:
     pixel_decoder: PixelDecoderConfig = field(default_factory=PixelDecoderConfig)
     decoder: DecoderConfig = field(default_factory=DecoderConfig)
     input: InputConfig = field(default_factory=InputConfig)
+    test: TestConfig = field(default_factory=TestConfig)
     num_classes: int = 19
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
@@ -115,7 +128,6 @@ def check_supported(cfg: RbAConfig) -> None:
         "per-pixel baseline heads": cfg.sem_seg_head_name != "MaskFormerHead",
         "pixel decoders other than MSDeformAttn": cfg.pixel_decoder.name != "MSDeformAttnPixelDecoder",
         "decoders other than the masked-attention one": cfg.decoder.name != "MultiScaleMaskedTransformerDecoder",
-        "the DenseHybrid ood_pred head": cfg.decoder.ood_prediction,
         "pre-norm decoder layers": cfg.decoder.pre_norm,
         "Swin attention layouts other than partition": cfg.swin.attn_layout != "partition",
         f"Swin mlp_impl={cfg.swin.mlp_impl!r}": cfg.swin.mlp_impl not in ("xla", "fused"),
@@ -292,6 +304,13 @@ def load_d2_config(path: str, **overrides) -> RbAConfig:
         pixel_std=tuple(model.get("PIXEL_STD", (58.395, 57.12, 57.375))),
         size_divisibility=mf.get("SIZE_DIVISIBILITY", 32),
     )
+    test = raw.get("TEST", {})
+    test_cfg = TestConfig(
+        aug_enabled=_get(test, "AUG.ENABLED", False),
+        aug_flip=_get(test, "AUG.FLIP", True),
+        aug_min_sizes=tuple(_get(test, "AUG.MIN_SIZES", (512, 768, 1024, 1280, 1536, 1792))),
+        aug_max_size=_get(test, "AUG.MAX_SIZE", 4096),
+    )
     cfg = RbAConfig(
         backbone_name=backbone,
         sem_seg_head_name=head.get("NAME", "MaskFormerHead"),
@@ -299,6 +318,7 @@ def load_d2_config(path: str, **overrides) -> RbAConfig:
         pixel_decoder=pixel_decoder,
         decoder=decoder,
         input=input_cfg,
+        test=test_cfg,
         num_classes=head.get("NUM_CLASSES", 19),
     )
     if overrides:

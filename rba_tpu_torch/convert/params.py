@@ -1,18 +1,18 @@
-"""Load the JAX package's parameter pytree into the port's model.
+"""The JAX package's parameter pytree: into the port's model, and to and from ``params.npz``.
 
 The port's parameter names are the pytree paths, so the mapping is mechanical:
 a leaf ``kernel`` becomes ``weight`` (a linear's (in, out) transposed to
 (out, in); an HWIO conv kernel to OIHW), a norm's ``scale`` becomes
-``weight``, ``bias`` stays, and any other leaf (bias tables, embeddings) keeps
-its name.  Leaves may be numpy arrays or anything ``np.asarray`` takes.
+``weight``, ``bias`` stays, and any other leaf (bias tables, embeddings, a batch
+norm's ``mean`` and ``var``) keeps its name.  Leaves may be numpy arrays or anything
+``np.asarray`` takes.
 
-``load_params`` reads the pytree from the JAX package's flat ``params.npz``
-(``|``-joined paths), and ``load_checkpoint_params`` builds a model from a model
-directory that holds one.
+``params.npz`` is the JAX package's flat file: one array per leaf, keyed by the
+leaf's path joined with ``|`` (dict keys, list indices).  ``save_params`` writes it
+as the JAX package does, so each package reads the other's file.
 """
 from __future__ import annotations
 
-import os
 from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
@@ -22,24 +22,27 @@ from torch import nn
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 
 
-def _flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
+def _leaves(tree: Any, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    """(path, leaf) of every leaf, in the JAX package's order (dict keys sorted)."""
     if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _flatten(v, f"{prefix}{k}.")
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (str(k),))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _flatten(v, f"{prefix}{i}.")
+            yield from _leaves(v, path + (str(i),))
     elif tree is not None:
-        yield prefix[:-1], np.asarray(tree)
+        yield path, tree
 
 
 def jax_params_to_state(params: Any) -> Dict[str, np.ndarray]:
     """The pytree as {torch parameter name: array in the torch layout}."""
     state = {}
-    for path, arr in _flatten(params):
-        head, _, leaf = path.rpartition(".")
-        name = f"{head}.{_LEAF_NAMES[leaf]}" if head and leaf in _LEAF_NAMES else path
-        if leaf == "kernel":
+    for parts, leaf in _leaves(params):
+        arr = np.asarray(leaf)
+        path = ".".join(parts)
+        head, _, leaf_name = path.rpartition(".")
+        name = f"{head}.{_LEAF_NAMES[leaf_name]}" if head and leaf_name in _LEAF_NAMES else path
+        if leaf_name == "kernel":
             if arr.ndim == 2:
                 arr = arr.T
             elif arr.ndim == 4:
@@ -91,25 +94,12 @@ def _unflatten(flat: Dict[str, np.ndarray]):
     return listify(root)
 
 
+def save_params(path: str, params: Any) -> None:
+    """Write the pytree as a flat ``params.npz``."""
+    np.savez(path, **{_SEP.join(parts): np.asarray(leaf) for parts, leaf in _leaves(params)})
+
+
 def load_params(path: str):
-    """The parameter pytree stored in a flat ``params.npz`` of the JAX package."""
+    """The parameter pytree stored in a flat ``params.npz``."""
     with np.load(path, allow_pickle=False) as z:
         return _unflatten({k: z[k] for k in z.files})
-
-
-def load_checkpoint_params(model_dir: str, cfg, device=None) -> nn.Module:
-    """The model of ``cfg`` on ``device`` (the card by default, as ``build_model``)
-    holding the weights of ``model_dir/params.npz``.  Released Detectron2 checkpoints
-    (``model_final.pth`` / ``.pkl``) need the Detectron2 loader, which the port does
-    not have yet."""
-    from .models.maskformer import build_model
-
-    npz = os.path.join(model_dir, "params.npz")
-    if os.path.exists(npz):
-        return load_jax_params(build_model(cfg, device=device), load_params(npz))
-    for cand in ("model_final.pth", "model_final.pkl"):
-        if os.path.exists(os.path.join(model_dir, cand)):
-            raise NotImplementedError(
-                f"{model_dir} holds {cand} and no params.npz: the Detectron2 checkpoint loader is not "
-                "ported yet (ROADMAP.md A.1); convert it to params.npz with the JAX package")
-    raise FileNotFoundError(f"no checkpoint (params.npz / model_final.pth) in {model_dir}")

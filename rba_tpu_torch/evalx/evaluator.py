@@ -3,7 +3,8 @@
 Counterpart of ``rba_tpu/evalx/evaluator.py``, after the reference RbA code's
 ``OODEvaluator`` (``compute_anomaly_scores`` at batch 1 with an ``upper_limit``
 cap and optional Gaussian smoothing; ``evaluate_ood`` over all pixels;
-``evaluate_ood_bootstrapped``) and its score functions (RbA, energy/PEBAL).
+``evaluate_ood_bootstrapped``) and its score functions (RbA, energy/PEBAL,
+DenseHybrid).
 
 The port passes the ``RbAModel`` where rba_tpu passes ``params``; everything runs
 on the model's device.  Images go up as uint8 and are cast there.  The default
@@ -84,17 +85,21 @@ def _score_batch(model, cfg: RbAConfig, images: torch.Tensor, score: str, smooth
                  attention: str = "fused") -> torch.Tensor:
     """(B, H, W, 3) images on the model's device → (B, H, W) fp32 anomaly scores, through
     Swin's ``attention`` branch."""
-    if score == "dense_hybrid":
-        raise NotImplementedError(
-            "score 'dense_hybrid' needs the DenseHybrid ood_pred head, which a later slice of the port adds")
     if score == "rba" and not smoothing:
         # the fused RbA tail; exact because evaluation feeds original-resolution images
         return maskformer_infer_rba(model, cfg, images, attention=attention)
-    logits = maskformer_infer(model, cfg, images, attention=attention)["sem_seg"]
+    out = maskformer_infer(model, cfg, images, attention=attention)
+    logits = out["sem_seg"]
     if score == "rba":
         s = rba_score(logits)
     elif score in ("pebal", "energy"):
         s = energy_score(logits)
+    elif score == "dense_hybrid":
+        if "ood_pred" not in out:
+            raise ValueError("score 'dense_hybrid' needs the DenseHybrid ood_pred head "
+                             "(MODEL.MASK_FORMER.DENSE_HYBRID_LOSS, DecoderConfig.ood_prediction)")
+        p_ood = torch.softmax(out["ood_pred"], dim=1)[:, 1]
+        s = -torch.logsumexp(logits, dim=1) + torch.log(p_ood + 1e-9)
     else:
         raise ValueError(score)
     if smoothing:

@@ -1,10 +1,13 @@
 """Model-zoo OOD evaluation sweep CLI of the port (counterpart of ``rba_tpu.evalx.sweep``).
 
 After the reference RbA code's ``evaluate_ood.py``: iterate a models folder (each
-subdirectory holding ``config.yaml`` and ``params.npz``, the JAX package's
-parameter file), evaluate each model on each dataset, skip the (model, dataset)
+subdirectory holding ``config.yaml`` and the weights: ``params.npz``, or a released
+Detectron2 ``model_final.pth``/``.pkl``, converted on first use and cached as
+``params.npz``), evaluate each model on each dataset, skip the (model, dataset)
 pairs already in ``results.pkl`` (resumable sweeps), optionally dump anomaly-score
-maps, and write ``results.pkl`` / ``results.json``.
+maps, and write ``results.pkl`` / ``results.json``.  ``--tta`` (multi-scale and flip
+test-time augmentation, ``TEST.AUG``) and ``--sliding-window`` (1024×1024 tiles)
+score each image's blended ``sem_seg`` with exact all-pixel metrics.
 
 Usage:
     python -m rba_tpu_torch.evalx.sweep \\
@@ -108,7 +111,8 @@ def save_results(out_path: str, model_name: str, results: dict, verbose: bool):
 
 
 def load_model(model_dir: str, precision: str = "fast", device=None):
-    """(config, model) from ``model_dir``: ``config.yaml`` and ``params.npz``."""
+    """(config, model) from ``model_dir``: ``config.yaml`` and ``params.npz`` or
+    ``model_final.pth``/``.pkl``."""
     from ..config import fast_serving, load_d2_config
     from ..convert import load_checkpoint_params
 
@@ -143,11 +147,41 @@ def store_score_pngs(scores: np.ndarray, path: str, names=None):
         pass
 
 
+def _variant_metrics(evaluator, dataset, args) -> dict:
+    """Exact all-pixel metrics of the RbA or energy score of each image's ``--tta`` or
+    ``--sliding-window`` sem_seg (optionally Gaussian-smoothed)."""
+    from ..models.maskformer import energy_score, rba_score
+    from ..models.sliding_window import sliding_window_sem_seg
+    from ..models.tta import tta_inference
+    from .evaluator import _gaussian_blur, _names
+    from .metrics import exact_ood_metrics
+
+    infer = tta_inference if args.tta else sliding_window_sem_seg
+    score_op = rba_score if args.score_func == "rba" else energy_score
+    scores, gts = [], []
+    for i, sample in enumerate(dataset):
+        if i >= args.upper_limit:
+            break
+        sem = infer(evaluator.model, evaluator.cfg, sample.image, attention=evaluator.attention)
+        s = score_op(sem[None])
+        if args.smoothing:
+            s = _gaussian_blur(s)
+        scores.append(s[0].cpu().numpy())
+        gts.append(sample.label)
+    return _names(exact_ood_metrics(np.stack(scores).reshape(-1), np.stack(gts).reshape(-1)))
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.tta or args.sliding_window:
-        raise NotImplementedError(
-            "--tta and --sliding-window are not ported yet (ROADMAP.md A.2, serving variants)")
+    variant = args.tta or args.sliding_window
+    if args.fuse_models and (variant or args.exact or args.store_anomaly_scores):
+        raise SystemExit(
+            "--fuse_models applies to the streaming path only "
+            "(not --tta/--sliding-window/--exact/--store_anomaly_scores)"
+        )
+    if variant and args.score_func == "dense_hybrid":
+        # dense_hybrid needs the model's ood_pred head, which the blended sem_seg does not carry
+        raise SystemExit("--score_func dense_hybrid is not supported with --tta/--sliding-window")
     if args.device is None and not torch.cuda.is_available():
         raise RuntimeError("the sweep runs on the GPU by default and none is available; "
                            "pass --device cpu to run on the CPU")
@@ -197,11 +231,6 @@ def main(argv=None):
         work = work[i::n]
 
     if args.fuse_models:
-        if args.exact or args.store_anomaly_scores:
-            raise SystemExit(
-                "--fuse_models applies to the streaming path only "
-                "(not --exact/--store_anomaly_scores)"
-            )
         from .evaluator import evaluate_dataset_multi
 
         by_ds: dict = {}
@@ -254,7 +283,9 @@ def main(argv=None):
                                              use_gaussian_smoothing=args.smoothing, attention=args.attention)
         evaluator = loaded[model_dir]
         print(f"evaluating {model_name} on {ds_name} ({len(datasets[ds_name])} images)")
-        if args.exact or args.store_anomaly_scores:
+        if variant:
+            metrics = _variant_metrics(evaluator, datasets[ds_name], args)
+        elif args.exact or args.store_anomaly_scores:
             scores, gts = evaluator.compute_anomaly_scores(datasets[ds_name], upper_limit=args.upper_limit)
             if args.store_anomaly_scores:
                 names = [os.path.basename(p) for p in datasets[ds_name].images[: len(scores)]]

@@ -11,7 +11,9 @@ default chain in plain PyTorch); see ``models/swin.py``.
 the kernels instead, which is how each path is held against them on the card.
 Each layer of a request runs inside a ``torch.profiler.record_function`` span
 named after it (``LAYERS``), so a profile of the entry reads its layers.
-``build_model`` makes the model on the card unless told otherwise.
+``build_model`` makes the model on the card unless told otherwise.  A model whose
+config sets ``DecoderConfig.ood_prediction`` carries the DenseHybrid ``ood_pred``
+head, which ``maskformer_infer`` returns.
 """
 from __future__ import annotations
 
@@ -94,14 +96,20 @@ def init_params(model: RbAModel, seed: int) -> None:
             p.copy_(torch.randn(p.shape, generator=gen, device=device))
 
 
+def resolve_device(device, what: str):
+    """``device``, or the card where it is None; raises where there is no GPU to default to."""
+    if device is not None:
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what} runs on the GPU by default and none is available; "
+                           "pass device='cpu' to run on the CPU")
+    return "cuda"
+
+
 def build_model(cfg: RbAConfig, device=None, seed: int = 0) -> RbAModel:
     """The model with seeded random weights on ``device``, the card by default.  Raises
     where there is no GPU and no device is given."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("build_model runs on the GPU by default and none is available; "
-                               "pass device='cpu' to build on the CPU")
-        device = "cuda"
+    device = resolve_device(device, "build_model")
     check_supported(cfg)
     with torch.device(device):
         model = RbAModel(cfg)
@@ -212,16 +220,23 @@ def maskformer_infer(
     out_hw: Optional[Tuple[int, int]] = None,
     include_void: bool = False,
     attention: str = "fused",
+    plain: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """{"sem_seg": (B, K, h, w), "rba": (B, h, w)} at ``out_hw`` (default: the input size).
-    ``attention``: Swin's window-attention branch (``swin_apply``)."""
+    """{"sem_seg": (B, K, h, w), "rba": (B, h, w)} at ``out_hw`` (default: the input size),
+    and for a model with the DenseHybrid head its (B, 2, H, W) ``ood_pred`` logits at the
+    input size (resized with ``align_corners=True``, as the reference does).
+    ``attention``: Swin's window-attention branch (``swin_apply``); ``plain`` runs the
+    kernels' plain versions."""
     images = _on_model(model, images)
     h_img, w_img = images.shape[1], images.shape[2]
     out_hw = out_hw or (h_img, w_img)
     x = preprocess(cfg, images)
     hp, wp = x.shape[1], x.shape[2]
-    out = maskformer_forward(model, cfg, x, attention=attention)
+    out = maskformer_forward(model, cfg, x, attention=attention, plain=plain)
     mask_pred = resize_bilinear(out["pred_masks"], (hp, wp), align_corners=False)
     sem = semantic_inference(out["pred_logits"], mask_pred, include_void=include_void)
     sem = resize_bilinear(sem[:, :, :h_img, :w_img], out_hw, align_corners=False)
-    return {"sem_seg": sem, "rba": rba_score(sem)}
+    result = {"sem_seg": sem, "rba": rba_score(sem)}
+    if "ood_pred" in out:
+        result["ood_pred"] = resize_bilinear(out["ood_pred"], (h_img, w_img), align_corners=True)
+    return result

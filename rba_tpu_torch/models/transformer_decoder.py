@@ -30,6 +30,18 @@ class MultiheadAttention(nn.Module):
         self.out_proj = nn.Linear(d_model, d_model)
 
 
+class BatchNormStats(nn.Module):
+    """An inference batch norm's parameters as the JAX pytree names them: ``weight``
+    (``scale``), ``bias``, and the running ``mean`` and ``var``."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.mean = nn.Parameter(torch.zeros(c))
+        self.var = nn.Parameter(torch.ones(c))
+
+
 def _attn_layer(d_model: int) -> nn.ModuleDict:
     return nn.ModuleDict({"attn": MultiheadAttention(d_model), "norm": nn.LayerNorm(d_model)})
 
@@ -56,6 +68,9 @@ class MaskedDecoder(nn.Module):
                            "linear2": nn.Linear(cfg.dim_feedforward, c), "norm": nn.LayerNorm(c)})
             for _ in range(cfg.dec_layers)
         )
+        # DenseHybrid's BN -> ReLU -> 1x1 conv head on the mask features: (inlier, outlier) logits
+        self.ood_pred = (nn.ModuleDict({"bn": BatchNormStats(c), "conv": nn.Conv2d(c, 2, 1)})
+                         if cfg.ood_prediction else None)
 
 
 def mha_apply(
@@ -116,6 +131,15 @@ def _prediction_heads(
     return outputs_class, torch.einsum(spec, mask_embed.float(), mask_features.float())
 
 
+def ood_pred_apply(head: nn.ModuleDict, mask_features: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) mask features → (B, 2, H, W) DenseHybrid logits: BN (eps 1e-5) → ReLU →
+    1x1 conv, in fp32."""
+    bn = head["bn"]
+    x = (mask_features.float() - bn.mean) * torch.rsqrt(bn.var + 1e-5)
+    x = x * bn.weight + bn.bias
+    return apply_conv(head["conv"], F.relu(x)).permute(0, 3, 1, 2)
+
+
 def decoder_apply(
     dec: MaskedDecoder,
     cfg: DecoderConfig,
@@ -124,8 +148,9 @@ def decoder_apply(
     final_mask_layout: str = "bqhw",  # "bhwq" feeds the fused RbA kernel
     need_aux: bool = False,
 ) -> Dict:
-    """Final class logits (B, Q, K+1) and mask logits, (B, Q, H, W) or (B, H, W, Q).
-    Runs in fp32, as the JAX package's MaskFormer forward runs it."""
+    """Final class logits (B, Q, K+1) and mask logits, (B, Q, H, W) or (B, H, W, Q), and
+    with the DenseHybrid head its (B, 2, H, W) ``ood_pred`` logits.  Runs in fp32, as the
+    JAX package's MaskFormer forward runs it."""
     if need_aux:
         raise NotImplementedError("need_aux=True (deep-supervision outputs) belongs to the training slice")
     if len(x) != cfg.num_feature_levels:
@@ -173,4 +198,7 @@ def decoder_apply(
         if i < cfg.dec_layers - 1:
             attn_mask = _attn_mask_only(dec, output, small_mf(sizes[(i + 1) % cfg.num_feature_levels]))
     outputs_class, outputs_mask = _prediction_heads(dec, output, mask_features, final_mask_layout)
-    return {"pred_logits": outputs_class, "pred_masks": outputs_mask}
+    out = {"pred_logits": outputs_class, "pred_masks": outputs_mask}
+    if dec.ood_pred is not None:
+        out["ood_pred"] = ood_pred_apply(dec.ood_pred, mask_features)
+    return out

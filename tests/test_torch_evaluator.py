@@ -139,7 +139,8 @@ def test_evaluate_dataset_multi_equals_one_model_at_a_time(pair):
 
 def test_unported_scores_and_options_raise(pair):
     _, port_ev = pair
-    with pytest.raises(NotImplementedError, match="ood_pred"):
+    # a model without the DenseHybrid head has no ood_pred to score
+    with pytest.raises(ValueError, match="ood_pred"):
         port_ev(score="dense_hybrid").compute_anomaly_scores(SyntheticAnomaly(n=1, hw=HW))
     model = port_ev().model
     with pytest.raises(NotImplementedError, match="weight_quant"):

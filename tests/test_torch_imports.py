@@ -14,7 +14,8 @@ FORBIDDEN = ("jax", "jaxlib", "rba_tpu")
 
 
 def _port_files():
-    return sorted((ROOT / "rba_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    # chip_smoke.py also runs tests/d2_synthetic.py on the card
+    return sorted((ROOT / "rba_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "d2_synthetic.py"]
 
 
 def _imported_modules(path: Path):
@@ -59,3 +60,21 @@ def test_sweep_defaults_to_the_gpu(tmp_path):
     else:
         with pytest.raises(RuntimeError, match="GPU"):
             sweep.main(args)
+
+
+def test_load_checkpoint_params_defaults_to_the_gpu(tmp_path):
+    """A directory with a Detectron2 model_final.pth and no params.npz: converted and
+    built on the card by default; without one it raises before reading the file."""
+    from rba_tpu_torch.config import tiny_test_config
+    from rba_tpu_torch.convert import load_checkpoint_params
+    from tests.torch_port_common import d2_state_dict
+
+    sd = d2_state_dict(tiny_test_config(), seed=0)
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}}, tmp_path / "model_final.pth")
+    if torch.cuda.is_available():
+        model = load_checkpoint_params(str(tmp_path), tiny_test_config())
+        assert next(model.parameters()).is_cuda and (tmp_path / "params.npz").exists()
+    else:
+        with pytest.raises(RuntimeError, match="GPU"):
+            load_checkpoint_params(str(tmp_path), tiny_test_config())
+        assert not (tmp_path / "params.npz").exists()

@@ -32,12 +32,12 @@ def tiny():
 def test_config_presets_agree():
     for name in ("swin_b_1dl", "swin_l_1dl", "tiny_test_config"):
         j, p = getattr(jconfig, name)(), getattr(tconfig, name)()
-        for sect in ("swin", "pixel_decoder", "decoder", "input"):
+        for sect in ("swin", "pixel_decoder", "decoder", "input", "test"):
             tj, tp = getattr(j, sect), getattr(p, sect)
             for f in dataclasses.fields(tp):
                 assert getattr(tp, f.name) == getattr(tj, f.name), (name, sect, f.name)
         for f in dataclasses.fields(p):
-            if f.name not in ("swin", "pixel_decoder", "decoder", "input"):
+            if f.name not in ("swin", "pixel_decoder", "decoder", "input", "test"):
                 assert getattr(p, f.name) == getattr(j, f.name), (name, f.name)
 
 

@@ -8,6 +8,9 @@ Fishyscapes-LAF and SMIYC trees of ``rba_tpu.tools.selfcheck``.  Both CLIs run a
 (bf16 backbone) within ``JIT_PARITY_TOL``.  The port's ``--attention xla`` branch,
 rba_tpu's default chain, is held at ``--precision parity`` and ``fast`` within
 ``PARITY_TOL`` against rba_tpu's sweep compiled so that each op rounds to its dtype.
+``--tta``, ``--sliding-window`` and a zoo that holds only a Detectron2
+``model_final.pth`` are held at fp32 within ``METRIC_TOL``, and the option
+combinations that rba_tpu refuses exit with its message.
 """
 import json
 
@@ -21,10 +24,10 @@ from rba_tpu.convert.checkpoint import save_params
 from rba_tpu.evalx import sweep as jsweep
 from rba_tpu.models.maskformer import maskformer_init
 from rba_tpu.tools.selfcheck import build_synthetic_dataset_trees
-from rba_tpu_torch.config import load_d2_config, tiny_test_config
+from rba_tpu_torch.config import load_d2_config
 from rba_tpu_torch.convert import load_checkpoint_params
 from rba_tpu_torch.evalx import sweep as tsweep
-from tests.torch_port_common import D2_TINY, perturbed, record
+from tests.torch_port_common import D2_TINY, d2_state_dict, perturbed, record
 
 METRIC_TOL = 1e-4
 # rba_tpu's sweep jits its model, and the CPU compiler then keeps bf16 intermediates
@@ -51,7 +54,7 @@ def zoo(tmp_path_factory):
     model_dir = root / "models" / "tiny"
     model_dir.mkdir(parents=True)
     with open(model_dir / "config.yaml", "w") as f:
-        yaml.safe_dump(D2_TINY, f)
+        yaml.safe_dump({**D2_TINY, "TEST": {"AUG": {"MIN_SIZES": [40], "FLIP": True}}}, f)
     jcfg = load_d2_config(str(model_dir / "config.yaml"))
     save_params(str(model_dir / "params.npz"), perturbed(maskformer_init(jax.random.PRNGKey(0), jcfg), seed=7))
     names = build_synthetic_dataset_trees(str(root / "datasets"), hw=HW, n=2)
@@ -172,17 +175,45 @@ def test_fuse_models_equals_one_model_at_a_time(zoo, tmp_path):
         (models / "tiny2").rmdir()
 
 
-@pytest.mark.parametrize("flags, match", [
-    (["--tta"], "A.2"),
-    (["--sliding-window"], "A.2"),
-    (["--score_func", "dense_hybrid", "--dataset_mode", "road_anomaly"], "ood_pred"),
-])
-def test_unported_options_raise(zoo, tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tsweep.main(_args(zoo, tmp_path / "out", "--device", "cpu", *flags))
+@pytest.mark.parametrize("variant", ["--tta", "--sliding-window"])
+def test_tta_and_sliding_window_match_rba_tpu(zoo, tmp_path, request, variant):
+    """Exact all-pixel metrics of each image's blended sem_seg at fp32.  The zoo's config
+    sets TEST.AUG.MIN_SIZES to [40] (with flip): two 40×53 variants of each 48×64
+    image.  A 48×64 image is one sliding-window tile."""
+    extra = ("--precision", "fp32", "--dataset_mode", "road_anomaly", variant)
+    jsweep.main(_args(zoo, tmp_path / "jax", *extra))
+    tsweep.main(_args(zoo, tmp_path / "torch", "--device", "cpu", *extra))
+    want, got = _results(tmp_path / "jax"), _results(tmp_path / "torch")
+    assert sorted(got) == sorted(want) == ["road_anomaly"]
+    _check_metrics(request, got, want, METRIC_TOL)
 
 
-def test_model_final_without_params_npz_raises(tmp_path):
-    (tmp_path / "model_final.pth").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A.1"):
-        load_checkpoint_params(str(tmp_path), tiny_test_config(), device="cpu")
+def test_zoo_with_model_final_only_matches_rba_tpu(zoo, tmp_path, request):
+    """A model directory that holds only config.yaml and a Detectron2 model_final.pth:
+    each sweep converts it, leaves params.npz behind, and the metrics agree at fp32."""
+    for pkg in ("jax", "torch"):
+        d = tmp_path / pkg / "models" / "d2"
+        d.mkdir(parents=True)
+        (d / "config.yaml").write_bytes((zoo[0] / "tiny" / "config.yaml").read_bytes())
+        sd = d2_state_dict(load_d2_config(str(d / "config.yaml")), seed=9)
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}, "iteration": 0}, d / "model_final.pth")
+    for pkg, main, extra in (("jax", jsweep.main, ()), ("torch", tsweep.main, ("--device", "cpu"))):
+        main(["--models_folder", str(tmp_path / pkg / "models"), "--datasets_folder", str(zoo[1]),
+              "--out_path", str(tmp_path / pkg / "out"), "--precision", "fp32", "--dataset_mode", "road_anomaly",
+              *extra])
+        assert (tmp_path / pkg / "models" / "d2" / "params.npz").exists()
+    want, got = _results(tmp_path / "jax" / "out", "d2"), _results(tmp_path / "torch" / "out", "d2")
+    assert sorted(got) == sorted(want) == ["road_anomaly"]
+    _check_metrics(request, got, want, METRIC_TOL)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--fuse_models", "--tta"], ["--fuse_models", "--sliding-window"],
+    ["--tta", "--score_func", "dense_hybrid"], ["--sliding-window", "--score_func", "dense_hybrid"],
+], ids=["fuse_models-tta", "fuse_models-sliding", "tta-dense_hybrid", "sliding-dense_hybrid"])
+def test_refused_combinations_exit_as_in_rba_tpu(zoo, tmp_path, flags):
+    with pytest.raises(SystemExit) as want:
+        jsweep.main(_args(zoo, tmp_path / "jax", "--dataset_mode", "road_anomaly", *flags))
+    with pytest.raises(SystemExit) as got:
+        tsweep.main(_args(zoo, tmp_path / "torch", "--device", "cpu", "--dataset_mode", "road_anomaly", *flags))
+    assert str(got.value) == str(want.value) and "not" in str(got.value)

@@ -6,6 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from tests.d2_synthetic import d2_state_dict  # noqa: F401  (re-exported for the tests)
+
 # the dict of tests/test_evaluator.py::test_sweep_cli_on_synthetic: tiny_test_config in D2 keys
 D2_TINY = {
     "MODEL": {
@@ -38,6 +40,21 @@ def model_pair(jcfg, tcfg, seed: int):
     from rba_tpu_torch.models.maskformer import build_model
 
     params = perturbed(maskformer_init(jax.random.PRNGKey(seed), jcfg), seed=seed + 100)
+    model = build_model(tcfg, device="cpu", seed=seed)
+    load_jax_params(model, params)
+    return to_jax(params), model
+
+
+def d2_model_pair(jcfg, tcfg, seed: int):
+    """rba_tpu's parameters converted from a seeded Detectron2 state dict
+    (``d2_state_dict``) and the port's model holding the same values, on the CPU.  Numpy
+    only: unlike ``model_pair`` it compiles nothing of jax, so a file that needs one
+    model starts in a fraction of a second."""
+    from rba_tpu.convert.d2_mapping import convert_d2_state_dict
+    from rba_tpu_torch.convert import load_jax_params
+    from rba_tpu_torch.models.maskformer import build_model
+
+    params = convert_d2_state_dict(d2_state_dict(tcfg, seed), jcfg)
     model = build_model(tcfg, device="cpu", seed=seed)
     load_jax_params(model, params)
     return to_jax(params), model
@@ -85,3 +102,25 @@ def record(request, **values) -> None:
     """Attach measured values to the running test; a ``--junitxml`` report lists them
     as the test case's properties."""
     request.node.user_properties += [(k, float(v)) for k, v in values.items()]
+
+
+def tree_leaves(tree, path=()):
+    """(path, leaf) of every leaf of a nested dict/list pytree, dict keys sorted."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def assert_trees_equal(got, want):
+    """Same paths, and leaf for leaf the same dtype, shape and bits."""
+    g, w = dict(tree_leaves(got)), dict(tree_leaves(want))
+    assert sorted(g, key=str) == sorted(w, key=str)
+    for path, leaf in w.items():
+        a, b = np.asarray(g[path]), np.asarray(leaf)
+        assert a.dtype == b.dtype and a.shape == b.shape, (path, a.dtype, b.dtype, a.shape, b.shape)
+        assert np.array_equal(a, b), path
