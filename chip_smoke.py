@@ -29,13 +29,24 @@ requests at 1024x2048 through both serving paths and check the score maps.
   DenseHybrid head.
 - ``sweep_cli``: the sweep CLI over a zoo that holds only ``config.yaml`` and
   ``model_final.pth``, plain, with ``--tta`` and with ``--sliding-window``.
+- ``lsap``: Kernel E (the matcher's exact assignment) against its plain version and
+  scipy at the matcher's B x 32 x 100, at 100 x 100, with ties and with padded rows.
+- ``train``: ``rba_tpu_torch.train.train_net.main`` on
+  ``configs/cityscapes/swin_b_1dl_ood_coco.yaml`` (RbA's outlier-exposure fine-tune of
+  Swin-B 1dl) at full width and depth from the seeded Detectron2 checkpoint, over a
+  synthetic Cityscapes tree of 1024x2048 frames and a COCO proxy tree: 2 warm-up and 8
+  timed steps at the global batch of 8 (the forward, deep supervision, Kernel E in the
+  matcher, all losses, backward, clip and AdamW); Kernel E on a step's real costs; a
+  step at fp32 through Kernel E and through the plain LSAP; the trained checkpoint
+  serving one path-1 request.
 
 Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
     python3 chip_smoke.py [--out DIR]
 
 It exits non-zero when there is no GPU, when a kernel fails to build or launch or
-disagrees with its plain version, or when an end-to-end check fails.  Its last two
+disagrees with its plain version, or when an end-to-end check fails (the training
+phase's included).  Its last two
 lines are a JSON object with every kernel's launches, error and times, and
 ``{"ok": true, "device": {...}}``.  With ``--out`` every measurement also goes to
 DIR/chip_smoke.json.
@@ -46,6 +57,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -533,21 +545,25 @@ def serve_phase(name, cfg, model, images, attention, per_image):
 
 def _annotations():
     """The names of the port's record_function spans: the layers of a request
-    (``maskformer.LAYERS``) and each deformable-sampling call."""
+    (``maskformer.LAYERS``), each deformable-sampling call and the parts of a train step
+    (``train_step.SPANS``)."""
     from rba_tpu_torch.models.maskformer import LAYERS
     from rba_tpu_torch.ops.deform_sampling import SPAN
+    from rba_tpu_torch.train.train_step import SPANS
 
-    return (*LAYERS, SPAN)
+    return (*LAYERS, SPAN, *SPANS)
 
 
 def _device_kernels(prof):
     """(name, device ms, calls) of a profile's device events, the longest first, less the
-    annotation spans that mirror each record_function of ``_annotations()``."""
+    annotation spans that mirror each record_function of ``_annotations()`` and torch's
+    own optimizer spans (``Optimizer.step#AdamW.step``)."""
     from torch.autograd import DeviceType
 
     spans = _annotations()
     return sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.key not in spans), key=lambda r: -r[1])
+                   if e.device_type == DeviceType.CUDA and e.key not in spans
+                   and not e.key.startswith("Optimizer.")), key=lambda r: -r[1])
 
 
 def _sampling_busy(device, layer_busy_ms):
@@ -1218,6 +1234,333 @@ def sweep_cli_phase(pth: Path):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training: Kernel E (the matcher's exact assignment) and RbA's outlier-exposure
+# fine-tune of swin_b_1dl through the trainer CLI
+# ---------------------------------------------------------------------------
+
+OOD_CONFIG = Path("configs/cityscapes/swin_b_1dl_ood_coco.yaml")  # RbA's COCO outlier-exposure fine-tune
+TRAIN_FRAMES = 16  # synthetic 1024x2048 Cityscapes frames
+TRAIN_BATCH = 8  # the config's SOLVER.IMS_PER_BATCH, the global batch of a step
+TRAIN_WARMUP, TRAIN_TIMED = 2, 8  # steps
+TRAIN_SEED = 3  # fixes the mapper's draws; printed with the pasted-object count
+# Latency floor of one step of Kernel E's path loop, from the code: the dependent chain
+# of one L2 hit (the cost row, ~260 cycles) and 7 warp shuffles (the 5-level argmin and
+# the 2 broadcasts, ~26 cycles each), at the card's maximum SM clock.
+LSAP_STEP_CYCLES = 260 + 7 * 26
+
+
+def _lsap_costs(gen, b, r, c, kind, padded_rows=0):
+    if kind == "int":
+        cost = torch.randint(0, 4, (b, r, c), generator=gen, device="cuda").float()
+    else:
+        cost = torch.rand(b, r, c, generator=gen, device="cuda") * 10
+    if padded_rows:
+        cost[:, r - padded_rows:] = 1e6  # the matcher's padded targets
+    return cost.contiguous()
+
+
+def _scipy_lsap(cost: torch.Tensor):
+    """scipy on the host over the same costs, the device-to-host copy and sync included:
+    (col4row as int32, seconds)."""
+    from scipy.optimize import linear_sum_assignment
+
+    t0 = time.perf_counter()
+    host = cost.cpu().numpy()
+    out = np.stack([linear_sum_assignment(m)[1] for m in host]).astype(np.int32)
+    return out, time.perf_counter() - t0
+
+
+def _lsap_totals(cost_np, cols):
+    rows = np.arange(cost_np.shape[1])
+    return [float(m[rows, c].astype(np.float64).sum()) for m, c in zip(cost_np, cols)]
+
+
+def lsap_check(name, cost, got=None):
+    """Kernel E on ``cost`` (or its given result) against the plain version (int equality)
+    and scipy (equal total cost); the plain version's time (on the host, copy included),
+    scipy's, the steps of the paths, and the bounds."""
+    from rba_tpu_torch.kernels.lsap import batched_linear_sum_assignment
+    from rba_tpu_torch.ops import lsap as plain_lsap
+
+    if got is None:
+        got = batched_linear_sum_assignment(cost)
+    torch.cuda.synchronize()
+    host = cost.cpu().numpy()
+    steps = []
+    t0 = time.perf_counter()
+    want = []
+    for m in cost.cpu():
+        plain_lsap.linear_sum_assignment.steps = 0
+        want.append(plain_lsap.linear_sum_assignment(m))
+        steps.append(plain_lsap.linear_sum_assignment.steps)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    want = torch.stack(want)
+    sp, scipy_s = _scipy_lsap(cost)
+    equal = bool(torch.equal(got.cpu(), want))
+    optimal = _lsap_totals(host, got.cpu().numpy()) == _lsap_totals(host, sp)
+    b, r, c = cost.shape
+    nbytes = cost.numel() * 4 + got.numel() * 4
+    flops = 4.0 * c * sum(steps)  # per column scan: the reduced cost (3 adds) and its compare
+    b_ms, b_by = bound_ms(nbytes, flops, "float32")
+    clock_mhz = float(_smi("clocks.max.sm").split()[0])
+    latency_ms = max(steps) * LSAP_STEP_CYCLES / (clock_mhz * 1e3)
+    row = dict(shape=[b, r, c], equal=equal, optimal=optimal, max_abs_err=float((got.cpu() - want).abs().max()),
+               plain_ms=plain_ms, scipy_ms=scipy_s * 1e3, steps_max=max(steps), steps_total=sum(steps),
+               bound_ms=b_ms, bound_by=b_by, latency_bound_ms=latency_ms)
+    if not (equal and optimal):
+        raise RuntimeError(f"lsap {name}: Kernel E equal to the plain version {equal}, total cost equal to "
+                           f"scipy's {optimal}: {row}")
+    return row
+
+
+def lsap_phase(gen):
+    """Kernel E at the matcher's shape B x 32 x 100 (B = 1, 8, 16), at R = C = 100, on
+    integer costs with ties and with padded rows: equal to the plain version and optimal
+    as scipy's; ms per launch beside its bounds and scipy's host time."""
+    from rba_tpu_torch.kernels.lsap import batched_linear_sum_assignment
+
+    rows = {}
+    for name, (b, r, c, kind, pad) in {
+        "B1x32x100": (1, 32, 100, "rand", 14), "B8x32x100": (8, 32, 100, "rand", 14),
+        "B16x32x100": (16, 32, 100, "rand", 14), "B4x100x100": (4, 100, 100, "rand", 0),
+        "B8x32x100_int_ties": (8, 32, 100, "int", 0), "B8x32x100_no_padding": (8, 32, 100, "rand", 0),
+    }.items():
+        cost = _lsap_costs(gen, b, r, c, kind, pad)
+        row = lsap_check(name, cost)
+        row["ms"] = cuda_ms(lambda: batched_linear_sum_assignment(cost))
+        rows[name] = row
+        log(f"lsap {name} ({kind}, {pad} padded rows): equal to the plain version and optimal as scipy's | kernel "
+            f"{row['ms']:.4f} ms per launch, plain version {row['plain_ms']:.2f} ms (host), scipy with the copy "
+            f"{row['scipy_ms']:.3f} ms; bound {row['bound_ms']:.6f} ms ({row['bound_by']}), latency bound "
+            f"{row['latency_bound_ms']:.4f} ms ({row['steps_max']} serial steps of the longest matrix)")
+    return rows
+
+
+def _write_train_trees(root: Path, seed: int = 0):
+    """A Cityscapes-layout tree of TRAIN_FRAMES 1024x2048 PNG frames with
+    ``*_gtFine_labelTrainIds.png`` (blocks of the 19 classes and some void), and a COCO
+    proxy tree (``annotations/ood_seg_train2017/*.png`` with 254 on an ellipse,
+    ``train2017/*.jpg``).  Returns the seconds it took."""
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(seed)
+    h, w = IMAGE_HW
+    img_dir = root / "cityscapes" / "leftImg8bit" / "train" / "synth"
+    gt_dir = root / "cityscapes" / "gtFine" / "train" / "synth"
+    img_dir.mkdir(parents=True)
+    gt_dir.mkdir(parents=True)
+    palette = rs.randint(0, 256, (19, 3))
+    yy, xx = np.mgrid[0:h, 0:w]
+    blk = h // 8  # 8 x 16 blocks of one class each
+    for i in range(TRAIN_FRAMES):
+        lab = rs.randint(0, 19, (8, w // blk)).repeat(blk, 0).repeat(blk, 1).astype(np.uint8)
+        lab[rs.rand(8, w // blk).repeat(blk, 0).repeat(blk, 1) < 0.05] = 255
+        shade = ((xx + yy * (i + 1)) % 64).astype(np.int64)[..., None]
+        img = np.clip(palette[np.minimum(lab, 18)] + shade - 32, 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(img_dir / f"synth_{i:06d}_leftImg8bit.png", compress_level=1)
+        Image.fromarray(lab).save(gt_dir / f"synth_{i:06d}_gtFine_labelTrainIds.png", compress_level=1)
+    ann, imgs = root / "coco" / "annotations" / "ood_seg_train2017", root / "coco" / "train2017"
+    ann.mkdir(parents=True)
+    imgs.mkdir(parents=True)
+    oh, ow = h * 15 // 32, w * 5 // 16  # COCO-sized, 480x640 beside a 1024x2048 frame
+    oy, ox = np.mgrid[0:oh, 0:ow]
+    for i in range(8):
+        cy, cx = rs.randint(oh // 3, 2 * oh // 3), rs.randint(ow // 4, 3 * ow // 4)
+        ry, rx = rs.randint(oh // 12, oh // 4), rs.randint(ow // 16, ow // 5)
+        mask = ((oy - cy) / ry) ** 2 + ((ox - cx) / rx) ** 2 <= 1
+        Image.fromarray((mask * 254).astype(np.uint8)).save(ann / f"{i:012d}.png")
+        Image.fromarray(rs.randint(0, 256, (oh, ow, 3)).astype(np.uint8)).save(imgs / f"{i:012d}.jpg")
+    return time.perf_counter() - t0
+
+
+def _mapped_batch(cfg, args, n: int = TRAIN_BATCH):
+    """The first ``n`` frames read and mapped in this thread (read, COCO mix, resize, crop,
+    colour augmentation, flip, targets) and collated: (batch, host ms per image).  No
+    mapper thread runs beside what it times or what follows."""
+    import random as _random
+
+    from rba_tpu_torch.data.mappers import collate
+    from rba_tpu_torch.train import train_net
+
+    ds = train_net._resolve_dataset(cfg.datasets_train[0], args.data_root)
+    mapper = train_net.build_mapper(cfg, args)
+    samples = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        s = ds[i]
+        mapper.rng = _random.Random(i)
+        samples.append(mapper(s.image, s.label))
+    return collate(samples), (time.perf_counter() - t0) * 1e3 / n
+
+
+@contextlib.contextmanager
+def _recorded_assignments(store: list):
+    """Record the cost and the result of every Kernel E call that the matcher makes; the
+    kernel's wrapper, with its launch count, is the same."""
+    from rba_tpu_torch.train import matcher
+
+    real = matcher.batched_linear_sum_assignment
+
+    def recorded(cost):
+        out = real(cost)
+        if len(store) < 2:
+            store.append((cost.clone(), out.clone()))
+        return out
+
+    matcher.batched_linear_sum_assignment = recorded
+    try:
+        yield store
+    finally:
+        matcher.batched_linear_sum_assignment = real
+
+
+def _train_args(root: Path, weights: Path, out: Path, micro: int, max_iter: int):
+    return ["--config-file", str(OOD_CONFIG), "--data-root", str(root / "cityscapes"), "--coco-root",
+            str(root / "coco"), "--weights", str(weights), "--output-dir", str(out), "--max-iter", str(max_iter),
+            "--batch-size", str(TRAIN_BATCH), "--grad-accum", str(TRAIN_BATCH // micro), "--log-period", "1",
+            "--checkpoint-period", "0", "--seed", str(TRAIN_SEED), "--workers", str(min(8, os.cpu_count() or 1))]
+
+
+def train_phase(pth: Path, image):
+    """``rba_tpu_torch.train.train_net.main`` on configs/cityscapes/swin_b_1dl_ood_coco.yaml
+    at full width and depth, from the seeded Detectron2 checkpoint: 2 warm-up and 8 timed
+    steps at the global batch of 8 (per step the largest of 8 / 4 / 2 images that fits,
+    the rest by --grad-accum), over a synthetic Cityscapes tree and COCO proxy tree
+    written first.  Gates: finite losses and grad_norm; outlier_loss present and at
+    least one image with a pasted object; Kernel E launched (and no serving kernel), its
+    assignments on one step's real costs equal to the plain version's; at fp32 a step
+    with Kernel E and a step with the plain LSAP give equal losses; the written
+    checkpoint serves a path-1 request."""
+    from rba_tpu_torch.config import load_d2_config
+    from rba_tpu_torch.convert import load_checkpoint_params
+    from rba_tpu_torch.convert.params import load_jax_params, load_params
+    from rba_tpu_torch.kernels.lsap import batched_linear_sum_assignment
+    from rba_tpu_torch.models.maskformer import maskformer_infer_rba
+    from rba_tpu_torch.train import train_net
+    from rba_tpu_torch.train.train_step import make_train_state, make_train_step
+
+    root = SCRATCH / "train"
+    shutil.rmtree(root, ignore_errors=True)
+    write_s = _write_train_trees(root)
+    weights = root / "weights"
+    weights.mkdir()
+    shutil.copy(OOD_CONFIG, weights / "config.yaml")
+    os.link(pth, weights / "model_final.pth")
+    cfg = load_d2_config(str(OOD_CONFIG))
+    log(f"train: {TRAIN_FRAMES} synthetic 1024x2048 frames and 8 COCO proxy objects written in {write_s:.1f} s; "
+        f"config {OOD_CONFIG}: crop {cfg.input.crop_size}, batch {cfg.solver.ims_per_batch}, mapper "
+        f"{cfg.input.dataset_mapper_name}, OOD_PROB {cfg.ood.ood_prob}, outlier loss {cfg.ood.outlier_loss_func} "
+        f"on {cfg.ood.outlier_loss_target}/{cfg.ood.score_norm}, {cfg.decoder.dec_layers} decoder layer(s)")
+
+    counts = {**_wrappers(), "lsap": batched_linear_sum_assignment}
+    run = None
+    for micro in (8, 4, 2):
+        out = root / f"out_micro{micro}"
+        for fn in counts.values():
+            fn.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        store: list = []
+        try:
+            with _recorded_assignments(store):
+                t0 = time.perf_counter()
+                state = train_net.main(_train_args(root, weights, out, micro, TRAIN_WARMUP + TRAIN_TIMED))
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"train: a per-step batch of {micro} does not fit ({str(e).splitlines()[0][:120]}); trying the next")
+            state = None
+            gc.collect()
+            continue
+        launches = {k: fn.launches for k, fn in counts.items()}
+        run = dict(micro=micro, grad_accum=TRAIN_BATCH // micro, wall_s=wall_s,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches, out=out)
+        break
+    if run is None:
+        raise RuntimeError("train: no per-step batch of 8, 4 or 2 fits on the card")
+    lines = [json.loads(line) for line in open(run["out"] / "metrics.jsonl")]
+    timed = lines[TRAIN_WARMUP:]
+    ms_step = [TRAIN_BATCH * 1e3 / m["imgs_per_sec"] for m in timed]
+    pasted = sum(m.get("ood_images", 0) for m in lines)
+    finite = all(math.isfinite(v) for m in lines for k, v in m.items() if k not in ("step",))
+    expected_e = len(lines) * run["grad_accum"] * (1 + cfg.decoder.dec_layers)
+    log(f"train: per-step batch {run['micro']} x --grad-accum {run['grad_accum']} = global batch {TRAIN_BATCH}; "
+        f"{len(lines)} steps in {run['wall_s']:.1f} s (model load and mapper start included); timed steps "
+        f"{statistics.median(ms_step):.1f} ms/step median ({[round(v, 1) for v in ms_step]}), "
+        f"{TRAIN_BATCH * 1e3 / statistics.median(ms_step):.2f} images/s; peak memory {run['peak_gib']:.2f} GiB; "
+        f"seed {TRAIN_SEED}: {pasted} of {len(lines) * TRAIN_BATCH} images with a pasted object; launches "
+        f"{run['launches']} (Kernel E expected {expected_e}: steps x micro-batches x supervised layers)")
+    log(f"train: step 1 {json.dumps({k: round(v, 4) for k, v in lines[0].items()})}")
+    log(f"train: step {len(lines)} {json.dumps({k: round(v, 4) for k, v in lines[-1].items()})}")
+    serving = {k: v for k, v in run["launches"].items() if k != "lsap" and v}
+    if not finite or "outlier_loss" not in lines[0] or pasted < 1 or run["launches"]["lsap"] != expected_e \
+            or serving or len(lines) != TRAIN_WARMUP + TRAIN_TIMED:
+        raise RuntimeError(f"train: finite {finite}, outlier_loss {'outlier_loss' in lines[0]}, pasted {pasted}, "
+                           f"launches {run['launches']} (Kernel E expected {expected_e}, serving kernels {serving})")
+
+    # Kernel E on a step's real costs: against the plain version and scipy, and timed
+    cost, got = store[0]
+    real = lsap_check("train step costs", cost, got)
+    real["ms"] = cuda_ms(lambda: batched_linear_sum_assignment(cost))
+    log(f"train: Kernel E on one step's real costs {tuple(cost.shape)}: equal to the plain version and optimal | "
+        f"kernel {real['ms']:.4f} ms per launch, plain {real['plain_ms']:.2f} ms, scipy with the copy "
+        f"{real['scipy_ms']:.3f} ms; latency bound {real['latency_bound_ms']:.4f} ms ({real['steps_max']} steps)")
+
+    # one profiled step of the same run's configuration, on a batch mapped in this thread
+    args = train_net.parse_args(_train_args(root, weights, run["out"], run["micro"], 1))
+    batch, mapper_ms = _mapped_batch(cfg, args)
+    log(f"train: mapper host time {mapper_ms:.1f} ms per image (one thread, {cfg.input.dataset_mapper_name})")
+    step_fn = make_train_step(cfg, grad_accum=run["grad_accum"])
+    step_fn(state, batch)  # the profiler's own warm-up
+    _, in_memory_ms = _timed(step_fn, state, batch)  # the batch already read and mapped
+    prof = _profile("train step", lambda: step_fn(state, batch), top=10)
+    prof["idle_share_unprofiled"] = 1 - prof["busy_ms"] / in_memory_ms if prof["busy_ms"] else None
+    log(f"train: one step with its batch in host memory {in_memory_ms:.1f} ms (profiler off); device busy "
+        + (f"{prof['busy_ms']:.1f} ms of it (profiled), idle share {prof['idle_share_unprofiled']:.3f}"
+           if prof["busy_ms"] else "not measured"))
+
+    # fp32: a step through Kernel E and a step through the plain LSAP, from the same weights and draws
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params = load_params(str(weights / "params.npz"))
+    small = {k: v[:2] for k, v in batch.items()}
+    fp32 = {}
+    for plain in (False, True):
+        load_jax_params(state.model, params)
+        st = make_train_state(cfg32, model=state.model, seed=TRAIN_SEED)
+        fp32["plain" if plain else "kernel"] = {k: float(v) for k, v in make_train_step(cfg32, plain=plain)(
+            st, small).items()}
+    diff = max(abs(fp32["kernel"][k] - fp32["plain"][k]) for k in fp32["kernel"])
+    log(f"train: fp32, 2 images: losses with Kernel E {fp32['kernel']['total']:.6f}, with the plain LSAP "
+        f"{fp32['plain']['total']:.6f}; largest difference over all {len(fp32['kernel'])} metrics {diff:.3e}")
+    if sorted(fp32["kernel"]) != sorted(fp32["plain"]) or diff > 1e-6 * max(1.0, abs(fp32["plain"]["total"])):
+        raise RuntimeError(f"train: fp32 losses differ between Kernel E and the plain LSAP: {fp32}")
+    del state, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the written checkpoint serves a path-1 request
+    ckpt = run["out"] / "checkpoints" / f"step_{TRAIN_WARMUP + TRAIN_TIMED}"
+    model = load_checkpoint_params(str(ckpt), cfg)
+    maskformer_infer_rba(model, cfg, image)  # warm-up
+    counts = _zero_counts()
+    rba, ms = _timed(maskformer_infer_rba, model, cfg, image)
+    served = counts()
+    ok = bool(torch.isfinite(rba).all()) and tuple(rba.shape) == (1, *IMAGE_HW)
+    log(f"train: the trained checkpoint {ckpt.name} served one path-1 request in {ms:.2f} ms, launches {served}, "
+        f"finite and of the frame's shape: {ok}")
+    if not ok or served["window_attention"] != sum(cfg.swin.depths) or served["fused_rba_score"] != 1:
+        raise RuntimeError(f"train: the trained checkpoint's request: ok {ok}, launches {served}")
+    del model
+    return dict(micro=run["micro"], grad_accum=run["grad_accum"], ms_per_step=statistics.median(ms_step),
+                ms_per_step_all=ms_step, images_per_s=TRAIN_BATCH * 1e3 / statistics.median(ms_step),
+                peak_gib=run["peak_gib"], wall_s=run["wall_s"], launches=run["launches"], pasted_images=pasted,
+                images=len(lines) * TRAIN_BATCH, first=lines[0], last=lines[-1], profile=prof,
+                mapper_ms_per_image=mapper_ms, step_in_memory_ms=in_memory_ms, lsap_real=real, fp32=fp32, fp32_max_diff=diff, serve_ms=ms,
+                serve_launches=served, write_trees_s=write_s)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, help="directory for chip_smoke.json, the run's measurements")
@@ -1245,6 +1588,7 @@ def main() -> int:
     rba_row = fused_rba_phase(cfg, gen)
     ms_rows, ms, ms_err = masked_softmax_phase(cfg, gen)
     mlp_rows, mlp, mlp_err = fused_mlp_phase(gen)
+    lsap_rows = lsap_phase(gen)
 
     from rba_tpu_torch.models.maskformer import build_model
 
@@ -1304,6 +1648,11 @@ def main() -> int:
         dense_hybrid = dense_hybrid_phase(images[1])
         sweep_cli = sweep_cli_phase(pth)
     log(f"d2, tta, sliding, dense_hybrid and sweep_cli phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_phase(pth, images[1])
+    log(f"train phase: {time.perf_counter() - t0:.1f} s")
     unchecked = sorted(wa_seen - wa_checked)
     log(f"Kernel A in these phases: {len(wa_seen)} distinct launch shapes (windows, heads, head dim, masked), "
         f"each held against its plain version at bf16 and fp32 in the kernel phase: {not unchecked} "
@@ -1342,6 +1691,14 @@ def main() -> int:
              launches=serve["path2"]["launches"]["fused_mlp_residual"], max_abs_err=mlp_err, ms=mlp["ms"],
              plain_ms=mlp["plain_ms"], bound_ms=mlp["bound_ms"], bound_by="operations", library_ms=None,
              ms_batches=mlp["ms_batches"]),
+        dict(name="lsap", route="cuda", source="rba_tpu_torch/csrc/lsap.cu", replaces="rba_tpu/ops/lsap.py:93",
+             launches=train["launches"]["lsap"],
+             max_abs_err=max(r["max_abs_err"] for r in (*lsap_rows.values(), train["lsap_real"])),
+             ms=train["lsap_real"]["ms"], plain_ms=train["lsap_real"]["plain_ms"],
+             bound_ms=train["lsap_real"]["bound_ms"], bound_by=train["lsap_real"]["bound_by"], library_ms=None,
+             scipy_ms=train["lsap_real"]["scipy_ms"], latency_bound_ms=train["lsap_real"]["latency_bound_ms"],
+             shape=train["lsap_real"]["shape"], launches_per_step=train["launches"]["lsap"] // (
+                 TRAIN_WARMUP + TRAIN_TIMED), ms_B8x32x100=lsap_rows["B8x32x100"]["ms"]),
     ]
     if args.out:
         args.out.mkdir(parents=True, exist_ok=True)
@@ -1349,7 +1706,8 @@ def main() -> int:
             dict(card=smi, torch=torch.__version__, build_s=built, window_attention=wa_rows, fused_rba=rba_row,
                  masked_softmax=ms_rows, fused_mlp=mlp_rows, serve=serve, paths_fp32_max_diff=cross32,
                  paths_bf16_max_diff_not_gated=cross16, profile=prof, fast=fast, xla=xla, eval=evaluation, d2=d2,
-                 tta=tta, sliding=sliding, dense_hybrid=dense_hybrid, sweep_cli=sweep_cli,
+                 tta=tta, sliding=sliding, dense_hybrid=dense_hybrid, sweep_cli=sweep_cli, lsap=lsap_rows,
+                 train=train,
                  elapsed_s=time.perf_counter() - T_START, kernels=kernels), indent=1))
     log("(window_attention, masked_softmax and fused_mlp_residual times are per image: each call of one "
         "1024x2048 request, summed; ms is the mean of the first batch of 20 calls, ms_batches the means of "
@@ -1358,7 +1716,9 @@ def main() -> int:
         f"{N_REQUESTS} requests, launches_d2 one request of the D2-loaded model, launches_tta one TTA frame at "
         "fast_serving, launches_sliding one 1024x2048 frame and launches_sliding_3072x4096 one 3072x4096 frame in "
         "1024x1024 tiles, launches_dense_hybrid one DenseHybrid request, launches_sweep_cli_* each sweep run over "
-        f"the synthetic dataset; {time.perf_counter() - T_START:.1f} s in all)")
+        f"the synthetic dataset; lsap's launches count the train phase's {TRAIN_WARMUP + TRAIN_TIMED} steps, its ms, "
+        "plain_ms and bound are per launch on one step's real costs, scipy_ms scipy's host time on them with the "
+        f"copy; {time.perf_counter() - T_START:.1f} s in all)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,10 @@
 """Configuration of the PyTorch port: the fields the Swin-B RbA scoring path reads.
 
 A copy, not an import, of the matching dataclasses in ``rba_tpu/config.py``
-(``SwinConfig``, ``PixelDecoderConfig``, ``DecoderConfig``, the test-time part
-of ``InputConfig``, the test-time augmentation fields of ``TestConfig`` and the
-model part of ``RbAConfig``) and of its presets.
+(``SwinConfig``, ``PixelDecoderConfig``, ``DecoderConfig``, ``InputConfig`` without
+the LSJ geometry, the test-time augmentation fields and ``eval_period`` of
+``TestConfig``, ``OODConfig``, ``LossConfig``, ``SolverConfig`` and the model and
+dataset parts of ``RbAConfig``) and of its presets.
 Field names and defaults are the same, so a config of one package can be
 rebuilt field by field in the other.  Options the port does not run yet keep
 their field and are refused by ``check_supported``.  ``load_d2_config`` reads a
@@ -91,6 +92,19 @@ class InputConfig:
     pixel_mean: Tuple[float, float, float] = (123.675, 116.28, 103.53)
     pixel_std: Tuple[float, float, float] = (58.395, 57.12, 57.375)
     size_divisibility: int = 32
+    # the training mapper's fields (Detectron2's INPUT.*)
+    min_size_train: Tuple[int, ...] = tuple(int(x * 0.1 * 1024) for x in range(5, 21))
+    max_size_train: int = 4096
+    crop_enabled: bool = True
+    crop_size: Tuple[int, int] = (512, 1024)
+    single_category_max_area: float = 1.0
+    color_aug_ssd: bool = True
+    random_flip: bool = True
+    train_size_divisibility: int = -1  # INPUT.SIZE_DIVISIBILITY (-1: pad to the crop)
+    dataset_mapper_name: str = "mask_former_semantic"
+    repeat_instance_masks: int = 1
+    coco_root: str = "coco/"  # INPUT.COCO_ROOT, relative to the datasets directory
+    coco_proxy_size: int = 300
 
 
 @dataclass(frozen=True)
@@ -102,6 +116,73 @@ class TestConfig:
     aug_flip: bool = True
     aug_min_sizes: Tuple[int, ...] = (512, 768, 1024, 1280, 1536, 1792)
     aug_max_size: int = 4096
+    eval_period: int = 5000  # TEST.EVAL_PERIOD (0: no evaluation during training)
+
+
+@dataclass(frozen=True)
+class OODConfig:
+    """The outlier-exposure settings of RbA's fine-tuning."""
+    ood_label: int = 254
+    ood_prob: float = 0.2
+    outlier_supervision: bool = False
+    outlier_loss_target: str = "none"
+    score_norm: str = "none"
+    outlier_loss_func: str = "max"
+    inlier_upper_threshold: float = 0.0
+    outlier_lower_threshold: float = 5.0
+    outlier_weight: float = 1.0
+    smoothness_loss: bool = False
+    smoothness_score: str = "none"
+    smoothness_weight: float = 3.0e-6
+    sparsity_loss: bool = False
+    sparsity_weight: float = 5.0e-4
+    gambler_loss: bool = False
+    gambler_weight: float = 1.0
+    ood_reg: float = 0.1
+    pebal_reward: float = 4.5
+    densehybrid_loss: bool = False
+    densehybrid_beta: float = 0.03
+    densehybrid_weight: float = 1.0
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """The criterion's weights, point sampling and matcher."""
+    class_weight: float = 2.0
+    mask_weight: float = 5.0
+    dice_weight: float = 5.0
+    no_object_weight: float = 0.1
+    deep_supervision: bool = True
+    train_num_points: int = 12544
+    oversample_ratio: float = 3.0
+    importance_sample_ratio: float = 0.75
+    matcher: str = "HungarianMatcher"
+    use_point_rend: bool = False
+
+
+@dataclass(frozen=True)
+class SolverConfig:
+    base_lr: float = 1e-4
+    weight_decay: float = 0.05
+    weight_decay_embed: float = 0.0
+    weight_decay_norm: float = 0.0
+    backbone_multiplier: float = 0.1
+    clip_gradients: bool = True
+    clip_value: float = 0.01
+    max_iter: int = 90000
+    warmup_iters: int = 0
+    warmup_factor: float = 1.0
+    poly_lr_power: float = 0.9
+    poly_lr_constant_ending: float = 0.0
+    ims_per_batch: int = 16
+    amp: bool = True
+    num_workers: int = 4  # DATALOADER.NUM_WORKERS: the trainer's mapper threads
+    freeze_backbone: bool = False
+    freeze_pixel_decoder: bool = False
+    freeze_transformer_decoder: bool = False
+    # read as rba_tpu reads them, and ignored as it ignores them (ROADMAP.md §C)
+    freeze_transformer_decoder_except_mlp: bool = False
+    freeze_transformer_decoder_except_object_queries: bool = False
 
 
 @dataclass(frozen=True)
@@ -113,12 +194,23 @@ class RbAConfig:
     decoder: DecoderConfig = field(default_factory=DecoderConfig)
     input: InputConfig = field(default_factory=InputConfig)
     test: TestConfig = field(default_factory=TestConfig)
+    ood: OODConfig = field(default_factory=OODConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    solver: SolverConfig = field(default_factory=SolverConfig)
     num_classes: int = 19
+    # DATASETS.TRAIN / DATASETS.TEST names and DATASETS.UNSEEN_LABEL_SET
+    datasets_train: Tuple[str, ...] = ("cityscapes_fine_sem_seg_train",)
+    datasets_test: Tuple[str, ...] = ("cityscapes_fine_sem_seg_val",)
+    unseen_label_set: str = ""
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     pixel_decoder_dtype: str = "float32"
     fast_math: bool = False
     weight_quant: str = "none"
+
+    @property
+    def sem_seg_head_ignore_value(self) -> int:
+        return 255
 
 
 def check_supported(cfg: RbAConfig) -> None:
@@ -230,6 +322,30 @@ def _int(v, default: int) -> int:
     return int(m.group(1)) if m else default
 
 
+def _strs(v) -> Tuple[str, ...]:
+    """A string sequence: a YAML list, or the CfgNode tuple literal ``("a",)`` that YAML
+    reads as a string."""
+    if isinstance(v, str):
+        if not v.lstrip().startswith(("(", "[")):
+            return (v,)
+        import ast
+
+        v = ast.literal_eval(v)
+    return tuple(str(x) for x in v)
+
+
+def _seq(v) -> Tuple[int, ...]:
+    """An int sequence: a YAML list, a scalar, or the CfgNode tuple literal ``(512, 1024)``
+    that YAML reads as a string."""
+    if isinstance(v, str):
+        import ast
+
+        v = ast.literal_eval(v)
+    if isinstance(v, (int, float)):
+        v = (v,)
+    return tuple(int(x) for x in v)
+
+
 _BACKBONES = {
     "D2SwinTransformer": "swin",
     "D2ViT": "vit",
@@ -299,10 +415,25 @@ def load_d2_config(path: str, **overrides) -> RbAConfig:
         ood_prediction=mf.get("DENSE_HYBRID_LOSS", False),
         name=mf.get("TRANSFORMER_DECODER_NAME", "MultiScaleMaskedTransformerDecoder"),
     )
+    inp = raw.get("INPUT", {})
+    crop = inp.get("CROP", {})
+    mst = inp.get("MIN_SIZE_TRAIN", tuple(int(x * 0.1 * 1024) for x in range(5, 21)))
     input_cfg = InputConfig(
         pixel_mean=tuple(model.get("PIXEL_MEAN", (123.675, 116.28, 103.53))),
         pixel_std=tuple(model.get("PIXEL_STD", (58.395, 57.12, 57.375))),
         size_divisibility=mf.get("SIZE_DIVISIBILITY", 32),
+        min_size_train=_seq(mst),
+        max_size_train=inp.get("MAX_SIZE_TRAIN", 4096),
+        crop_enabled=crop.get("ENABLED", True),
+        crop_size=_seq(crop.get("SIZE", (512, 1024))),
+        single_category_max_area=crop.get("SINGLE_CATEGORY_MAX_AREA", 1.0),
+        color_aug_ssd=inp.get("COLOR_AUG_SSD", True),
+        random_flip=inp.get("RANDOM_FLIP", "horizontal") != "none",
+        train_size_divisibility=inp.get("SIZE_DIVISIBILITY", -1),
+        dataset_mapper_name=inp.get("DATASET_MAPPER_NAME", "mask_former_semantic"),
+        repeat_instance_masks=inp.get("REPEAT_INSTANCE_MASKS", 1),
+        coco_root=inp.get("COCO_ROOT", "coco/"),
+        coco_proxy_size=inp.get("COCO_PROXY_SIZE", 300),
     )
     test = raw.get("TEST", {})
     test_cfg = TestConfig(
@@ -310,7 +441,68 @@ def load_d2_config(path: str, **overrides) -> RbAConfig:
         aug_flip=_get(test, "AUG.FLIP", True),
         aug_min_sizes=tuple(_get(test, "AUG.MIN_SIZES", (512, 768, 1024, 1280, 1536, 1792))),
         aug_max_size=_get(test, "AUG.MAX_SIZE", 4096),
+        eval_period=_get(test, "EVAL_PERIOD", 5000),
     )
+    ood = OODConfig(
+        ood_label=inp.get("OOD_LABEL", 254),
+        ood_prob=inp.get("OOD_PROB", 0.2),
+        outlier_supervision=mf.get("OUTLIER_SUPERVISION", False),
+        outlier_loss_target=mf.get("OUTLIER_LOSS_TARGET", "none"),
+        score_norm=mf.get("SCORE_NORM", "none"),
+        outlier_loss_func=mf.get("OUTLIER_LOSS_FUNC", "max"),
+        inlier_upper_threshold=mf.get("INLIER_UPPER_THRESHOLD", 0.0),
+        outlier_lower_threshold=mf.get("OUTLIER_LOWER_THRESHOLD", 5.0),
+        outlier_weight=mf.get("OUTLIER_WEIGHT", 1.0),
+        smoothness_loss=mf.get("SMOOTHNESS_LOSS", False),
+        smoothness_score=mf.get("SMOOTHNESS_SCORE", "none"),
+        smoothness_weight=mf.get("SMOOTHNESS_WEIGHT", 3.0e-6),
+        sparsity_loss=mf.get("SPARSITY_LOSS", False),
+        sparsity_weight=mf.get("SPARSITY_WEIGHT", 5.0e-4),
+        gambler_loss=mf.get("GAMBLER_LOSS", False),
+        gambler_weight=mf.get("GAMBLER_WEIGHT", 1.0),
+        ood_reg=mf.get("PEBAL_OOD_REG", 0.1),
+        pebal_reward=mf.get("PEBAL_REWARD", 4.5),
+        densehybrid_loss=mf.get("DENSE_HYBRID_LOSS", False),
+        densehybrid_beta=mf.get("DENSE_HYBRID_BETA", 0.03),
+        densehybrid_weight=mf.get("DENSE_HYBRID_WEIGHT", 1.0),
+    )
+    loss = LossConfig(
+        class_weight=mf.get("CLASS_WEIGHT", 2.0),
+        mask_weight=mf.get("MASK_WEIGHT", 5.0),
+        dice_weight=mf.get("DICE_WEIGHT", 5.0),
+        no_object_weight=mf.get("NO_OBJECT_WEIGHT", 0.1),
+        deep_supervision=mf.get("DEEP_SUPERVISION", True),
+        train_num_points=mf.get("TRAIN_NUM_POINTS", 12544),
+        oversample_ratio=mf.get("OVERSAMPLE_RATIO", 3.0),
+        importance_sample_ratio=mf.get("IMPORTANCE_SAMPLE_RATIO", 0.75),
+        matcher=mf.get("MATCHER", "HungarianMatcher"),
+        use_point_rend=mf.get("USE_POINT_REND", False),
+    )
+    solver = raw.get("SOLVER", {})
+    solver_cfg = SolverConfig(
+        base_lr=solver.get("BASE_LR", 1e-4),
+        weight_decay=solver.get("WEIGHT_DECAY", 0.05),
+        weight_decay_embed=solver.get("WEIGHT_DECAY_EMBED", 0.0),
+        weight_decay_norm=solver.get("WEIGHT_DECAY_NORM", 0.0),
+        backbone_multiplier=solver.get("BACKBONE_MULTIPLIER", 0.1),
+        clip_gradients=_get(solver, "CLIP_GRADIENTS.ENABLED", True),
+        clip_value=_get(solver, "CLIP_GRADIENTS.CLIP_VALUE", 0.01),
+        max_iter=solver.get("MAX_ITER", 90000),
+        warmup_iters=solver.get("WARMUP_ITERS", 0),
+        warmup_factor=solver.get("WARMUP_FACTOR", 1.0),
+        poly_lr_power=solver.get("POLY_LR_POWER", 0.9),
+        poly_lr_constant_ending=solver.get("POLY_LR_CONSTANT_ENDING", 0.0),
+        ims_per_batch=solver.get("IMS_PER_BATCH", 16),
+        amp=_get(solver, "AMP.ENABLED", True),
+        num_workers=_get(raw, "DATALOADER.NUM_WORKERS", 4),
+        freeze_backbone=model.get("FREEZE_BACKBONE", False),
+        freeze_pixel_decoder=model.get("FREEZE_PIXEL_DECODER", False),
+        freeze_transformer_decoder=model.get("FREEZE_TRANSFORMER_DECODER", False),
+        freeze_transformer_decoder_except_mlp=model.get("FREEZE_TRANSFORMER_DECODER_EXCEPT_MLP", False),
+        freeze_transformer_decoder_except_object_queries=model.get(
+            "FREEZE_TRANSFORMER_DECODER_EXCEPT_OBJECT_QUERIES", False),
+    )
+    ds_raw = raw.get("DATASETS", {})
     cfg = RbAConfig(
         backbone_name=backbone,
         sem_seg_head_name=head.get("NAME", "MaskFormerHead"),
@@ -319,7 +511,13 @@ def load_d2_config(path: str, **overrides) -> RbAConfig:
         decoder=decoder,
         input=input_cfg,
         test=test_cfg,
+        ood=ood,
+        loss=loss,
+        solver=solver_cfg,
         num_classes=head.get("NUM_CLASSES", 19),
+        datasets_train=_strs(ds_raw.get("TRAIN", ("cityscapes_fine_sem_seg_train",))),
+        datasets_test=_strs(ds_raw.get("TEST", ("cityscapes_fine_sem_seg_val",))),
+        unseen_label_set=ds_raw.get("UNSEEN_LABEL_SET", ""),
     )
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)

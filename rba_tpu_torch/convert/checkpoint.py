@@ -6,6 +6,11 @@ A released checkpoint is a torch ``.pth`` zip (a state dict, possibly under
 numpy arrays.  ``load_checkpoint_params`` builds the model of a model directory from
 its ``params.npz`` or, where there is none, converts its ``model_final.pth``/``.pkl``
 and writes the ``params.npz`` beside it, as ``rba_tpu`` does.
+
+The trainer's checkpoints: ``save_train_state`` writes ``step_N/params.npz`` (the JAX
+package's file, which both packages and ``load_checkpoint_params`` read) and, beside it,
+``train_state.pt`` with the optimizer state, the step and the generator state;
+``latest_step`` and ``restore_train_state`` read them back.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .params import load_jax_params, load_params, save_params
+from .params import load_jax_params, load_params, model_to_jax_params, save_params
 
 
 def read_d2_pickle(path: str) -> Dict[str, np.ndarray]:
@@ -103,3 +108,43 @@ def load_checkpoint_params(model_dir: str, cfg, device=None) -> nn.Module:
         else:
             raise FileNotFoundError(f"no checkpoint (params.npz / model_final.pth) in {model_dir}")
     return load_jax_params(build_model(cfg, device=device), params)
+
+
+def save_train_state(ckpt_dir: str, state, step: int) -> str:
+    """Write ``state`` (``train.train_step.TrainState``) to ``ckpt_dir/step_<step>/``; returns
+    the directory.  Each file is written whole or not at all."""
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    os.makedirs(path, exist_ok=True)
+    _write_cache(os.path.join(path, "params.npz"), model_to_jax_params(state.model))
+    if not os.path.exists(os.path.join(path, "params.npz")):
+        raise OSError(f"could not write {path}/params.npz")
+    tmp = os.path.join(path, f"train_state.{uuid.uuid4().hex}.tmp")
+    torch.save({"optimizer": state.optimizer.state_dict(), "step": state.step,
+                "gen": state.gen.get_state()}, tmp)
+    os.replace(tmp, os.path.join(path, "train_state.pt"))
+    return path
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    """The highest N of a complete ``step_N`` checkpoint in ``ckpt_dir``, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(d[len("step_"):]) for d in os.listdir(ckpt_dir)
+             if d.startswith("step_") and d[len("step_"):].isdigit()
+             and os.path.exists(os.path.join(ckpt_dir, d, "train_state.pt"))]
+    return max(steps) if steps else None
+
+
+def restore_train_state(ckpt_dir: str, state, step: Optional[int] = None):
+    """Load ``step_<step>`` (default: the latest) into ``state`` in place; returns it."""
+    step = latest_step(ckpt_dir) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    load_jax_params(state.model, load_params(os.path.join(path, "params.npz")))
+    # written by save_train_state: tensors, ints and the generator's byte state
+    extra = torch.load(os.path.join(path, "train_state.pt"), map_location="cpu", weights_only=True)
+    state.optimizer.load_state_dict(extra["optimizer"])
+    state.step = int(extra["step"])
+    state.gen.set_state(extra["gen"])
+    return state

@@ -71,6 +71,30 @@ def load_jax_params(model: nn.Module, params: Any) -> nn.Module:
     return model
 
 
+def jax_path(name: str, ndim: int) -> str:
+    """The pytree path, joined with ``/``, of the port parameter ``name`` of rank ``ndim``:
+    the inverse of ``jax_params_to_state``'s naming (a ``weight`` of rank 2 or 4 is a
+    ``kernel``, of rank 1 a norm's ``scale``)."""
+    head, _, leaf = name.rpartition(".")
+    if leaf == "weight":
+        leaf = "kernel" if ndim in (2, 4) else "scale"
+    return "/".join(head.split(".") + [leaf]) if head else leaf
+
+
+def model_to_jax_params(model: nn.Module):
+    """The model's parameters as the JAX package's pytree of numpy arrays (nested dicts,
+    lists where the keys are indices), in its layouts: the inverse of ``load_jax_params``."""
+    flat = {}
+    for name, p in model.named_parameters():
+        arr = p.detach().cpu().numpy()
+        if name.endswith(".weight") and arr.ndim == 2:
+            arr = arr.T
+        elif name.endswith(".weight") and arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        flat[jax_path(name, arr.ndim).replace("/", _SEP)] = np.ascontiguousarray(arr)
+    return _unflatten(flat)
+
+
 _SEP = "|"  # the path separator of the JAX package's params.npz keys
 
 

@@ -20,6 +20,8 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rba_tpu_torch"
 NVCC_FLAGS = [
@@ -92,6 +94,15 @@ def load(name: str) -> ctypes.CDLL:
         lib.rba_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
     return _loaded[name]
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would need the gradient of a kernel that has none: grad mode on
+    and an input that requires grad.  Training takes the plain-PyTorch branch instead."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what} has no gradient: call it under torch.no_grad() or inference_mode, or train through the "
+            "plain-PyTorch branch (attention=\"xla\")")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

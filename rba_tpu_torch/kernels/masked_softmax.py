@@ -84,7 +84,10 @@ def masked_softmax(
 ) -> torch.Tensor:
     """softmax(scores + rel_bias + mask) over the last axis, in ``out_dtype``.  On a CUDA
     tensor it launches the hand kernel or raises; on a CPU tensor it runs
-    ``masked_softmax_reference``."""
+    ``masked_softmax_reference``.  The kernel has no gradient: with grad mode on and an
+    input that requires one it raises, on either device, instead of returning a result
+    cut off from the graph."""
+    _build.refuse_grad("masked_softmax (Kernel C)", scores, rel_bias, mask)
     if scores.device.type == "cpu":
         return masked_softmax_reference(scores, rel_bias, mask, out_dtype)
     if scores.device.type != "cuda":

@@ -94,7 +94,10 @@ def window_attention(
     scale: float,
 ) -> torch.Tensor:
     """Window attention of fused qkv.  On a CUDA tensor it launches the hand kernel or
-    raises; on a CPU tensor it runs ``window_attention_reference``."""
+    raises; on a CPU tensor it runs ``window_attention_reference``.  The kernel has no
+    gradient: with grad mode on and an input that requires one it raises, on either
+    device, instead of returning a result cut off from the graph."""
+    _build.refuse_grad("window_attention (Kernel A)", qkv, rel_bias, mask)
     if qkv.device.type == "cpu":
         return window_attention_reference(qkv, rel_bias, mask, nh, scale)
     if qkv.device.type != "cuda":

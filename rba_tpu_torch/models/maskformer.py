@@ -11,6 +11,10 @@ default chain in plain PyTorch); see ``models/swin.py``.
 the kernels instead, which is how each path is held against them on the card.
 Each layer of a request runs inside a ``torch.profiler.record_function`` span
 named after it (``LAYERS``), so a profile of the entry reads its layers.
+Training calls ``maskformer_forward`` under autograd with ``need_aux=True`` and
+``attention="xla"``, ``rba_tpu``'s training chain: Kernels A and C have no gradient and
+refuse one, Kernel D steps aside when grad mode is on, and Swin runs without stochastic
+depth, as ``rba_tpu``'s train step does (ROADMAP.md §C).
 ``build_model`` makes the model on the card unless told otherwise.  A model whose
 config sets ``DecoderConfig.ood_prediction`` carries the DenseHybrid ``ood_pred``
 head, which ``maskformer_infer`` returns.
@@ -146,7 +150,8 @@ def maskformer_forward(
     attention: str = "fused",
 ) -> Dict:
     """pred_logits (B, Q, K+1) and pred_masks at stride 4, (B, Q, H/4, W/4) or
-    (B, H/4, W/4, Q).  ``attention``: Swin's window-attention branch (``swin_apply``)."""
+    (B, H/4, W/4, Q), with ``aux_outputs`` under ``need_aux``.  ``attention``: Swin's
+    window-attention branch (``swin_apply``)."""
     check_supported(cfg)
     with record_function("backbone"):
         features = swin_apply(model.backbone, cfg.swin, images, _dtype(cfg.compute_dtype), plain=plain,

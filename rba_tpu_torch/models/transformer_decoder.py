@@ -1,9 +1,12 @@
-"""Masked-attention transformer decoder, inference (counterpart of ``rba_tpu/models/transformer_decoder.py``).
+"""Masked-attention transformer decoder (counterpart of ``rba_tpu/models/transformer_decoder.py``).
 
 Batch-first tensors, additive fp32 masks of ``NEG_INF`` in place of boolean
 -inf ones, NHWC mask features.  Rows whose mask would block every key are
-unmasked, as in the reference.  Only the inference form (``need_aux=False``)
-is ported; the aux heads belong to the training slice.
+unmasked, as in the reference.  At inference (``need_aux=False``) the heads of the
+layers before the last only build the next attention mask, at the level's
+resolution; for training (``need_aux=True``) every layer, and the queries before the
+first, predict full-resolution class and mask logits, returned as ``aux_outputs``,
+and the next attention mask is the resized full mask, as ``rba_tpu`` builds it.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ from torch import nn
 
 from ..config import DecoderConfig
 from ..ops.nn import apply_conv, apply_linear, apply_norm, mlp_apply
-from ..ops.resize import resize_bilinear_nhwc
+from ..ops.resize import resize_bilinear, resize_bilinear_nhwc
 from .position_encoding import sine_pos_embed
 
 NEG_INF = -1e9
@@ -131,6 +134,20 @@ def _prediction_heads(
     return outputs_class, torch.einsum(spec, mask_embed.float(), mask_features.float())
 
 
+def _aux_heads(
+    dec: MaskedDecoder,
+    output: torch.Tensor,  # (B, Q, C)
+    mask_features: torch.Tensor,  # (B, H, W, C_mask)
+    attn_hw: Optional[Tuple[int, int]],
+):
+    """Class and (B, Q, H, W) mask logits of one supervised layer and, where ``attn_hw`` is
+    given, the next attention mask from the mask logits resized to it."""
+    outputs_class, outputs_mask = _prediction_heads(dec, output, mask_features, "bqhw")
+    if attn_hw is None:
+        return outputs_class, outputs_mask, None
+    return outputs_class, outputs_mask, _blocked_to_mask(resize_bilinear(outputs_mask.detach(), attn_hw))
+
+
 def ood_pred_apply(head: nn.ModuleDict, mask_features: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) mask features → (B, 2, H, W) DenseHybrid logits: BN (eps 1e-5) → ReLU →
     1x1 conv, in fp32."""
@@ -149,10 +166,9 @@ def decoder_apply(
     need_aux: bool = False,
 ) -> Dict:
     """Final class logits (B, Q, K+1) and mask logits, (B, Q, H, W) or (B, H, W, Q), and
-    with the DenseHybrid head its (B, 2, H, W) ``ood_pred`` logits.  Runs in fp32, as the
-    JAX package's MaskFormer forward runs it."""
-    if need_aux:
-        raise NotImplementedError("need_aux=True (deep-supervision outputs) belongs to the training slice")
+    with the DenseHybrid head its (B, 2, H, W) ``ood_pred`` logits; with ``need_aux`` the
+    earlier layers' {"pred_logits", "pred_masks"} as ``aux_outputs``, first layer first.
+    Runs in fp32, as the JAX package's MaskFormer forward runs it."""
     if len(x) != cfg.num_feature_levels:
         raise ValueError(f"{len(x)} feature maps for {cfg.num_feature_levels} levels")
     if final_mask_layout not in ("bqhw", "bhwq"):
@@ -179,7 +195,12 @@ def decoder_apply(
             mf_small[hw] = resize_bilinear_nhwc(mask_features.float(), hw)
         return mf_small[hw]
 
-    attn_mask = _attn_mask_only(dec, output, small_mf(sizes[0]))
+    aux = []
+    if need_aux:
+        outputs_class, outputs_mask, attn_mask = _aux_heads(dec, output, mask_features, sizes[0])
+        aux.append({"pred_logits": outputs_class, "pred_masks": outputs_mask})
+    else:
+        attn_mask = _attn_mask_only(dec, output, small_mf(sizes[0]))
     for i in range(cfg.dec_layers):
         lvl = i % cfg.num_feature_levels
         layer = dec.cross_layers[i]
@@ -196,9 +217,16 @@ def decoder_apply(
         output = apply_norm(layer["norm"], output + y)
 
         if i < cfg.dec_layers - 1:
-            attn_mask = _attn_mask_only(dec, output, small_mf(sizes[(i + 1) % cfg.num_feature_levels]))
+            next_hw = sizes[(i + 1) % cfg.num_feature_levels]
+            if need_aux:
+                outputs_class, outputs_mask, attn_mask = _aux_heads(dec, output, mask_features, next_hw)
+                aux.append({"pred_logits": outputs_class, "pred_masks": outputs_mask})
+            else:
+                attn_mask = _attn_mask_only(dec, output, small_mf(next_hw))
     outputs_class, outputs_mask = _prediction_heads(dec, output, mask_features, final_mask_layout)
     out = {"pred_logits": outputs_class, "pred_masks": outputs_mask}
+    if need_aux:
+        out["aux_outputs"] = aux
     if dec.ood_pred is not None:
         out["ood_pred"] = ood_pred_apply(dec.ood_pred, mask_features)
     return out

@@ -12,6 +12,10 @@ Plain PyTorch, in fp32, one of two forms per level:
   fp32.  What is rounded is each pixel's sum of weights, so where two points of one
   query share a pixel this differs from a gather whose weights are rounded one by one.
 
+Gradients have the semantics of ``rba_tpu``'s custom VJPs: the gather's is autograd of
+the gather (``rba_tpu`` pins its own equal to it); the one-hot form is ``OneHotLevel``,
+whose backward rebuilds the row matrix in fp32 instead of saving it.
+
 ``method="auto"`` picks the one-hot form for a level where N·M·Lq·H·W <= the cap, as
 ``rba_tpu`` does.  In fp32 the one-hot form computes the gather's sums (``rba_tpu``
 contracts it at HIGHEST precision), so fp32 levels take the gather.  A hand kernel
@@ -56,15 +60,12 @@ def _sample_level(
     return out.reshape(n, m, lq, d).permute(0, 2, 1, 3)
 
 
-def _onehot_level(
-    value: torch.Tensor,  # (N, H, W, M, D) fp32
-    loc: torch.Tensor,  # (N, Lq, M, P, 2) fp32
-    attn: torch.Tensor,  # (N, Lq, M, P) fp32
-) -> torch.Tensor:  # (N, Lq, M, D) fp32
-    """The bf16 one-hot form of ``rba_tpu/ops/deform_sampling.py`` (``_corner_indices``,
-    ``_corner_weights``, ``_build_rows``, ``_onehot_apply``)."""
-    n, h, w, m, d = value.shape
-    _, lq, _, p, _ = loc.shape
+def _corner_rows(h: int, w: int, loc: torch.Tensor, attn: torch.Tensor):
+    """Flat HW index (clamped into the map) and combined bilinear × attention weight (zero
+    for a corner outside the map) of each of the 4P corners of each query, corner
+    k = 4·point + corner: two (N, M, Lq, 4P) tensors, ``rba_tpu``'s ``_corner_indices`` and
+    ``_corner_weights``."""
+    n, lq, m, p, _ = loc.shape
     x = loc[..., 0] * w - 0.5
     y = loc[..., 1] * h - 0.5
     x0, y0 = torch.floor(x), torch.floor(y)
@@ -76,16 +77,65 @@ def _onehot_level(
         valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
         idxs.append(yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1))
         wgts.append(torch.where(valid, wt, 0.0) * attn)
-    # corner k = 4·point + corner, (N, M, Lq, 4P)
     idx = torch.stack(idxs, -1).reshape(n, lq, m, 4 * p).permute(0, 2, 1, 3)
     wgt = torch.stack(wgts, -1).reshape(n, lq, m, 4 * p).permute(0, 2, 1, 3)
-    a = torch.zeros(n, m, lq, h * w, dtype=torch.float32, device=value.device)
-    for k in range(4 * p):  # one index per row and k: each pixel sums its weights in k order
+    return idx, wgt
+
+
+def _build_rows(idx: torch.Tensor, wgt: torch.Tensor, hw: int) -> torch.Tensor:
+    """The dense fp32 row matrix A (N, M, Lq, HW): each pixel sums its corners' weights in k order."""
+    a = torch.zeros(*idx.shape[:3], hw, dtype=torch.float32, device=idx.device)
+    for k in range(idx.shape[-1]):  # one index per row and k
         a.scatter_add_(-1, idx[..., k : k + 1], wgt[..., k : k + 1])
+    return a
+
+
+def _onehot_level(
+    value: torch.Tensor,  # (N, H, W, M, D) fp32
+    loc: torch.Tensor,  # (N, Lq, M, P, 2) fp32
+    attn: torch.Tensor,  # (N, Lq, M, P) fp32
+) -> torch.Tensor:  # (N, Lq, M, D) fp32
+    """The bf16 one-hot form of ``rba_tpu/ops/deform_sampling.py`` (``_corner_indices``,
+    ``_corner_weights``, ``_build_rows``, ``_onehot_apply``)."""
+    n, h, w, m, d = value.shape
+    idx, wgt = _corner_rows(h, w, loc, attn)
+    a = _build_rows(idx, wgt, h * w)
     vh = value.reshape(n, h * w, m, d).permute(0, 2, 1, 3)  # (N, M, HW, D)
     # bf16 operands, fp32 products and sums: a bf16 matmul would round its output too
     out = torch.matmul(a.to(torch.bfloat16).float(), vh.to(torch.bfloat16).float())
     return out.permute(0, 2, 1, 3)
+
+
+class OneHotLevel(torch.autograd.Function):
+    """The bf16 one-hot level with ``rba_tpu``'s recompute-A backward
+    (``_onehot_level_bwd``): only the inputs are saved, no (N, M, Lq, HW) row matrix;
+    the backward rebuilds A in fp32 and runs at fp32 whatever the forward rounded.
+    With S = g·Vᵀ: dV = Aᵀ·g, dwgt_k[q] = S[q, idx_k[q]] = ⟨g[q], V[idx_k[q]]⟩, and
+    d(loc, attn) is the vector-Jacobian product of the corner weights."""
+
+    @staticmethod
+    def forward(ctx, value, loc, attn):
+        ctx.save_for_backward(value, loc, attn)
+        return _onehot_level(value, loc, attn)
+
+    @staticmethod
+    def backward(ctx, g):
+        value, loc, attn = ctx.saved_tensors
+        n, h, w, m, d = value.shape
+        lq = loc.shape[1]
+        gt = g.float().permute(0, 2, 1, 3)  # (N, M, Lq, D)
+        with torch.enable_grad():
+            loc_ = loc.detach().requires_grad_()
+            attn_ = attn.detach().requires_grad_()
+            idx, wgt = _corner_rows(h, w, loc_, attn_)
+        a = _build_rows(idx, wgt.detach(), h * w)
+        dvalue = torch.matmul(a.transpose(-1, -2), gt).permute(0, 2, 1, 3).reshape(n, h, w, m, d)
+        vh = value.reshape(n, h * w, m, d).permute(0, 2, 1, 3)  # (N, M, HW, D)
+        k = idx.shape[-1]
+        corners = torch.gather(vh, 2, idx.reshape(n, m, lq * k, 1).expand(-1, -1, -1, d)).reshape(n, m, lq, k, d)
+        dwgt = (gt[:, :, :, None, :] * corners).sum(-1)
+        dloc, dattn = torch.autograd.grad(wgt, (loc_, attn_), dwgt)
+        return dvalue, dloc, dattn
 
 
 def sampling_methods(
@@ -126,7 +176,7 @@ def ms_deform_attn_core(
         for lid, (h, w) in enumerate(spatial_shapes):
             v = value[:, start : start + h * w].reshape(n, h, w, m, d)
             onehot = methods[lid] == "onehot" and sampling_dtype == "bfloat16"
-            sample = _onehot_level if onehot else _sample_level
+            sample = OneHotLevel.apply if onehot else _sample_level
             out = out + sample(v, sampling_locations[:, :, :, lid], attention_weights[:, :, :, lid])
             start += h * w
         return out.reshape(n, lq, m * d)

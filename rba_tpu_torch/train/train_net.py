@@ -1,0 +1,279 @@
+"""The trainer CLI (counterpart of ``rba_tpu/train/train_net.py``).
+
+Usage:
+    python -m rba_tpu_torch.train.train_net --config-file configs/cityscapes/swin_b_1dl_ood_coco.yaml \
+        --data-root datasets/cityscapes [--coco-root datasets/coco] [--weights MODEL_DIR] \
+        [--max-iter N] [--batch-size B] [--grad-accum K] [--resume] [--device cpu]
+
+A config-driven loop on one GPU (``--device`` asks for another device, e.g. the CPU): the
+mapper named by ``INPUT.DATASET_MAPPER_NAME`` fed by mapper threads, the train step of
+``train/train_step.py`` (the batch goes to the card), ``metrics.jsonl`` every
+``--log-period`` steps (the losses, ``grad_norm``, images/s and, with the COCO-mix
+mapper, ``ood_images``: the step's images with a pasted object), and a checkpoint every ``--checkpoint-period`` steps and at the
+end (``convert/checkpoint.py``: ``step_N/params.npz``, which ``load_checkpoint_params``
+and ``rba_tpu`` read, and the optimizer, step and generator state).  ``--weights`` starts
+from a model directory (its ``params.npz`` or Detectron2 ``model_final.pth``), as
+Detectron2's ``MODEL.WEIGHTS`` does; without it the weights are seeded random.
+
+Not ported yet, and refused, never skipped: evaluation (``--eval-only``, or an in-train
+evaluation that falls due by ``--eval-period`` / ``TEST.EVAL_PERIOD``; ROADMAP.md §A.5),
+mappers other than ``mask_former_semantic`` and ``mask_former_semantic_coco_mix`` and
+datasets other than Cityscapes semantic segmentation (§A.4), per-pixel heads (§A.6), and
+more than one GPU (§A.8).
+"""
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import os
+import queue
+import random
+import threading
+import time
+from typing import Iterator
+
+import numpy as np
+
+SEMANTIC_MAPPERS = ("mask_former_semantic", "mask_former_semantic_coco_mix")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--config-file", required=True)
+    p.add_argument("--data-root", required=True, help="cityscapes root (leftImg8bit/gtFine)")
+    p.add_argument("--coco-root", default=None, help="COCO root for OOD mixing")
+    p.add_argument("--output-dir", default="output/")
+    p.add_argument("--max-iter", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None, help="global batch (default SOLVER.IMS_PER_BATCH)")
+    p.add_argument("--checkpoint-period", type=int, default=5000)
+    p.add_argument("--log-period", type=int, default=20)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--workers", type=int, default=None,
+                   help="mapper threads feeding the prefetch queue (default: DATALOADER.NUM_WORKERS)")
+    p.add_argument("--mapper", default=None,
+                   choices=[None, "mask_former_semantic", "mask_former_semantic_coco_mix",
+                            "mask_former_semantic_void", "mask_former_semantic_street_hazards",
+                            "mask_former_semantic_street_hazards_coco_mix"])
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="micro-batches per update (global batch = batch_size, split into grad_accum parts)")
+    p.add_argument("--eval-only", action="store_true", help="evaluate mIoU on the val split (not ported yet)")
+    p.add_argument("--eval-period", type=int, default=None,
+                   help="in-train val-eval period in steps (default: TEST.EVAL_PERIOD; 0 disables)")
+    p.add_argument("--eval-max-images", type=int, default=None, help="cap val images per in-train eval")
+    p.add_argument("--weights", default=None,
+                   help="model directory to start from (params.npz or model_final.pth), as MODEL.WEIGHTS")
+    p.add_argument("--device", default=None, help="torch device (default: the GPU; 'cpu' asks for the CPU)")
+    p.add_argument("--num-gpus", type=int, default=1, help="GPUs to train on (one is ported)")
+    return p.parse_args(argv)
+
+
+def build_mapper(cfg, args):
+    """The mapper of INPUT.DATASET_MAPPER_NAME, overridable with --mapper."""
+    from ..data.mappers import COCOProxyDataset, MapperConfig, SemanticCocoMixDatasetMapper, SemanticDatasetMapper
+
+    mapper_name = args.mapper or cfg.input.dataset_mapper_name
+    if mapper_name not in SEMANTIC_MAPPERS:
+        raise NotImplementedError(f"the {mapper_name!r} mapper is not ported yet (ROADMAP.md §A.4); ported: "
+                                  f"{SEMANTIC_MAPPERS}")
+    mcfg = MapperConfig(
+        min_sizes=cfg.input.min_size_train,
+        max_size=cfg.input.max_size_train,
+        crop_hw=tuple(cfg.input.crop_size),
+        single_category_max_area=cfg.input.single_category_max_area,
+        color_aug=cfg.input.color_aug_ssd,
+        flip=cfg.input.random_flip,
+        ignore_label=cfg.sem_seg_head_ignore_value,
+        ood_label=cfg.ood.ood_label,
+        size_divisibility=cfg.input.train_size_divisibility,
+        max_instances=min(32, cfg.decoder.num_queries),  # each target needs a distinct query
+        repeat_instance_masks=cfg.input.repeat_instance_masks,
+    )
+    if mapper_name == "mask_former_semantic":
+        return SemanticDatasetMapper(mcfg, seed=args.seed)
+    # --coco-root wins; else INPUT.COCO_ROOT, relative to the datasets dir (the parent of --data-root)
+    root = args.coco_root
+    if not root:
+        root = cfg.input.coco_root
+        if not os.path.isabs(root):
+            root = os.path.join(os.path.dirname(os.path.abspath(args.data_root)), root)
+        if not os.path.isdir(root):
+            raise ValueError(f"--coco-root required for coco_mix mappers (INPUT.COCO_ROOT fallback {root!r} "
+                             "does not exist)")
+    coco = COCOProxyDataset(root, proxy_size=cfg.input.coco_proxy_size)
+    return SemanticCocoMixDatasetMapper(mcfg, coco, ood_prob=cfg.ood.ood_prob, seed=args.seed)
+
+
+def prefetching_iterator(ds, mapper, batch_size: int, seed: int, workers: int = 4):
+    """Infinite shuffled batch iterator with ``workers`` mapper threads.
+
+    A coordinator thread feeds seeded per-epoch permutations, batch by batch, to an index
+    queue; worker threads read, map and collate.  Each sample's augmentation draws come
+    from a ``random.Random`` seeded by (seed, stream position), and a reorder buffer
+    yields batches in stream order, so two runs with the same ``seed`` see the same
+    crops, flips and mixes in the same order for any number of workers.  The queues are
+    bounded; closing the iterator (``close()``, or dropping it) stops the threads once
+    each has finished the batch in its hands."""
+    from ..data.mappers import collate
+
+    if len(ds) < batch_size:
+        raise ValueError(f"dataset has {len(ds)} samples < batch size {batch_size} "
+                         "(the loader drops partial batches)")
+    idx_q: queue.Queue = queue.Queue(maxsize=2 * max(workers, 1))
+    out_q: queue.Queue = queue.Queue(maxsize=4 + max(workers, 1))
+    stop = threading.Event()
+
+    def put(q, item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def coordinator():
+        rng = np.random.RandomState(seed)
+        pos = 0  # stream position, monotonic across epochs
+        bseq = 0
+        while True:
+            idx = rng.permutation(len(ds))
+            for start in range(0, len(idx) - batch_size + 1, batch_size):
+                if not put(idx_q, (bseq, pos + start, idx[start : start + batch_size])):
+                    return
+                bseq += 1
+            pos += len(idx)
+
+    class _WorkerError:
+        def __init__(self, exc):
+            self.exc = exc
+
+    def worker():
+        wmapper = copy.copy(mapper)  # its own rng slot; shares the heavy state
+        while not stop.is_set():
+            try:
+                bseq, pos0, ib = idx_q.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            # a raising worker still delivers its sequence number, or the consumer waits forever
+            try:
+                samples = []
+                for j, i in enumerate(ib):
+                    s = ds[int(i)]
+                    wmapper.rng = random.Random(seed * 0x9E3779B1 + pos0 + j)
+                    samples.append(wmapper(s.image, s.label))
+                put(out_q, (bseq, collate(samples)))
+            except BaseException as e:  # noqa: BLE001 — relayed to the consumer
+                put(out_q, (bseq, _WorkerError(e)))
+
+    threading.Thread(target=coordinator, daemon=True).start()
+    for _ in range(max(workers, 1)):
+        threading.Thread(target=worker, daemon=True).start()
+    pending: dict = {}
+    want = 0
+    try:
+        while True:
+            while want not in pending:
+                bseq, batch = out_q.get()
+                pending[bseq] = batch
+            batch = pending.pop(want)
+            if isinstance(batch, _WorkerError):
+                raise batch.exc
+            yield batch
+            want += 1
+    finally:
+        stop.set()
+
+
+def _resolve_dataset(name: str, data_root: str):
+    """A DATASETS.TRAIN name → its reader: the Cityscapes semantic names read --data-root."""
+    from ..data.ood_datasets import CityscapesSemSeg
+
+    if name.startswith("cityscapes_") and ("sem_seg" in name or name.endswith("_mix")):
+        split = "train" if name.endswith(("_train", "_mix")) else "val" if name.endswith("_val") else "test"
+        return CityscapesSemSeg(data_root, split)
+    raise NotImplementedError(f"dataset {name!r}: only the Cityscapes semantic datasets are ported "
+                              "(the catalog is ROADMAP.md §A.4)")
+
+
+def data_iterator(cfg, args, batch_size: int) -> Iterator[dict]:
+    """Infinite shuffled, mapped and collated batches of DATASETS.TRAIN."""
+    names = cfg.datasets_train or ("cityscapes_fine_sem_seg_train",)
+    if len(names) > 1:
+        raise NotImplementedError(f"training on several datasets {list(names)} (ConcatDataset) is not ported "
+                                  "yet (ROADMAP.md §A.4)")
+    try:
+        ds = _resolve_dataset(names[0], args.data_root)
+    except OSError as e:
+        raise FileNotFoundError(f"DATASETS.TRAIN {names[0]!r} not found under {args.data_root}: {e}") from e
+    if len(ds) == 0:
+        raise FileNotFoundError(f"DATASETS.TRAIN {names[0]!r} has no samples under {args.data_root}")
+    mapper = build_mapper(cfg, args)
+    return prefetching_iterator(ds, mapper, batch_size, args.seed,
+                                workers=args.workers or cfg.solver.num_workers)
+
+
+def _eval_due(eval_period: int, start: int, max_iter: int) -> bool:
+    return eval_period > 0 and max_iter // eval_period > start // eval_period
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    from ..config import load_d2_config
+    from ..convert.checkpoint import latest_step, load_checkpoint_params, restore_train_state, save_train_state
+    from ..models.maskformer import resolve_device
+    from .train_step import make_train_state, make_train_step
+
+    cfg = load_d2_config(args.config_file)
+    if args.num_gpus != 1:
+        raise NotImplementedError(f"--num-gpus {args.num_gpus}: training on several GPUs is not ported yet "
+                                  "(ROADMAP.md §A.8)")
+    if args.eval_only:
+        raise NotImplementedError("--eval-only: the val-split evaluators are not ported yet (ROADMAP.md §A.5)")
+    device = resolve_device(args.device, "train_net")
+    os.makedirs(args.output_dir, exist_ok=True)
+    ckpt_dir = os.path.join(args.output_dir, "checkpoints")
+    batch_size = args.batch_size or cfg.solver.ims_per_batch
+    max_iter = args.max_iter or cfg.solver.max_iter
+
+    model = load_checkpoint_params(args.weights, cfg, device=device) if args.weights else None
+    state = make_train_state(cfg, device=device, seed=args.seed, model=model)
+    start = 0
+    if args.resume:
+        step0 = latest_step(ckpt_dir)
+        if step0 is not None:
+            restore_train_state(ckpt_dir, state, step0)
+            start = step0
+            print(f"resumed from step {step0}")
+    eval_period = cfg.test.eval_period if args.eval_period is None else args.eval_period
+    if _eval_due(eval_period, start, max_iter):
+        raise NotImplementedError(
+            f"an in-train evaluation falls due (every {eval_period} steps, steps {start + 1}..{max_iter}): the "
+            "val-split evaluators are not ported yet (ROADMAP.md §A.5); pass --eval-period 0 to train without")
+
+    step_fn = make_train_step(cfg, grad_accum=max(1, args.grad_accum))
+    it = data_iterator(cfg, args, batch_size)
+    log_path = os.path.join(args.output_dir, "metrics.jsonl")
+    t0 = time.time()
+    for i in range(start, max_iter):
+        batch = next(it)
+        metrics = step_fn(state, batch)
+        if (i + 1) % args.log_period == 0:
+            m = {k: float(v) for k, v in metrics.items()}
+            m.update(step=i + 1, imgs_per_sec=batch_size * args.log_period / (time.time() - t0))
+            if "outlier_masks" in batch:  # images of this step with a pasted object
+                m["ood_images"] = int((batch["outlier_masks"] == 1).any(axis=(1, 2)).sum())
+            t0 = time.time()
+            print(json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in m.items()}), flush=True)
+            with open(log_path, "a") as f:
+                f.write(json.dumps(m) + "\n")
+        if (args.checkpoint_period > 0 and (i + 1) % args.checkpoint_period == 0) or (i + 1) == max_iter:
+            save_train_state(ckpt_dir, state, i + 1)
+            print(f"saved checkpoint at step {i + 1}", flush=True)
+    it.close()  # stops the mapper threads
+    return state
+
+
+if __name__ == "__main__":
+    main()

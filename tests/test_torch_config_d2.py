@@ -27,6 +27,22 @@ def _assert_fields_equal(got, want, where=""):
             assert g == w and type(g) is type(w), (f"{where}{f.name}", g, w)
 
 
+ALL_CONFIGS = sorted(CONFIGS.rglob("*.yaml"))
+TRAINING_SECTIONS = ("input", "ood", "loss", "solver")
+
+
+@pytest.mark.parametrize("path", ALL_CONFIGS, ids=lambda p: p.relative_to(CONFIGS).as_posix())
+def test_training_fields_match_rba_tpu(path):
+    """Every config in configs/ loads in the port (a backbone it does not run is refused
+    later, by check_supported) with the training fields rba_tpu's loader gives it."""
+    got, want = tconfig.load_d2_config(str(path)), jconfig.load_d2_config(str(path))
+    for sect in TRAINING_SECTIONS:
+        _assert_fields_equal(getattr(got, sect), getattr(want, sect), f"{sect}.")
+    for name in ("datasets_train", "datasets_test", "unseen_label_set"):
+        assert getattr(got, name) == getattr(want, name), name
+    assert got.test.eval_period == want.test.eval_period
+
+
 @pytest.mark.parametrize("path", SWIN_CONFIGS, ids=lambda p: p.name)
 def test_fields_match_rba_tpu(path):
     _assert_fields_equal(tconfig.load_d2_config(str(path)), jconfig.load_d2_config(str(path)))

@@ -77,7 +77,8 @@ def test_maskformer_infer_ood_pred_resized_with_align_corners(tiny, rng):
     assert max_abs(got["ood_pred"], want["ood_pred"]) < HEAD_TOL
     # the head's stride-4 logits, resized to the image with align_corners=True (not False)
     x = tmf.preprocess(TCFG, t(img))
-    low = tmf.maskformer_forward(model, TCFG, x)["ood_pred"]
+    with torch.no_grad():
+        low = tmf.maskformer_forward(model, TCFG, x)["ood_pred"]
     assert torch.equal(got["ood_pred"], resize_bilinear(low, (45, 61), align_corners=True))
     assert max_abs(got["ood_pred"], resize_bilinear(low, (45, 61), align_corners=False)) > 1e-3
 

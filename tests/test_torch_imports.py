@@ -26,10 +26,18 @@ def _imported_modules(path: Path):
             yield node.module
 
 
+TRAINING_MODULES = ("rba_tpu_torch/ops/point_sample.py", "rba_tpu_torch/ops/lsap.py", "rba_tpu_torch/kernels/lsap.py",
+                    "rba_tpu_torch/train/matcher.py", "rba_tpu_torch/train/criterion.py",
+                    "rba_tpu_torch/train/optimizer.py", "rba_tpu_torch/train/train_step.py",
+                    "rba_tpu_torch/train/train_net.py", "rba_tpu_torch/data/mappers.py")
+
+
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert "chip_smoke.py" in names and "rba_tpu_torch/models/maskformer.py" in names
     assert (ROOT / "chip_smoke.py").exists()
+    # the training slice's modules are among the files checked below
+    assert set(TRAINING_MODULES) <= names
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -78,3 +86,15 @@ def test_load_checkpoint_params_defaults_to_the_gpu(tmp_path):
         with pytest.raises(RuntimeError, match="GPU"):
             load_checkpoint_params(str(tmp_path), tiny_test_config())
         assert not (tmp_path / "params.npz").exists()
+
+
+def test_trainer_defaults_to_the_gpu(tmp_path):
+    """``make_train_state`` and the trainer CLI run on the card unless asked for the CPU."""
+    from rba_tpu_torch.config import tiny_test_config
+    from rba_tpu_torch.train.train_step import make_train_state
+
+    if torch.cuda.is_available():
+        assert next(make_train_state(tiny_test_config()).model.parameters()).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="GPU"):
+            make_train_state(tiny_test_config())

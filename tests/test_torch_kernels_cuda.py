@@ -11,6 +11,7 @@ import torch
 
 from rba_tpu_torch.kernels import fused_mlp as tfm
 from rba_tpu_torch.kernels import fused_rba as tfr
+from rba_tpu_torch.kernels import lsap as tls
 from rba_tpu_torch.kernels import masked_softmax as tms
 from rba_tpu_torch.kernels import window_attention as twa
 from rba_tpu_torch.models.swin import shifted_window_mask
@@ -197,3 +198,41 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
         c = 192
         tfm.fused_mlp_residual(torch.zeros(8, c, device=cuda), *(torch.zeros(*s, device=cuda) for s in
                                ((c,), (c,), (4 * c, c), (4 * c,), (c, 4 * c), (c,))))
+
+
+def test_wrappers_refuse_gradients_on_the_card(cuda):
+    """Kernels A and C have no gradient: on CUDA tensors that require one, with grad mode
+    on, the wrappers raise before any launch."""
+    before = twa.window_attention.launches, tms.masked_softmax.launches
+    qkv = torch.randn(4, 16, 3 * 2 * 16, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        twa.window_attention(qkv, torch.zeros(2, 16, 16, device=cuda), None, 2, 0.25)
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        tms.masked_softmax(torch.randn(4, 2, 16, 16, device=cuda, requires_grad=True),
+                           torch.zeros(2, 16, 16, device=cuda), None)
+    assert (twa.window_attention.launches, tms.masked_softmax.launches) == before
+
+
+@pytest.mark.parametrize("shape,kind", [((8, 32, 100), "rand"), ((3, 100, 100), "rand"), ((4, 32, 100), "int"),
+                                        ((2, 40, 1024), "rand"), ((5, 7, 9), "padded")])
+def test_lsap_kernel_equals_plain(cuda, shape, kind):
+    """Kernel E's assignment equals the plain version's exactly (int equality)."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    if kind == "int":
+        cost = torch.randint(0, 4, shape, generator=gen, device=cuda).float()
+    else:
+        cost = torch.rand(shape, generator=gen, device=cuda) * 10
+    if kind == "padded":
+        cost[:, -3:] = 1e6
+    before = tls.batched_linear_sum_assignment.launches
+    got = tls.batched_linear_sum_assignment(cost)
+    torch.cuda.synchronize()
+    assert tls.batched_linear_sum_assignment.launches == before + 1
+    assert torch.equal(got.cpu(), tls.batched_linear_sum_assignment_reference(cost.cpu()))
+
+
+def test_lsap_kernel_refuses_larger_shapes(cuda):
+    with pytest.raises(ValueError):
+        tls.batched_linear_sum_assignment(torch.zeros(1, 4, 1025, device=cuda))
+    with pytest.raises(ValueError):
+        tls.batched_linear_sum_assignment(torch.zeros(1, 5, 4, device=cuda))

@@ -69,3 +69,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         out_dtype = torch.float16
     with pytest.raises((ValueError, TypeError)):
         tms._check(scores, bias, mask, out_dtype)
+
+
+def test_wrapper_refuses_gradients():
+    """Kernel C has no gradient: with grad mode on and an input that requires one (the
+    bias table, here), the wrapper's dispatch raises, on the CPU too; under no_grad it
+    runs the plain version."""
+    scores = torch.randn(4, 2, 16, 16)
+    bias = torch.zeros(2, 16, 16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        tms.masked_softmax(scores, bias, None)
+    with torch.no_grad():
+        out = tms.masked_softmax(scores, bias, None, torch.float32)
+    assert torch.equal(out, tms.masked_softmax_reference(scores, bias.detach(), None, torch.float32))

@@ -32,12 +32,13 @@ def tiny():
 def test_config_presets_agree():
     for name in ("swin_b_1dl", "swin_l_1dl", "tiny_test_config"):
         j, p = getattr(jconfig, name)(), getattr(tconfig, name)()
-        for sect in ("swin", "pixel_decoder", "decoder", "input", "test"):
+        sections = ("swin", "pixel_decoder", "decoder", "input", "test", "ood", "loss", "solver")
+        for sect in sections:
             tj, tp = getattr(j, sect), getattr(p, sect)
             for f in dataclasses.fields(tp):
                 assert getattr(tp, f.name) == getattr(tj, f.name), (name, sect, f.name)
         for f in dataclasses.fields(p):
-            if f.name not in ("swin", "pixel_decoder", "decoder", "input", "test"):
+            if f.name not in sections:
                 assert getattr(p, f.name) == getattr(j, f.name), (name, f.name)
 
 
@@ -120,7 +121,9 @@ def test_unported_options_raise(change):
 
 
 def test_need_aux_raises(tiny):
+    """Training through Kernel A's branch raises: the kernel has no gradient (training
+    takes attention="xla"; tests/test_torch_train_step.py holds need_aux=True there)."""
     _, model = tiny
     x = torch.zeros(1, 32, 32, 3)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="no gradient"):
         tmf.maskformer_forward(model, tconfig.tiny_test_config(), x, need_aux=True)

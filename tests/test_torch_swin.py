@@ -90,13 +90,14 @@ def test_plain_flag_is_the_same_function_on_cpu(tiny_swin, rng):
 
 def test_cached_constants_serve_inference_and_grad_mode(tiny_swin, rng):
     """The window constants cached by a call under inference_mode also serve a later
-    call that tracks gradients (the model's parameters require grad)."""
+    call that tracks gradients (the model's parameters require grad), through the
+    plain-PyTorch branch that training takes (Kernel A's wrapper refuses gradients)."""
     _, model = tiny_swin
     x = t(rng.randn(1, 36, 44, 3))  # a shape no other test of this file uses
     cfg = tiny_test_config().swin
     with torch.inference_mode():
-        a = tswin.swin_apply(model, cfg, x, compute_dtype=torch.float32)
-    b = tswin.swin_apply(model, cfg, x, compute_dtype=torch.float32)
+        a = tswin.swin_apply(model, cfg, x, compute_dtype=torch.float32, attention="xla")
+    b = tswin.swin_apply(model, cfg, x, compute_dtype=torch.float32, attention="xla")
     for name in a:
         assert b[name].requires_grad
         torch.testing.assert_close(a[name], b[name].detach(), rtol=0, atol=0)
@@ -146,15 +147,16 @@ def test_path2_block_matches(path2_swin, rng, request, shift):
 
 def test_mlp_tail_is_unfused_when_tracking_gradients(path2_swin, rng):
     """Kernel D is inference only, as in rba_tpu: with gradients tracked the unfused
-    chain runs, and the output carries a gradient."""
+    chain runs, and the output carries a gradient.  The attention is the training
+    branch, "xla" (Kernel C's wrapper refuses gradients)."""
     _, _, _, model = path2_swin
     x = t(rng.randn(1, 8, 8, 128))
     blk = model.layers[0].blocks[0]
-    y = tswin.swin_block_apply(blk, x, 4, 4, 0, None, attention="fused_softmax", mlp_impl="fused")
+    y = tswin.swin_block_apply(blk, x, 4, 4, 0, None, attention="xla", mlp_impl="fused")
     assert y.requires_grad
     with torch.no_grad():
         torch.testing.assert_close(
-            tswin.swin_block_apply(blk, x, 4, 4, 0, None, attention="fused_softmax", mlp_impl="fused"),
+            tswin.swin_block_apply(blk, x, 4, 4, 0, None, attention="xla", mlp_impl="fused"),
             y.detach(), rtol=1e-5, atol=1e-5)
 
 

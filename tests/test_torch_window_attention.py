@@ -187,3 +187,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         bias = bias.double()
     with pytest.raises((ValueError, TypeError)):
         twa._check(qkv, bias, mask, nh)
+
+
+def test_wrapper_refuses_gradients():
+    """Kernel A has no gradient: with grad mode on and an input that requires one, the
+    wrapper's dispatch raises (on the CPU too, where it would run the plain version)
+    instead of returning a result cut off from the graph; without grad mode it runs."""
+    qkv = torch.randn(4, 16, 3 * 2 * 16, requires_grad=True)
+    bias = torch.zeros(2, 16, 16)
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        twa.window_attention(qkv, bias, None, 2, 0.25)
+    with torch.no_grad():
+        out = twa.window_attention(qkv, bias, None, 2, 0.25)
+    assert torch.equal(out, twa.window_attention_reference(qkv.detach(), bias, None, 2, 0.25))

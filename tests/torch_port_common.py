@@ -124,3 +124,39 @@ def assert_trees_equal(got, want):
         a, b = np.asarray(g[path]), np.asarray(leaf)
         assert a.dtype == b.dtype and a.shape == b.shape, (path, a.dtype, b.dtype, a.shape, b.shape)
         assert np.array_equal(a, b), path
+
+
+def replay(draws):
+    """A ``Uniform`` for the port (``rba_tpu_torch.ops.point_sample``) that hands out
+    ``draws`` (rba_tpu's ``jax.random`` arrays) in order, checking each shape, so that
+    the port draws what rba_tpu drew."""
+    queue = [np.array(d, np.float32) for d in draws]
+
+    def uniform(shape):
+        assert queue, f"the port asked for a draw of {tuple(shape)} beyond rba_tpu's"
+        d = queue.pop(0)
+        assert d.shape == tuple(shape), (d.shape, tuple(shape))
+        return torch.from_numpy(d)
+
+    uniform.left = queue
+    return uniform
+
+
+def criterion_draws(rng, loss_cfg, b: int, t: int, n_layers: int, matcher: bool = True):
+    """The ``jax.random.uniform`` draws of ``rba_tpu.train.criterion.criterion(cfg, rng, ...)``
+    over ``n_layers`` supervised layers (final first, then the aux layers), in the order the
+    port asks for them: the matcher's (B, P, 2) points, then ``uncertain_point_coords``'
+    (B·T, P·oversample, 2) and (B·T, n_random, 2)."""
+    p = loss_cfg.train_num_points
+    n_unc = int(loss_cfg.importance_sample_ratio * p)
+    keys = jax.random.split(rng, n_layers + 1)
+    draws = []
+    for key in keys[:n_layers]:
+        r1, r2 = jax.random.split(key)
+        if matcher:
+            draws.append(jax.random.uniform(r1, (b, p, 2)))
+        k1, k2 = jax.random.split(r2)
+        draws.append(jax.random.uniform(k1, (b * t, int(p * loss_cfg.oversample_ratio), 2)))
+        if p - n_unc > 0:
+            draws.append(jax.random.uniform(k2, (b * t, p - n_unc, 2)))
+    return draws
