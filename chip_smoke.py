@@ -31,6 +31,16 @@ requests at 1024x2048 through both serving paths and check the score maps.
   ``model_final.pth``, plain, with ``--tta`` and with ``--sliding-window``.
 - ``lsap``: Kernel E (the matcher's exact assignment) against its plain version and
   scipy at the matcher's B x 32 x 100, at 100 x 100, with ties and with padded rows.
+- ``semseg``: ``python -m rba_tpu_torch.evalx.eval_semseg``'s ``main`` on the d2 phase's
+  swin_b_1dl model directory over 8 synthetic 1024x2048 Cityscapes val frames (Kernel A
+  in every block, never the "xla" chain), the device confusion counts against numpy's,
+  the kernels against their plain versions at fp32 by argmax and mIoU.
+- ``panoptic``: the COCO open-panoptic Swin-B config (three deformable levels, 9 decoder
+  layers, 117 classes) through ``load_config``, a seeded full-width Detectron2 checkpoint
+  of it converted onto the card, and 4 synthetic COCO-format 800x1067 frames through the
+  trainer's panoptic evaluation (PQ with the Unknown split, mIoU, mask AP); Kernel B as
+  the open branch's map, the card's panoptic map against the CPU function's, the
+  three-level sampling at fp32 one-hot against the gather.
 - ``train``: ``rba_tpu_torch.train.train_net.main`` on
   ``configs/cityscapes/swin_b_1dl_ood_coco.yaml`` (RbA's outlier-exposure fine-tune of
   Swin-B 1dl) at full width and depth from the seeded Detectron2 checkpoint, over a
@@ -39,6 +49,9 @@ requests at 1024x2048 through both serving paths and check the score maps.
   matcher, all losses, backward, clip and AdamW); Kernel E on a step's real costs; a
   step at fp32 through Kernel E and through the plain LSAP; the trained checkpoint
   serving one path-1 request.
+- ``train_eval``: the trainer on the train phase's trees and checkpoint for 4 steps with
+  ``--eval-period 2 --eval-max-images 2``, then ``--eval-only`` from its checkpoint: the
+  evaluations in ``metrics.jsonl`` and through Kernel A.
 
 Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
@@ -83,6 +96,7 @@ SFU_OPS_PER_S = ALU_OPS_PER_S / 8
 
 IMAGE_HW = (1024, 2048)
 BIG_FRAME_HW = (3072, 4096)  # a Mapillary Vistas-sized frame, the sliding window's use
+COCO_HW = (800, 1067)  # a 640x480 COCO image at MIN_SIZE_TEST 800: the panoptic phase's frames
 N_REQUESTS = 4  # distinct images served after one warm-up request
 E2E_FP32_TOL = 1e-3  # score-map bound of rba_tpu's selfcheck
 BF16_ULP = 2.0**-7  # one bf16 ulp, relative to the value, at most
@@ -159,8 +173,8 @@ def bf16_ulp_share(got: torch.Tensor, want: torch.Tensor) -> float:
 def served_sizes(cfg):
     """Every input size that the driven phases give the backbone, padded to the size
     divisibility, in first-use order: the 1024x2048 request and the sweep's synthetic
-    images, each whole, in its TTA variants and in its sliding-window tiles, and the
-    3072x4096 frame's tiles."""
+    images, each whole, in its TTA variants and in its sliding-window tiles, the
+    3072x4096 frame's tiles, and the panoptic phase's COCO frames."""
     from rba_tpu_torch.data.ood_datasets import SyntheticAnomaly
     from rba_tpu_torch.models.sliding_window import tile_grid
     from rba_tpu_torch.models.tta import tta_variants
@@ -168,7 +182,7 @@ def served_sizes(cfg):
     sizes = []
     for hw in (IMAGE_HW, SyntheticAnomaly().hw):
         sizes += [hw, *((h, w) for h, w, _ in tta_variants(cfg, *hw)), tile_grid(*hw)[:2]]
-    sizes.append(tile_grid(*BIG_FRAME_HW)[:2])
+    sizes += [tile_grid(*BIG_FRAME_HW)[:2], COCO_HW]
     div = cfg.input.size_divisibility
     return list(dict.fromkeys((-(-h // div) * div, -(-w // div) * div) for h, w in sizes))
 
@@ -333,6 +347,33 @@ def fused_rba_phase(cfg, gen):
         log(f"fused_rba_score B={b} Q={q} K={k2} {h2}x{w2}: err {err2:.3e} (tol {tol:.0e})")
         if not err2 <= tol:
             raise RuntimeError(f"fused_rba_score disagrees with its plain version at B={b}, K={k2}: {err2}")
+    row["coco"] = _fused_rba_coco(gen)
+    return row
+
+
+def _fused_rba_coco(gen):
+    """Kernel B as the open-panoptic RbA map of the COCO Swin-B model: Q = 100, K = 117,
+    the (200, 272) stride-4 logits of an 800x1088 padded frame (bqhw, as the evaluator
+    hands them over), against its plain version, timed."""
+    from rba_tpu_torch.kernels.fused_rba import SMEM_LIMIT, fused_rba_score, fused_rba_score_reference, smem_bytes
+
+    q, k, h, w = 100, 117, -(-COCO_HW[0] // 32) * 8, -(-COCO_HW[1] // 32) * 8
+    mask_cls = torch.randn(1, q, k + 1, generator=gen, device="cuda") * 2
+    low = torch.randn(1, q, h, w, generator=gen, device="cuda") * 4
+    got = fused_rba_score(mask_cls, low)
+    err, tol = max_abs(got, fused_rba_score_reference(mask_cls, low)), 1e-4
+    t_all = cuda_ms_batches(lambda: fused_rba_score(mask_cls, low))
+    t_p = cuda_ms(lambda: fused_rba_score_reference(mask_cls, low), iters=5)
+    nbytes = low.numel() * 4 + mask_cls.numel() * 4 + got.numel() * 4
+    flops = 2.0 * q * k * got.numel()
+    b_ms, b_by = bound_ms(nbytes, flops, "float32")
+    row = dict(Q=q, K=k, h=h, w=w, smem_bytes=smem_bytes(q, k), smem_limit=SMEM_LIMIT, max_abs_err=err, tol=tol,
+               ms=t_all[0], ms_batches=t_all, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
+    log(f"fused_rba_score Q={q} K={k} {h}x{w} (bqhw; COCO open panoptic, shared memory {row['smem_bytes']} of "
+        f"{SMEM_LIMIT} B): err {err:.3e} (tol {tol:.0e}) | kernel {t_all[0]:.4f} ms (3 batches {_fmt(t_all)}), plain "
+        f"{t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    if not err <= tol:
+        raise RuntimeError(f"fused_rba_score disagrees with its plain version at the COCO shape: {row}")
     return row
 
 
@@ -1017,7 +1058,11 @@ def d2_phase(image):
     from rba_tpu_torch.models.maskformer import maskformer_infer_rba
 
     cfg = load_d2_config(str(D2_CONFIG))
-    if cfg != swin_b_1dl():
+    # the loader also keeps the raw MASK_FORMER.DEC_LAYERS and TRANSFORMER_IN_FEATURE, which
+    # only the v1 decoder reads; every other field must be the preset's
+    preset = swin_b_1dl()
+    raw = dict(dec_layers_total=cfg.decoder.dec_layers_total, transformer_in_feature=cfg.decoder.transformer_in_feature)
+    if cfg != dataclasses.replace(preset, decoder=dataclasses.replace(preset.decoder, **raw)):
         raise RuntimeError(f"d2: {D2_CONFIG} does not load as swin_b_1dl(): {cfg}")
     model_dir = SCRATCH / "d2" / "swin_b_1dl"
     shutil.rmtree(model_dir, ignore_errors=True)
@@ -1337,30 +1382,38 @@ def lsap_phase(gen):
     return rows
 
 
-def _write_train_trees(root: Path, seed: int = 0):
-    """A Cityscapes-layout tree of TRAIN_FRAMES 1024x2048 PNG frames with
-    ``*_gtFine_labelTrainIds.png`` (blocks of the 19 classes and some void), and a COCO
-    proxy tree (``annotations/ood_seg_train2017/*.png`` with 254 on an ellipse,
-    ``train2017/*.jpg``).  Returns the seconds it took."""
+def _write_cityscapes_split(root: Path, split: str, frames: int, rs):
+    """``frames`` 1024x2048 PNG frames of a Cityscapes-layout split under ``root`` with
+    ``*_gtFine_labelTrainIds.png`` (blocks of the 19 classes and some void), from ``rs``."""
     from PIL import Image
 
-    t0 = time.perf_counter()
-    rs = np.random.RandomState(seed)
     h, w = IMAGE_HW
-    img_dir = root / "cityscapes" / "leftImg8bit" / "train" / "synth"
-    gt_dir = root / "cityscapes" / "gtFine" / "train" / "synth"
+    img_dir = root / "leftImg8bit" / split / "synth"
+    gt_dir = root / "gtFine" / split / "synth"
     img_dir.mkdir(parents=True)
     gt_dir.mkdir(parents=True)
     palette = rs.randint(0, 256, (19, 3))
     yy, xx = np.mgrid[0:h, 0:w]
     blk = h // 8  # 8 x 16 blocks of one class each
-    for i in range(TRAIN_FRAMES):
+    for i in range(frames):
         lab = rs.randint(0, 19, (8, w // blk)).repeat(blk, 0).repeat(blk, 1).astype(np.uint8)
         lab[rs.rand(8, w // blk).repeat(blk, 0).repeat(blk, 1) < 0.05] = 255
         shade = ((xx + yy * (i + 1)) % 64).astype(np.int64)[..., None]
         img = np.clip(palette[np.minimum(lab, 18)] + shade - 32, 0, 255).astype(np.uint8)
         Image.fromarray(img).save(img_dir / f"synth_{i:06d}_leftImg8bit.png", compress_level=1)
         Image.fromarray(lab).save(gt_dir / f"synth_{i:06d}_gtFine_labelTrainIds.png", compress_level=1)
+
+
+def _write_train_trees(root: Path, seed: int = 0):
+    """A Cityscapes-layout train split of TRAIN_FRAMES frames (``_write_cityscapes_split``)
+    and a COCO proxy tree (``annotations/ood_seg_train2017/*.png`` with 254 on an ellipse,
+    ``train2017/*.jpg``).  Returns the seconds it took."""
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(seed)
+    h, w = IMAGE_HW
+    _write_cityscapes_split(root / "cityscapes", "train", TRAIN_FRAMES, rs)
     ann, imgs = root / "coco" / "annotations" / "ood_seg_train2017", root / "coco" / "train2017"
     ann.mkdir(parents=True)
     imgs.mkdir(parents=True)
@@ -1561,6 +1614,435 @@ def train_phase(pth: Path, image):
                 serve_launches=served, write_trees_s=write_s)
 
 
+# ---------------------------------------------------------------------------
+# Closed-set evaluation: Cityscapes mIoU through eval_semseg, COCO open-panoptic PQ,
+# mIoU and mask AP on the three-level Swin-B, and the trainer's evaluation
+# ---------------------------------------------------------------------------
+
+SEMSEG_FRAMES = 8  # synthetic 1024x2048 Cityscapes val frames
+COCO_CONFIG = Path("configs/coco/open-panoptic-segmentation/swin/maskformer2_swin_base_IN21k_384_bs16_50ep.yaml")
+PANOPTIC_FRAMES = 4  # synthetic COCO-format panoptic frames of COCO_HW
+PANOPTIC_CHECKED = 2  # of them, held on the card against the CPU function
+MAP_SHARE = 0.9999  # least share of equal pixels: argmax and threshold ties may fall the other way
+PQ_TOL = 1e-3
+MIOU_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def _xla_attention_calls():
+    """Count the calls of Swin's ``"xla"`` window-attention chain (rba_tpu's default
+    chain in plain torch), which no evaluation on path 1 should make."""
+    from rba_tpu_torch.models import swin
+
+    real, calls = swin.xla_attention, [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+
+    swin.xla_attention = counted
+    try:
+        yield calls
+    finally:
+        swin.xla_attention = real
+
+
+@contextlib.contextmanager
+def _bytes_to_host():
+    """Count the bytes that ``Tensor.cpu()`` brings from the card to the host: the
+    evaluators fetch through it."""
+    real, moved = torch.Tensor.cpu, [0]
+
+    def counted(self, *args, **kw):
+        if self.is_cuda:
+            moved[0] += self.numel() * self.element_size()
+        return real(self, *args, **kw)
+
+    torch.Tensor.cpu = counted
+    try:
+        yield moved
+    finally:
+        torch.Tensor.cpu = real
+
+
+def semseg_phase(model_dir: Path):
+    """``python -m rba_tpu_torch.evalx.eval_semseg``'s ``main`` on the swin_b_1dl model
+    directory of the d2 phase (its default precision, fast) over SEMSEG_FRAMES synthetic
+    1024x2048 Cityscapes val frames on disk.  Gates: Kernel A 24 times per image and the
+    "xla" chain never; every image's device confusion counts equal to numpy's bincount of
+    the same argmax; at fp32 the kernels and their plain versions give the argmax on
+    >= MAP_SHARE of the pixels and mIoU within MIOU_TOL.  Reports ms/image, images/s, the
+    busy time and idle share of one profiled image and the peak memory."""
+    from rba_tpu_torch.config import load_d2_config
+    from rba_tpu_torch.data.ood_datasets import CityscapesSemSeg
+    from rba_tpu_torch.evalx import eval_semseg
+    from rba_tpu_torch.evalx.seg_evaluators import SemSegEvaluator, confusion_counts
+    from rba_tpu_torch.evalx.sweep import load_model
+
+    root = SCRATCH / "semseg"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    _write_cityscapes_split(root / "cityscapes", "val", SEMSEG_FRAMES, np.random.RandomState(1))
+    write_s = time.perf_counter() - t0
+    blocks = sum(load_d2_config(str(model_dir / "config.yaml")).swin.depths)
+    with _xla_attention_calls() as xla_calls:
+        counts = _zero_counts()
+        res, cli_ms = _timed(eval_semseg.main, ["--model-dir", str(model_dir), "--data-root",
+                                                str(root / "cityscapes"), "--out", str(root / "metrics.json")])
+        launches = counts()
+    log(f"semseg: eval_semseg over {SEMSEG_FRAMES} frames (written in {write_s:.1f} s) in {cli_ms / 1e3:.2f} s "
+        f"(model load and PNG decode included): mIoU {res['mIoU']:.6f}, fwIoU {res['fwIoU']:.6f}, pACC "
+        f"{res['pACC']:.6f}; launches {launches}, calls of the xla chain {xla_calls[0]}")
+    if not (math.isfinite(res["mIoU"]) and launches["window_attention"] == blocks * SEMSEG_FRAMES
+            and xla_calls[0] == 0 and launches["fused_rba_score"] == 0):
+        raise RuntimeError(f"semseg: mIoU {res['mIoU']}, launches {launches} (Kernel A expected "
+                           f"{blocks * SEMSEG_FRAMES}), xla chain calls {xla_calls[0]}")
+
+    cfg, model = load_model(str(model_dir))  # as the CLI: fast_serving
+    ds = CityscapesSemSeg(str(root / "cityscapes"), "val")
+    samples = [ds[i] for i in range(len(ds))]
+    k = cfg.num_classes
+    ev = SemSegEvaluator(cfg, model)
+    counts_equal = True
+    for s in samples:
+        pred = ev.predict(s.image)
+        dev = confusion_counts(pred, torch.from_numpy(s.label), k).cpu().numpy()
+        ev.add(pred, s.label)
+        p, lab = pred.cpu().numpy().astype(np.int64), s.label.astype(np.int64)
+        valid = lab < k
+        counts_equal &= np.array_equal(dev, np.bincount(lab[valid] * k + p[valid], minlength=k * k).reshape(k, k))
+    log(f"semseg: device confusion counts equal to numpy's bincount of the same argmax on every image: {counts_equal}")
+    if not counts_equal:
+        raise RuntimeError("semseg: the device confusion counts differ from numpy's")
+
+    timed_ev = SemSegEvaluator(cfg, model)
+    timed_ev.process(samples[0].image, samples[0].label)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed_ev = SemSegEvaluator(cfg, model)
+    _, loop_ms = _timed(lambda: [timed_ev.process(s.image, s.label) for s in samples])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if not np.array_equal(timed_ev.conf, ev.conf):
+        raise RuntimeError("semseg: a second evaluation of the same frames counts otherwise")
+    prof = _profile("semseg one image", lambda: timed_ev.process(samples[1].image, samples[1].label))
+    ms_image = loop_ms / len(samples)
+    log(f"semseg: SemSegEvaluator over the {len(samples)} frames in memory {ms_image:.2f} ms/image, "
+        f"{1e3 / ms_image:.2f} images/s (upload, forward, argmax, counts); peak memory {peak_gib:.2f} GiB")
+
+    # fp32: the kernels against their plain versions, on the same weights
+    cfg32 = dataclasses.replace(load_d2_config(str(model_dir / "config.yaml")), compute_dtype="float32")
+    evs = {plain: SemSegEvaluator(cfg32, model, plain=plain) for plain in (False, True)}
+    same = total = 0
+    for s in samples[:2]:
+        preds = {plain: e.predict(s.image) for plain, e in evs.items()}
+        same += int((preds[False] == preds[True]).sum())
+        total += preds[False].numel()
+        for plain, e in evs.items():
+            e.add(preds[plain], s.label)
+    share = same / total
+    miou = {plain: e.evaluate()["mIoU"] for plain, e in evs.items()}
+    log(f"semseg fp32, 2 frames: argmax of the kernels equal to the plain versions' on {share:.6f} of the pixels "
+        f"(least {MAP_SHARE}); mIoU {miou[False]:.6f} vs {miou[True]:.6f} (bound {MIOU_TOL})")
+    if not (share >= MAP_SHARE and abs(miou[False] - miou[True]) <= MIOU_TOL):
+        raise RuntimeError(f"semseg: at fp32 the kernels' argmax share {share}, mIoU {miou}")
+    del model, ev, timed_ev, evs
+    return dict(frames=SEMSEG_FRAMES, cli_s=cli_ms / 1e3, metrics={k2: v for k2, v in res.items()
+                                                                  if k2 != "IoU_per_class"},
+                launches=launches, xla_calls=xla_calls[0], counts_equal=counts_equal, ms_per_image=ms_image,
+                images_per_s=1e3 / ms_image, peak_gib=peak_gib, profile=prof, fp32_argmax_share=share,
+                fp32_miou=miou[False], fp32_miou_plain=miou[True])
+
+
+def _write_coco_panoptic(root: Path, frames: int, seed: int = 0):
+    """``frames`` COCO-format panoptic frames of COCO_HW under ``root/coco`` (val2017/*.png
+    images, panoptic_val2017/*.png RGB id maps, annotations/panoptic_val2017.json) in raw
+    COCO category ids: a grid of 4x6 segments, each of a random class of the 133 (so some
+    of the open protocol's unknown things), a few crowds, and void seams."""
+    from PIL import Image
+
+    from rba_tpu_torch.data.categories import COCO_PANOPTIC_CATEGORIES
+
+    rs = np.random.RandomState(seed)
+    h, w = COCO_HW
+    img_dir, pan_dir, ann_dir = (root / "coco" / d for d in ("val2017", "panoptic_val2017", "annotations"))
+    for d in (img_dir, pan_dir, ann_dir):
+        d.mkdir(parents=True)
+    palette = rs.randint(0, 256, (len(COCO_PANOPTIC_CATEGORIES), 3))
+    images, anns = [], []
+    for i in range(frames):
+        ids = np.zeros((h, w), np.int64)
+        img = np.zeros((h, w, 3), np.int64)
+        segs = []
+        for r in range(4):
+            for c in range(6):
+                cat = rs.randint(len(COCO_PANOPTIC_CATEGORIES))
+                y0, y1, x0, x1 = r * h // 4, (r + 1) * h // 4 - 4, c * w // 6, (c + 1) * w // 6 - 4
+                sid = 1 + r * 6 + c + 256 * (i + 1)
+                ids[y0:y1, x0:x1] = sid
+                img[y0:y1, x0:x1] = palette[cat]
+                segs.append({"id": sid, "category_id": COCO_PANOPTIC_CATEGORIES[cat][0],
+                             "iscrowd": int(rs.rand() < 0.1), "area": (y1 - y0) * (x1 - x0)})
+        img = np.clip(img + rs.randint(-20, 21, img.shape), 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(img_dir / f"{i:012d}.png", compress_level=1)
+        rgb = np.stack([ids % 256, ids // 256 % 256, ids // 65536], -1).astype(np.uint8)
+        Image.fromarray(rgb).save(pan_dir / f"{i:012d}.png", compress_level=1)
+        images.append({"id": i, "file_name": f"{i:012d}.png", "height": h, "width": w})
+        anns.append({"image_id": i, "file_name": f"{i:012d}.png", "segments_info": segs})
+    (ann_dir / "panoptic_val2017.json").write_text(json.dumps({"images": images, "annotations": anns}))
+
+
+@contextlib.contextmanager
+def _sampling_inputs(store: list):
+    """Record the inputs of the pixel decoder's first deformable sampling call."""
+    from rba_tpu_torch.models import pixel_decoder
+
+    real = pixel_decoder.ms_deform_attn_core
+
+    def recorded(value, shapes, loc, attn, *args, **kw):
+        if not store:
+            store.append((value.clone(), list(shapes), loc.clone(), attn.clone()))
+        return real(value, shapes, loc, attn, *args, **kw)
+
+    pixel_decoder.ms_deform_attn_core = recorded
+    try:
+        yield store
+    finally:
+        pixel_decoder.ms_deform_attn_core = real
+
+
+def _onehot_fp32(value, shapes, loc, attn, queries: int):
+    """The one-hot form of the sampling at fp32 for the first ``queries`` queries: each
+    level's dense (Lq, HW) row matrix of the corners' weights (``ops/deform_sampling.py``
+    ``_corner_rows`` / ``_build_rows``) times the values, summed over the levels."""
+    from rba_tpu_torch.ops.deform_sampling import _build_rows, _corner_rows
+
+    n, _, m, d = value.shape
+    out, start = 0, 0
+    for lid, (h, w) in enumerate(shapes):
+        v = value[:, start : start + h * w].float().permute(0, 2, 1, 3)  # (N, M, HW, D)
+        idx, wgt = _corner_rows(h, w, loc[:, :queries, :, lid].float(), attn[:, :queries, :, lid].float())
+        out = out + torch.matmul(_build_rows(idx, wgt, h * w), v)
+        start += h * w
+    return out.permute(0, 2, 1, 3).reshape(n, queries, m * d)
+
+
+def panoptic_phase():
+    """The COCO open-panoptic Swin-B config (three deformable levels, 9 decoder layers, 117
+    classes) read by ``load_config``; a seeded full-width Detectron2 ``model_final.pth`` of
+    it converted onto the card; PANOPTIC_FRAMES synthetic COCO-format panoptic frames of
+    800x1067 served through the trainer's panoptic evaluation (``run_val_eval`` on
+    ``coco_2017_val_panoptic_open``: PQ with the Unknown split, mIoU through
+    ``SemSegFromPanoptic``, mask AP through ``InstanceEvaluator``).  Seeded random weights
+    give nearly uniform class probabilities, so the phase lowers the object-mask and
+    overlap thresholds to 0 (every query that predicts a class and wins a pixel makes a
+    segment).  Gates: every parameter equal to the CPU conversion; Kernel A and B launches
+    as counted; Kernel B's map equal to its plain version within 1e-3; on the same
+    logits the card's panoptic map equal to the CPU function's on >= MAP_SHARE of the
+    pixels and PQ within PQ_TOL; the fp32 one-hot sampling over the three levels equal
+    to the gather within 1e-3.  Reports the sampling form per level at parity and
+    fast_serving, ms/image split into forward, panoptic bookkeeping and PQ, busy time,
+    peak memory and bytes brought back per image."""
+    from rba_tpu_torch.config import fast_serving, load_config
+    from rba_tpu_torch.convert import jax_params_to_state, load_checkpoint_params
+    from rba_tpu_torch.convert.d2_mapping import convert_d2_state_dict
+    from rba_tpu_torch.data import catalog
+    from rba_tpu_torch.evalx.panoptic import pq_compute
+    from rba_tpu_torch.evalx.seg_evaluators import OpenPanopticEvaluator
+    from rba_tpu_torch.kernels.fused_rba import fused_rba_score_reference
+    from rba_tpu_torch.models.inference import panoptic_inference
+    from rba_tpu_torch.ops.deform_sampling import ms_deform_attn_core, sampling_methods
+    from rba_tpu_torch.train import train_net
+
+    cfg = load_config(str(COCO_CONFIG))
+    ecfg = dataclasses.replace(cfg, test=dataclasses.replace(
+        cfg.test, semantic_on=True, instance_on=True, object_mask_threshold=0.0, overlap_threshold=0.0))
+    root = SCRATCH / "panoptic"
+    shutil.rmtree(root, ignore_errors=True)
+    model_dir = root / "model"
+    model_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    sd = write_d2_checkpoint(cfg, model_dir / "model_final.pth")
+    _write_coco_panoptic(root, PANOPTIC_FRAMES)
+    write_s = time.perf_counter() - t0
+    want = {k: torch.from_numpy(v) for k, v in jax_params_to_state(convert_d2_state_dict(sd, cfg)).items()}
+    model, load_ms = _timed(load_checkpoint_params, str(model_dir), cfg)
+    wrong = [n for n, p in model.named_parameters() if not (p.is_cuda and torch.equal(p.detach().cpu(), want[n]))]
+    log(f"panoptic: {COCO_CONFIG.name}: levels {cfg.pixel_decoder.transformer_in_features}, "
+        f"{cfg.decoder.dec_layers} decoder layers, {cfg.num_classes} classes, panoptic_on {cfg.test.panoptic_on}; "
+        f"model_final.pth ({sum(v.numel() for v in want.values()) / 1e6:.2f} M parameters) and "
+        f"{PANOPTIC_FRAMES} frames written in {write_s:.1f} s, converted onto the card in {load_ms / 1e3:.2f} s; "
+        f"parameters not equal to the CPU conversion: {len(wrong)}")
+    if wrong or sorted(n for n, _ in model.named_parameters()) != sorted(want):
+        raise RuntimeError(f"panoptic: parameters differ from the CPU conversion: {wrong[:5]}")
+    del sd, want
+
+    hp, wp = (-(-s // cfg.input.size_divisibility) * cfg.input.size_divisibility for s in COCO_HW)
+    shapes = [(hp // 2 ** int(f[3:]), wp // 2 ** int(f[3:]))  # resN at stride 2**N
+              for f in cfg.pixel_decoder.transformer_in_features]
+    forms = {}
+    for name, c in (("parity", cfg), ("fast_serving", fast_serving(cfg))):
+        pd = c.pixel_decoder
+        methods = sampling_methods(1, pd.transformer_nheads, sum(h * w for h, w in shapes), shapes,
+                                   pd.sampling_method, pd.sampling_onehot_cap)
+        forms[name] = {f"{h}x{w}": ("onehot" if m == "onehot" and pd.sampling_dtype == "bfloat16" else "gather")
+                       for (h, w), m in zip(shapes, methods)}
+    log(f"panoptic: deformable sampling form per level at {hp}x{wp}: parity {forms['parity']}, fast_serving "
+        f"{forms['fast_serving']}")
+
+    # the trainer's route for a panoptic DATASETS.TEST, counted
+    data_root = root / "cityscapes"  # absent: the catalog reads coco/ under its parent
+    catalog.register_standard_datasets(str(root))
+    thing_ids = tuple(sorted(v for v in set(catalog.metadata("coco_2017_val_panoptic_open")[
+        "thing_dataset_id_to_contiguous_id"].values()) if v != 255))
+    train_net.run_val_eval(ecfg, model, str(data_root), 1)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    counts = _zero_counts()
+    res, route_ms = _timed(train_net.run_val_eval, ecfg, model, str(data_root))
+    launches = counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    blocks = sum(cfg.swin.depths)
+    expect = {"window_attention": 3 * PANOPTIC_FRAMES * blocks, "fused_rba_score": PANOPTIC_FRAMES}
+    log(f"panoptic: run_val_eval on coco_2017_val_panoptic_open, {res['eval_images']} frames, {route_ms / 1e3:.2f} s: "
+        f"PQ {res['All_pq']:.6f} (Known {res.get('Known_pq', float('nan')):.6f}, Unknown "
+        f"{res.get('Unknown_pq', float('nan')):.6f}), mIoU {res['mIoU']:.6f}, mask AP {res['instance_AP']:.6f}; "
+        f"launches {launches} (expected {expect}: PQ, mIoU and AP passes, Kernel B in the PQ pass); peak memory "
+        f"{peak_gib:.2f} GiB")
+    finite = all(math.isfinite(res[k2]) for k2 in ("All_pq", "mIoU"))
+    if any(launches[k2] != v for k2, v in expect.items()) or "Unknown_pq" not in res or not finite:
+        raise RuntimeError(f"panoptic: launches {launches} (expected {expect}), result {res}")
+
+    # each image's time split: forward (with Kernel B's map), panoptic bookkeeping, then PQ
+    ds = catalog.get("coco_2017_val_panoptic_open")
+    frames = [ds[i] for i in range(len(ds))]
+    ev = OpenPanopticEvaluator(ecfg, model, thing_ids=thing_ids)
+    fwd_ms, book_ms, moved = [], [], []
+    for image, pan_gt, segs_gt in frames:
+        (mask_cls, low, mask_pred), ms_f = _timed(ev.raw_outputs, image)
+        rba_map, ms_b = _timed(ev.rba_map, mask_cls, low, image.shape[:2])
+        with _bytes_to_host() as nbytes:
+            pred, ms_p = _timed(panoptic_inference, ecfg, mask_cls, mask_pred, thing_ids=thing_ids,
+                                open_panoptic=True, rba_map=rba_map)
+        fwd_ms.append(ms_f + ms_b)
+        book_ms.append(ms_p)
+        moved.append(nbytes[0])
+        ev.pairs.append((*pred, pan_gt, segs_gt))
+    pq, pq_ms = _timed(ev.evaluate)
+    prof = _profile("panoptic one frame (forward, Kernel B, bookkeeping)", lambda: ev.predict(frames[0][0]))
+    log(f"panoptic: per frame forward + Kernel B {statistics.median(fwd_ms):.2f} ms, panoptic bookkeeping "
+        f"{statistics.median(book_ms):.2f} ms (medians of {len(frames)}), PQ over {len(frames)} frames "
+        f"{pq_ms:.2f} ms; brought back to the host {statistics.median(moved) / 2**20:.3f} MiB per frame "
+        f"(the (Q, H, W) fp32 mask logits would be {ecfg.decoder.num_queries * COCO_HW[0] * COCO_HW[1] * 4 / 2**20:.1f} MiB)")
+    if pq["All"]["pq"] != res["All_pq"]:
+        raise RuntimeError(f"panoptic: the timed pass's PQ {pq['All']} differs from the route's {res['All_pq']}")
+
+    # on the same logits: Kernel B against its plain version, the card's map against the CPU's
+    card_pairs, cpu_pairs, rba_err, share = [], [], 0.0, 1.0
+    for image, pan_gt, segs_gt in frames[:PANOPTIC_CHECKED]:
+        mask_cls, low, mask_pred = ev.raw_outputs(image)
+        rba_k = ev.rba_map(mask_cls, low, image.shape[:2])
+        rba_p = fused_rba_score_reference(mask_cls[None], low[None])[0, : image.shape[0], : image.shape[1]]
+        rba_err = max(rba_err, max_abs(rba_k, rba_p))
+        thr = float(torch.quantile(rba_k.flatten()[::101].float(), 0.7))  # so that unknown regions appear
+        card = panoptic_inference(ecfg, mask_cls, mask_pred, thing_ids=thing_ids, open_panoptic=True,
+                                  ood_threshold=thr, rba_map=rba_k)
+        cpu = panoptic_inference(ecfg, mask_cls.cpu(), mask_pred.cpu(), thing_ids=thing_ids, open_panoptic=True,
+                                 ood_threshold=thr)
+        share = min(share, float((card[0] == cpu[0]).mean()))
+        card_pairs.append((*card, pan_gt, segs_gt))
+        cpu_pairs.append((*cpu, pan_gt, segs_gt))
+    pq_card, pq_cpu = pq_compute(card_pairs)["All"]["pq"], pq_compute(cpu_pairs)["All"]["pq"]
+    unknown = sum(s["category_id"] == 255 for p in card_pairs for s in p[1])
+    log(f"panoptic: Kernel B's map vs its plain version max diff {rba_err:.3e} (bound 1e-3); on the same logits "
+        f"of {PANOPTIC_CHECKED} frames the card's panoptic map equals the CPU function's on {share:.6f} of the "
+        f"pixels (least {MAP_SHARE}), {sum(len(p[1]) for p in card_pairs)} segments ({unknown} unknown); PQ "
+        f"{pq_card:.6f} vs {pq_cpu:.6f} (bound {PQ_TOL})")
+    if not (rba_err <= 1e-3 and share >= MAP_SHARE and abs(pq_card - pq_cpu) <= PQ_TOL):
+        raise RuntimeError(f"panoptic: Kernel B err {rba_err}, map share {share}, PQ {pq_card} vs {pq_cpu}")
+
+    # the three-level sampling at fp32: one-hot against the gather, on the model's own inputs
+    store: list = []
+    fcfg = fast_serving(cfg)
+    with _sampling_inputs(store):
+        _, fast_ms = _timed(ev.raw_outputs, frames[0][0])
+    value, lv_shapes, loc, attn = store[0]
+    gather = ms_deform_attn_core(value, lv_shapes, loc, attn, method="gather")
+    queries = min(2048, loc.shape[1])
+    onehot32 = _onehot_fp32(value, lv_shapes, loc, attn, queries)
+    err32 = max_abs(onehot32, gather[:, :queries])
+    pd = fcfg.pixel_decoder
+    fast = ms_deform_attn_core(value, lv_shapes, loc, attn, method=pd.sampling_method, sampling_dtype="bfloat16",
+                               onehot_cap=pd.sampling_onehot_cap)
+    log(f"panoptic: three-level sampling on the model's inputs (levels {lv_shapes}, {loc.shape[1]} queries): fp32 "
+        f"one-hot vs gather on {queries} queries max diff {err32:.3e} (bound 1e-3); fast_serving's form vs the fp32 "
+        f"gather {max_abs(fast, gather):.3e} (reported)")
+    if not err32 <= 1e-3:
+        raise RuntimeError(f"panoptic: the fp32 one-hot sampling differs from the gather by {err32}")
+    ev_fast = OpenPanopticEvaluator(fcfg, model, thing_ids=thing_ids)
+    ev_fast.raw_outputs(frames[0][0])  # warm-up
+    _, fast_ms = _timed(ev_fast.predict, frames[0][0])
+    log(f"panoptic fast_serving: one frame through the open-panoptic evaluator {fast_ms:.2f} ms")
+    del model, ev, ev_fast
+    return dict(config=str(COCO_CONFIG), frames=PANOPTIC_FRAMES, load_convert_s=load_ms / 1e3, sampling_forms=forms,
+                result=res, route_s=route_ms / 1e3, launches=launches, peak_gib=peak_gib,
+                forward_ms=statistics.median(fwd_ms), bookkeeping_ms=statistics.median(book_ms), pq_ms=pq_ms,
+                ms_per_image=statistics.median(fwd_ms) + statistics.median(book_ms) + pq_ms / len(frames),
+                bytes_to_host_per_image=statistics.median(moved), profile=prof, rba_map_max_abs_err=rba_err,
+                map_share=share, pq_card=pq_card, pq_cpu=pq_cpu, sampling_fp32_max_diff=err32,
+                fast_serving_frame_ms=fast_ms)
+
+
+def train_eval_phase():
+    """The trainer on the train phase's trees and checkpoint: 4 steps at per-step batch 8
+    with ``--eval-period 2 --eval-max-images 2`` over a 2-frame val split, then
+    ``--eval-only`` from the checkpoint that run wrote.  Gates: both runs end (no gradient
+    error), their three evaluations are in metrics.jsonl with finite mIoU, and Kernel A ran
+    24 times per evaluated image.  Reports the seconds of each evaluation."""
+    from rba_tpu_torch.config import load_d2_config
+    from rba_tpu_torch.kernels.lsap import batched_linear_sum_assignment
+    from rba_tpu_torch.train import train_net
+
+    root = SCRATCH / "train"
+    shutil.rmtree(root / "cityscapes" / "leftImg8bit" / "val", ignore_errors=True)
+    shutil.rmtree(root / "cityscapes" / "gtFine" / "val", ignore_errors=True)
+    _write_cityscapes_split(root / "cityscapes", "val", 2, np.random.RandomState(2))
+    out = root / "out_eval"
+    shutil.rmtree(out, ignore_errors=True)
+    blocks = sum(load_d2_config(str(OOD_CONFIG)).swin.depths)
+    counts = {**_wrappers(), "lsap": batched_linear_sum_assignment}
+    real, eval_s = train_net.run_val_eval, []
+
+    def timed_eval(*args, **kw):
+        res, ms = _timed(real, *args, **kw)
+        eval_s.append(ms / 1e3)
+        return res
+
+    train_net.run_val_eval = timed_eval
+    launches = {}
+    try:
+        for name, extra, max_iter in (("train", ["--eval-period", "2", "--eval-max-images", "2"], 4),
+                                      ("eval_only", ["--eval-only", "--eval-max-images", "2"], 4)):
+            for fn in counts.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            train_net.main(_train_args(root, root / "weights", out, TRAIN_BATCH, max_iter) + extra)
+            torch.cuda.synchronize()
+            launches[name] = {k: fn.launches for k, fn in counts.items()}
+            log(f"train_eval: {name} run {time.perf_counter() - t0:.1f} s, launches {launches[name]}")
+    finally:
+        train_net.run_val_eval = real
+    lines = [json.loads(line) for line in open(out / "metrics.jsonl")]
+    evals = [m for m in lines if "mIoU" in m]
+    log(f"train_eval: evaluations {[(m['step'], round(m['mIoU'], 6), m['eval_images']) for m in evals]} in "
+        f"metrics.jsonl; seconds per evaluation {[round(s, 3) for s in eval_s]}")
+    ok = (len(evals) == 3 and [m["step"] for m in evals] == [2, 4, 4] and len(eval_s) == 3
+          and all(math.isfinite(m["mIoU"]) and m["eval_images"] == 2 for m in evals)
+          and launches["train"]["window_attention"] == 2 * 2 * blocks
+          and launches["eval_only"]["window_attention"] == 2 * blocks and launches["eval_only"]["lsap"] == 0)
+    if not ok:
+        raise RuntimeError(f"train_eval: evaluations {evals}, launches {launches}, seconds {eval_s}")
+    return dict(evaluations=evals, eval_s=eval_s, launches=launches)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, help="directory for chip_smoke.json, the run's measurements")
@@ -1648,11 +2130,29 @@ def main() -> int:
         dense_hybrid = dense_hybrid_phase(images[1])
         sweep_cli = sweep_cli_phase(pth)
     log(f"d2, tta, sliding, dense_hybrid and sweep_cli phases: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
+    with window_attention_shapes() as wa_seen_eval:
+        t0 = time.perf_counter()
+        semseg = semseg_phase(pth.parent)
+        log(f"semseg phase: {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        panoptic = panoptic_phase()
+        log(f"panoptic phase: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     train = train_phase(pth, images[1])
     log(f"train phase: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with window_attention_shapes() as wa_seen_train_eval:
+        t0 = time.perf_counter()
+        train_eval = train_eval_phase()
+        log(f"train_eval phase: {time.perf_counter() - t0:.1f} s")
+    wa_seen |= wa_seen_eval | wa_seen_train_eval
     unchecked = sorted(wa_seen - wa_checked)
     log(f"Kernel A in these phases: {len(wa_seen)} distinct launch shapes (windows, heads, head dim, masked), "
         f"each held against its plain version at bf16 and fp32 in the kernel phase: {not unchecked} "
@@ -1663,7 +2163,9 @@ def main() -> int:
         ("d2", d2["launches"]), ("tta", tta["fast"]["launches"]), ("sliding", sliding["1024x2048"]["launches"]),
         ("sliding_3072x4096", sliding["3072x4096"]["launches"]), ("dense_hybrid", dense_hybrid["launches"]),
         ("sweep_cli_plain", sweep_cli["plain"]["launches"]), ("sweep_cli_tta", sweep_cli["tta"]["launches"]),
-        ("sweep_cli_sliding", sweep_cli["sliding"]["launches"]))}
+        ("sweep_cli_sliding", sweep_cli["sliding"]["launches"]), ("semseg", semseg["launches"]),
+        ("panoptic", panoptic["launches"]), ("train_eval", train_eval["launches"]["train"]),
+        ("eval_only", train_eval["launches"]["eval_only"]))}
 
     kernels = [
         dict(name="window_attention", route="cuda", source="rba_tpu_torch/csrc/window_attention.cu",
@@ -1680,7 +2182,8 @@ def main() -> int:
              bound_by=rba_row["bound_by"], library_ms=None, ms_batches=rba_row["ms_batches"],
              bound_built_ms=rba_row["bound_built_ms"], bound_built_by=rba_row["bound_built_by"],
              launches_eval=eval_launches["fused_rba_score"], launches_fast=fast["serve"]["launches"]["fused_rba_score"],
-             **{k: v["fused_rba_score"] for k, v in variant_launches.items()}),
+             **{k: v["fused_rba_score"] for k, v in variant_launches.items()},
+             **{f"{k}_coco": rba_row["coco"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}),
         dict(name="masked_softmax", route="cuda", source="rba_tpu_torch/csrc/masked_softmax.cu",
              replaces="rba_tpu/ops/pallas/masked_softmax.py:77",
              launches=serve["path2"]["launches"]["masked_softmax"], max_abs_err=ms_err, ms=ms["ms"],
@@ -1698,7 +2201,8 @@ def main() -> int:
              bound_ms=train["lsap_real"]["bound_ms"], bound_by=train["lsap_real"]["bound_by"], library_ms=None,
              scipy_ms=train["lsap_real"]["scipy_ms"], latency_bound_ms=train["lsap_real"]["latency_bound_ms"],
              shape=train["lsap_real"]["shape"], launches_per_step=train["launches"]["lsap"] // (
-                 TRAIN_WARMUP + TRAIN_TIMED), ms_B8x32x100=lsap_rows["B8x32x100"]["ms"]),
+                 TRAIN_WARMUP + TRAIN_TIMED), ms_B8x32x100=lsap_rows["B8x32x100"]["ms"],
+             launches_train_eval=train_eval["launches"]["train"]["lsap"]),
     ]
     if args.out:
         args.out.mkdir(parents=True, exist_ok=True)
@@ -1707,7 +2211,7 @@ def main() -> int:
                  masked_softmax=ms_rows, fused_mlp=mlp_rows, serve=serve, paths_fp32_max_diff=cross32,
                  paths_bf16_max_diff_not_gated=cross16, profile=prof, fast=fast, xla=xla, eval=evaluation, d2=d2,
                  tta=tta, sliding=sliding, dense_hybrid=dense_hybrid, sweep_cli=sweep_cli, lsap=lsap_rows,
-                 train=train,
+                 train=train, semseg=semseg, panoptic=panoptic, train_eval=train_eval,
                  elapsed_s=time.perf_counter() - T_START, kernels=kernels), indent=1))
     log("(window_attention, masked_softmax and fused_mlp_residual times are per image: each call of one "
         "1024x2048 request, summed; ms is the mean of the first batch of 20 calls, ms_batches the means of "
@@ -1716,7 +2220,11 @@ def main() -> int:
         f"{N_REQUESTS} requests, launches_d2 one request of the D2-loaded model, launches_tta one TTA frame at "
         "fast_serving, launches_sliding one 1024x2048 frame and launches_sliding_3072x4096 one 3072x4096 frame in "
         "1024x1024 tiles, launches_dense_hybrid one DenseHybrid request, launches_sweep_cli_* each sweep run over "
-        f"the synthetic dataset; lsap's launches count the train phase's {TRAIN_WARMUP + TRAIN_TIMED} steps, its ms, "
+        f"the synthetic dataset, launches_semseg eval_semseg over {SEMSEG_FRAMES} frames, launches_panoptic the "
+        f"panoptic run_val_eval over {PANOPTIC_FRAMES} COCO frames (PQ, mIoU and AP passes), launches_train_eval "
+        "the 4-step run with its two evaluations and launches_eval_only the --eval-only run; fused_rba_score's "
+        "*_coco at Q=100, K=117, 200x272; lsap's launches count the train phase's "
+        f"{TRAIN_WARMUP + TRAIN_TIMED} steps, its ms, "
         "plain_ms and bound are per launch on one step's real costs, scipy_ms scipy's host time on them with the "
         f"copy; {time.perf_counter() - T_START:.1f} s in all)")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,15 +1,13 @@
 """Configuration of the PyTorch port: the fields the Swin-B RbA scoring path reads.
 
-A copy, not an import, of the matching dataclasses in ``rba_tpu/config.py``
-(``SwinConfig``, ``PixelDecoderConfig``, ``DecoderConfig``, ``InputConfig`` without
-the LSJ geometry, the test-time augmentation fields and ``eval_period`` of
-``TestConfig``, ``OODConfig``, ``LossConfig``, ``SolverConfig`` and the model and
-dataset parts of ``RbAConfig``) and of its presets.
-Field names and defaults are the same, so a config of one package can be
-rebuilt field by field in the other.  Options the port does not run yet keep
-their field and are refused by ``check_supported``.  ``load_d2_config`` reads a
-Detectron2 ``config.yaml`` (with its ``_BASE_`` chain) into these fields, with the
-values ``rba_tpu.config.load_d2_config`` gives them.
+A copy, not an import, of the dataclasses of ``rba_tpu/config.py`` and of its
+presets.  Field names and defaults are the same, so a config of one package can be
+rebuilt field by field in the other.  Options the port does not run yet keep their
+field and are refused by ``check_supported``.  ``load_d2_config`` reads a Detectron2
+``config.yaml`` (with its ``_BASE_`` chain) into these fields, with the values
+``rba_tpu.config.load_d2_config`` gives them; ``load_config`` also reads the native
+format that ``save_config`` writes (``config_to_dict``: the fields that differ from
+the defaults).
 """
 from __future__ import annotations
 
@@ -31,7 +29,10 @@ class SwinConfig:
     qk_scale: Optional[float] = None
     ape: bool = False
     patch_norm: bool = True
+    drop_path_rate: float = 0.3  # read, and not applied: rba_tpu's train step runs no stochastic depth
+    pretrain_img_size: int = 384
     out_features: Tuple[str, ...] = ("res2", "res3", "res4", "res5")
+    use_checkpoint: bool = False  # rematerialisation in rba_tpu; the port keeps its activations
     attn_layout: str = "partition"
     mlp_impl: str = "xla"
 
@@ -79,12 +80,25 @@ class DecoderConfig:
     nheads: int = 8
     dim_feedforward: int = 2048
     dec_layers: int = 1
+    dec_layers_total: int = 6  # MASK_FORMER.DEC_LAYERS as written (the v1 decoder's)
+    enc_layers: int = 0
     pre_norm: bool = False
     mask_dim: int = 256
     enforce_input_project: bool = False
     num_feature_levels: int = 1
     ood_prediction: bool = False
     name: str = "MultiScaleMaskedTransformerDecoder"
+    transformer_in_feature: str = "multi_scale_pixel_decoder"
+
+
+@dataclass(frozen=True)
+class ResNetConfig:
+    """Detectron2's ResNet (``MODEL.RESNETS``): read, and refused by ``check_supported``."""
+    depth: int = 50
+    stem_out_channels: int = 64
+    stride_in_1x1: bool = False
+    out_features: Tuple[str, ...] = ("res2", "res3", "res4", "res5")
+    norm: str = "SyncBN"
 
 
 @dataclass(frozen=True)
@@ -92,6 +106,9 @@ class InputConfig:
     pixel_mean: Tuple[float, float, float] = (123.675, 116.28, 103.53)
     pixel_std: Tuple[float, float, float] = (58.395, 57.12, 57.375)
     size_divisibility: int = 32
+    min_size_test: int = 1024
+    max_size_test: int = 2048
+    image_format: str = "RGB"
     # the training mapper's fields (Detectron2's INPUT.*)
     min_size_train: Tuple[int, ...] = tuple(int(x * 0.1 * 1024) for x in range(5, 21))
     max_size_train: int = 4096
@@ -105,13 +122,25 @@ class InputConfig:
     repeat_instance_masks: int = 1
     coco_root: str = "coco/"  # INPUT.COCO_ROOT, relative to the datasets directory
     coco_proxy_size: int = 300
+    # the COCO large-scale-jitter geometry (INPUT.IMAGE_SIZE / MIN_SCALE / MAX_SCALE)
+    image_size: int = 1024
+    min_scale: float = 0.1
+    max_scale: float = 2.0
 
 
 @dataclass(frozen=True)
 class TestConfig:
-    """Test-time augmentation (Detectron2's ``TEST.AUG``): the shortest edge resized to
-    each of ``aug_min_sizes`` (the longest capped at ``aug_max_size``), each also
-    flipped horizontally when ``aug_flip``."""
+    """What an evaluation computes (``MODEL.MASK_FORMER.TEST``: the semantic, panoptic and
+    instance outputs and the panoptic thresholds), and test-time augmentation
+    (Detectron2's ``TEST.AUG``): the shortest edge resized to each of ``aug_min_sizes``
+    (the longest capped at ``aug_max_size``), each also flipped horizontally when
+    ``aug_flip``."""
+    semantic_on: bool = True
+    panoptic_on: bool = False
+    instance_on: bool = False
+    sem_seg_postprocessing_before_inference: bool = False
+    object_mask_threshold: float = 0.8
+    overlap_threshold: float = 0.8
     aug_enabled: bool = False
     aug_flip: bool = True
     aug_min_sizes: Tuple[int, ...] = (512, 768, 1024, 1280, 1536, 1792)
@@ -190,10 +219,11 @@ class RbAConfig:
     backbone_name: str = "swin"
     sem_seg_head_name: str = "MaskFormerHead"
     swin: SwinConfig = field(default_factory=SwinConfig)
+    resnet: ResNetConfig = field(default_factory=ResNetConfig)
     pixel_decoder: PixelDecoderConfig = field(default_factory=PixelDecoderConfig)
     decoder: DecoderConfig = field(default_factory=DecoderConfig)
-    input: InputConfig = field(default_factory=InputConfig)
     test: TestConfig = field(default_factory=TestConfig)
+    input: InputConfig = field(default_factory=InputConfig)
     ood: OODConfig = field(default_factory=OODConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     solver: SolverConfig = field(default_factory=SolverConfig)
@@ -387,7 +417,18 @@ def load_d2_config(path: str, **overrides) -> RbAConfig:
         qk_scale=swin_raw.get("QK_SCALE", None),
         ape=swin_raw.get("APE", False),
         patch_norm=swin_raw.get("PATCH_NORM", True),
+        drop_path_rate=swin_raw.get("DROP_PATH_RATE", 0.3),
+        pretrain_img_size=swin_raw.get("PRETRAIN_IMG_SIZE", 384),
         out_features=tuple(swin_raw.get("OUT_FEATURES", ("res2", "res3", "res4", "res5"))),
+        use_checkpoint=swin_raw.get("USE_CHECKPOINT", False),
+    )
+    resnet_raw = model.get("RESNETS", {})
+    resnet = ResNetConfig(
+        depth=resnet_raw.get("DEPTH", 50),
+        stem_out_channels=resnet_raw.get("STEM_OUT_CHANNELS", 64),
+        stride_in_1x1=resnet_raw.get("STRIDE_IN_1X1", False),
+        out_features=tuple(resnet_raw.get("OUT_FEATURES", ("res2", "res3", "res4", "res5"))),
+        norm=resnet_raw.get("NORM", "SyncBN"),
     )
     pixel_decoder = PixelDecoderConfig(
         conv_dim=head.get("CONVS_DIM", 256),
@@ -408,12 +449,15 @@ def load_d2_config(path: str, **overrides) -> RbAConfig:
         dim_feedforward=mf.get("DIM_FEEDFORWARD", 2048),
         # the reference's from_config subtracts 1 from DEC_LAYERS
         dec_layers=max(_int(mf.get("DEC_LAYERS", 2), 2) - 1, 1),
+        dec_layers_total=_int(mf.get("DEC_LAYERS", 6), 6),
+        enc_layers=_int(mf.get("ENC_LAYERS", 0), 0),
         pre_norm=mf.get("PRE_NORM", False),
         mask_dim=head.get("MASK_DIM", 256),
         enforce_input_project=mf.get("ENFORCE_INPUT_PROJ", False),
         num_feature_levels=len(head.get("DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES", ("res5",))),
         ood_prediction=mf.get("DENSE_HYBRID_LOSS", False),
         name=mf.get("TRANSFORMER_DECODER_NAME", "MultiScaleMaskedTransformerDecoder"),
+        transformer_in_feature=mf.get("TRANSFORMER_IN_FEATURE", "res5"),
     )
     inp = raw.get("INPUT", {})
     crop = inp.get("CROP", {})
@@ -422,6 +466,9 @@ def load_d2_config(path: str, **overrides) -> RbAConfig:
         pixel_mean=tuple(model.get("PIXEL_MEAN", (123.675, 116.28, 103.53))),
         pixel_std=tuple(model.get("PIXEL_STD", (58.395, 57.12, 57.375))),
         size_divisibility=mf.get("SIZE_DIVISIBILITY", 32),
+        min_size_test=inp.get("MIN_SIZE_TEST", 1024),
+        max_size_test=inp.get("MAX_SIZE_TEST", 2048),
+        image_format=inp.get("FORMAT", "RGB"),
         min_size_train=_seq(mst),
         max_size_train=inp.get("MAX_SIZE_TRAIN", 4096),
         crop_enabled=crop.get("ENABLED", True),
@@ -434,9 +481,19 @@ def load_d2_config(path: str, **overrides) -> RbAConfig:
         repeat_instance_masks=inp.get("REPEAT_INSTANCE_MASKS", 1),
         coco_root=inp.get("COCO_ROOT", "coco/"),
         coco_proxy_size=inp.get("COCO_PROXY_SIZE", 300),
+        image_size=inp.get("IMAGE_SIZE", 1024),
+        min_scale=inp.get("MIN_SCALE", 0.1),
+        max_scale=inp.get("MAX_SCALE", 2.0),
     )
     test = raw.get("TEST", {})
+    tst = mf.get("TEST", {})
     test_cfg = TestConfig(
+        semantic_on=tst.get("SEMANTIC_ON", True),
+        panoptic_on=tst.get("PANOPTIC_ON", False),
+        instance_on=tst.get("INSTANCE_ON", False),
+        sem_seg_postprocessing_before_inference=tst.get("SEM_SEG_POSTPROCESSING_BEFORE_INFERENCE", False),
+        object_mask_threshold=tst.get("OBJECT_MASK_THRESHOLD", 0.8),
+        overlap_threshold=tst.get("OVERLAP_THRESHOLD", 0.8),
         aug_enabled=_get(test, "AUG.ENABLED", False),
         aug_flip=_get(test, "AUG.FLIP", True),
         aug_min_sizes=tuple(_get(test, "AUG.MIN_SIZES", (512, 768, 1024, 1280, 1536, 1792))),
@@ -507,6 +564,7 @@ def load_d2_config(path: str, **overrides) -> RbAConfig:
         backbone_name=backbone,
         sem_seg_head_name=head.get("NAME", "MaskFormerHead"),
         swin=swin,
+        resnet=resnet,
         pixel_decoder=pixel_decoder,
         decoder=decoder,
         input=input_cfg,
@@ -522,6 +580,63 @@ def load_d2_config(path: str, **overrides) -> RbAConfig:
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
+
+
+def config_to_dict(cfg: RbAConfig) -> Dict[str, Any]:
+    """The native format: a nested dict of the fields that differ from ``RbAConfig()``,
+    tuples as lists."""
+
+    def diff(obj, ref):
+        out = {}
+        for f in dataclasses.fields(obj):
+            v, r = getattr(obj, f.name), getattr(ref, f.name)
+            if dataclasses.is_dataclass(v):
+                sub = diff(v, r)
+                if sub:
+                    out[f.name] = sub
+            elif v != r:
+                out[f.name] = list(v) if isinstance(v, tuple) else v
+        return out
+
+    return diff(cfg, RbAConfig())
+
+
+def config_from_dict(d: Dict[str, Any]) -> RbAConfig:
+    """The inverse of ``config_to_dict``: missing keys keep their defaults."""
+
+    def build(cls, sub: Dict[str, Any]):
+        kwargs = {}
+        fields = {f.name: f for f in dataclasses.fields(cls)}
+        for k, v in sub.items():
+            f = fields[k]
+            if isinstance(v, dict):
+                base = f.default_factory() if f.default_factory is not dataclasses.MISSING else f.default
+                kwargs[k] = build(type(base), v)
+            else:
+                kwargs[k] = tuple(v) if isinstance(v, list) else v
+        return cls(**kwargs)
+
+    return build(RbAConfig, d)
+
+
+def save_config(path: str, cfg: RbAConfig) -> None:
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(config_to_dict(cfg), f, sort_keys=True)
+
+
+def load_config(path: str, **overrides) -> RbAConfig:
+    """A native YAML (``save_config``'s format) or a Detectron2 one, which has a ``MODEL``
+    section or a ``_BASE_`` chain."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.load(f, Loader=_d2_yaml_loader()) or {}
+    if "MODEL" in raw or "_BASE_" in raw:
+        return load_d2_config(path, **overrides)
+    cfg = config_from_dict(raw)
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
 def fast_serving(cfg: RbAConfig) -> RbAConfig:

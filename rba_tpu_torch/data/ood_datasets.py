@@ -5,7 +5,9 @@ as its ``support.get_datasets`` builds them: RoadAnomaly (label 2 → 1),
 Fishyscapes LAF and Static v1/v2, the SegmentMeIfYouCan tracks (AnomalyTrack
 resized to 720×1280; ObstacleTrack with webp images), LostAndFound (labels
 1 → 0, 2 → 1), Cityscapes val (trainIds) and BDD100K, plus the procedural
-``SyntheticAnomaly`` and ``SyntheticStructured``.
+``SyntheticAnomaly`` and ``SyntheticStructured``; and the COCO-format panoptic ground
+truth of the closed-set evaluation (``PanopticDataset``) with its instance and semantic
+views (``InstanceFromPanoptic``, ``SemSegFromPanoptic``).
 
 Label convention everywhere: 0 = inlier, 1 = anomaly, 255 = ignore.  The readers
 return numpy (uint8 RGB image, int32 label); batching and uploads are the
@@ -447,3 +449,112 @@ def get_datasets(datasets_folder: str) -> dict:
         if len(ds) > 0:  # os.walk-based readers yield empty sets when absent
             out[name] = ds
     return out
+
+
+# ---------------------------------------------------------------------------
+# Panoptic ground truth and its instance and semantic views
+# ---------------------------------------------------------------------------
+
+def rgb2id(color: np.ndarray) -> np.ndarray:
+    """COCO panoptic encoding of an (H, W, 3) RGB id map: id = R + 256·G + 256²·B."""
+    color = color.astype(np.int64)
+    return color[:, :, 0] + 256 * color[:, :, 1] + 256 * 256 * color[:, :, 2]
+
+
+class PanopticDataset:
+    """COCO-format panoptic ground truth: a JSON of annotations plus RGB id-map PNGs.
+    Yields (image, pan_id_map, segments_info) tuples.  ``category_map`` converts each
+    segment's raw dataset category id to its contiguous training id (and marks
+    ``isthing`` from ``thing_dataset_ids``, the raw ids of the thing classes), as the
+    reference does when it registers a panoptic dataset."""
+
+    name = "panoptic"
+
+    def __init__(self, image_root: str, panoptic_root: str, json_path: str,
+                 category_map=None, thing_dataset_ids=None):
+        self.category_map = dict(category_map) if category_map else None
+        self.thing_dataset_ids = set(int(i) for i in thing_dataset_ids) if thing_dataset_ids else set()
+        with open(json_path) as f:
+            meta = json.load(f)
+        images = {im["id"]: im["file_name"] for im in meta.get("images", [])}
+        self.entries = []
+        for ann in meta["annotations"]:
+            img_name = images.get(ann.get("image_id"), ann["file_name"].replace(".png", ".jpg"))
+            self.entries.append((os.path.join(image_root, img_name), os.path.join(panoptic_root, ann["file_name"]),
+                                 ann["segments_info"]))
+
+    def __len__(self):
+        return len(self.entries)
+
+    def __getitem__(self, i):
+        img_path, pan_path, segments = self.entries[i]
+        image = _read_image(img_path)
+        pan = rgb2id(np.asarray(Image.open(pan_path).convert("RGB")))
+        if self.category_map is not None:
+            segments = [{**s, "category_id": self.category_map[int(s["category_id"])],
+                         "isthing": int(s["category_id"]) in self.thing_dataset_ids} for s in segments]
+        return image, pan, segments
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+
+class InstanceFromPanoptic:
+    """Instance view of panoptic ground truth: each non-crowd segment of a thing class
+    (``thing_ids``, contiguous; all classes when None) becomes one binary mask and
+    class.  Yields (image, masks (N, H, W) uint8, classes (N,) int32)."""
+
+    name = "instance_from_panoptic"
+
+    def __init__(self, panoptic: PanopticDataset, thing_ids=None):
+        self.panoptic = panoptic
+        self.thing_ids = set(int(c) for c in thing_ids) if thing_ids is not None else None
+
+    def __len__(self):
+        return len(self.panoptic)
+
+    def __getitem__(self, i):
+        image, pan, segments = self.panoptic[i]
+        masks, classes = [], []
+        for seg in segments:
+            if seg.get("iscrowd", 0):
+                continue
+            cls = int(seg["category_id"])
+            if cls == 255:  # the unknown sentinel is never a class
+                continue
+            if self.thing_ids is not None and cls not in self.thing_ids:
+                continue
+            m = (pan == seg["id"]).astype(np.uint8)
+            if m.any():
+                masks.append(m)
+                classes.append(cls)
+        h, w = pan.shape
+        masks = np.stack(masks) if masks else np.zeros((0, h, w), np.uint8)
+        return image, masks, np.asarray(classes, np.int32)
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+
+class SemSegFromPanoptic(OODDataset):
+    """Semantic view of panoptic ground truth: label[pan == id] = category_id, 255
+    elsewhere (the map the reference prepares offline and scores for mIoU when
+    ``SEMANTIC_ON``)."""
+
+    name = "sem_seg_from_panoptic"
+
+    def __init__(self, panoptic: PanopticDataset):
+        super().__init__()
+        self.panoptic = panoptic
+
+    def __len__(self):
+        return len(self.panoptic)
+
+    def __getitem__(self, i: int) -> Sample:
+        image, pan, segments = self.panoptic[i]
+        label = np.full(pan.shape, 255, np.int32)
+        for seg in segments:
+            label[pan == seg["id"]] = int(seg["category_id"])
+        return Sample(image, label, str(i))

@@ -3,7 +3,8 @@
 Usage:
     python -m rba_tpu_torch.train.train_net --config-file configs/cityscapes/swin_b_1dl_ood_coco.yaml \
         --data-root datasets/cityscapes [--coco-root datasets/coco] [--weights MODEL_DIR] \
-        [--max-iter N] [--batch-size B] [--grad-accum K] [--resume] [--device cpu]
+        [--max-iter N] [--batch-size B] [--grad-accum K] [--resume] [--device cpu] \
+        [--eval-only] [--eval-period N] [--eval-max-images N]
 
 A config-driven loop on one GPU (``--device`` asks for another device, e.g. the CPU): the
 mapper named by ``INPUT.DATASET_MAPPER_NAME`` fed by mapper threads, the train step of
@@ -15,11 +16,22 @@ and ``rba_tpu`` read, and the optimizer, step and generator state).  ``--weights
 from a model directory (its ``params.npz`` or Detectron2 ``model_final.pth``), as
 Detectron2's ``MODEL.WEIGHTS`` does; without it the weights are seeded random.
 
-Not ported yet, and refused, never skipped: evaluation (``--eval-only``, or an in-train
-evaluation that falls due by ``--eval-period`` / ``TEST.EVAL_PERIOD``; ROADMAP.md §A.5),
-mappers other than ``mask_former_semantic`` and ``mask_former_semantic_coco_mix`` and
-datasets other than Cityscapes semantic segmentation (§A.4), per-pixel heads (§A.6), and
-more than one GPU (§A.8).
+Evaluation (``run_val_eval``): every ``--eval-period`` steps (default
+``TEST.EVAL_PERIOD``; 0 disables) the val split of the first ``DATASETS.TEST`` name that
+resolves (Cityscapes val under ``--data-root``, or a name of ``data/catalog.py`` under
+its parent, the datasets directory) is scored, and the result goes to ``metrics.jsonl``
+with its step: mIoU (``SemSegEvaluator``), or for a panoptic split such as
+``coco_2017_val_panoptic_open`` PQ (``OpenPanopticEvaluator``) and, as
+``MODEL.MASK_FORMER.TEST`` asks, mIoU and mask AP.  ``--eval-only`` scores the latest
+checkpoint of ``--output-dir`` (or the ``--weights``), adds a test-time-augmentation pass
+where ``TEST.AUG.ENABLED``, and exits.  An evaluation runs under ``torch.inference_mode``
+in eval mode (on the card Kernel A), and leaves the training stream as it was: the
+parameters, the optimizer, the criterion's generator and the mapper threads' draws.
+
+Not ported yet, and refused, never skipped: mappers other than ``mask_former_semantic``
+and ``mask_former_semantic_coco_mix``, training on datasets other than Cityscapes
+semantic segmentation and readers other than Cityscapes and COCO panoptic (ROADMAP.md
+§A.4), per-pixel heads (§A.6), and more than one GPU (§A.8).
 """
 from __future__ import annotations
 
@@ -58,7 +70,8 @@ def parse_args(argv=None):
                             "mask_former_semantic_street_hazards_coco_mix"])
     p.add_argument("--grad-accum", type=int, default=1,
                    help="micro-batches per update (global batch = batch_size, split into grad_accum parts)")
-    p.add_argument("--eval-only", action="store_true", help="evaluate mIoU on the val split (not ported yet)")
+    p.add_argument("--eval-only", action="store_true",
+                   help="evaluate the val split from the latest checkpoint (or --weights) and exit")
     p.add_argument("--eval-period", type=int, default=None,
                    help="in-train val-eval period in steps (default: TEST.EVAL_PERIOD; 0 disables)")
     p.add_argument("--eval-max-images", type=int, default=None, help="cap val images per in-train eval")
@@ -186,15 +199,128 @@ def prefetching_iterator(ds, mapper, batch_size: int, seed: int, workers: int = 
         stop.set()
 
 
-def _resolve_dataset(name: str, data_root: str):
-    """A DATASETS.TRAIN name → its reader: the Cityscapes semantic names read --data-root."""
-    from ..data.ood_datasets import CityscapesSemSeg
+def _resolve_dataset(name: str, data_root: str, semantic_only: bool = True):
+    """A DATASETS.TRAIN / TEST name → its reader.  The Cityscapes semantic names read
+    --data-root; every other name goes through ``data/catalog.py`` rooted at the parent
+    of --data-root (Detectron2's datasets directory, where coco/ is a sibling of
+    cityscapes/).  With ``semantic_only`` only (image, label) readers are taken, else also
+    panoptic ones.  Raises KeyError, ValueError or OSError where the name or its data is
+    missing, NotImplementedError where its reader is not ported."""
+    from ..data import catalog
+    from ..data.ood_datasets import CityscapesSemSeg, OODDataset, PanopticDataset
 
     if name.startswith("cityscapes_") and ("sem_seg" in name or name.endswith("_mix")):
         split = "train" if name.endswith(("_train", "_mix")) else "val" if name.endswith("_val") else "test"
         return CityscapesSemSeg(data_root, split)
-    raise NotImplementedError(f"dataset {name!r}: only the Cityscapes semantic datasets are ported "
-                              "(the catalog is ROADMAP.md §A.4)")
+    catalog.register_standard_datasets(os.path.dirname(os.path.abspath(data_root)))
+    ds = catalog.get(name)
+    if not isinstance(ds, (OODDataset,) if semantic_only else (OODDataset, PanopticDataset)):
+        raise ValueError(f"dataset {name!r} is not a {'semantic (image, label)' if semantic_only else 'val'} reader")
+    return ds
+
+
+def run_val_eval(cfg, model, data_root: str, max_images=None, tta: bool = False):
+    """Val-split metrics of ``model`` (the reference's ``Trainer.test``; ``tta`` its
+    ``test_with_TTA``).  The dataset is the first ``DATASETS.TEST`` name that resolves,
+    else Cityscapes val under ``data_root``; a panoptic split goes to PQ instead of mIoU.
+    None where there is no val data.  Runs under ``torch.inference_mode`` with the model
+    in eval mode, and puts the model's mode back."""
+    import torch
+
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.inference_mode():
+            return _val_eval(cfg, model, data_root, max_images, tta)
+    finally:
+        model.train(was_training)
+
+
+def _val_eval(cfg, model, data_root: str, max_images, tta: bool):
+    from ..data.ood_datasets import CityscapesSemSeg, PanopticDataset
+    from ..evalx.seg_evaluators import SemSegEvaluator
+
+    ds, ds_name = None, None
+    for name in cfg.datasets_test or ():
+        try:
+            d = _resolve_dataset(name, data_root, semantic_only=False)
+        except (KeyError, ValueError, OSError):
+            continue
+        if len(d) > 0:
+            ds, ds_name = d, name
+            break
+    if ds is None:
+        try:
+            ds = CityscapesSemSeg(data_root, split="val")
+        except FileNotFoundError:
+            return None
+    if len(ds) == 0:
+        return None
+    if isinstance(ds, PanopticDataset):
+        # the reference has no panoptic TTA: PQ is not re-run under an augmented label
+        return None if tta else _run_panoptic_val_eval(cfg, model, ds, ds_name, max_images)
+    ev = SemSegEvaluator(cfg, model)
+    n = len(ds) if not max_images else min(int(max_images), len(ds))
+    for i in range(n):
+        s = ds[i]
+        if tta:
+            from ..models.tta import tta_inference
+
+            ev.add(tta_inference(model, cfg, s.image).argmax(0), s.label)
+        else:
+            ev.process(s.image, s.label)
+    out = ev.evaluate()
+    out.pop("IoU_per_class", None)
+    out["eval_images"] = n
+    return out
+
+
+def _run_panoptic_val_eval(cfg, model, ds, ds_name, max_images=None):
+    """PQ on a panoptic DATASETS.TEST split (the reference routes ``coco_panoptic_seg`` to
+    its open-panoptic evaluator), with mIoU under ``TEST.SEMANTIC_ON`` and mask AP under
+    ``TEST.INSTANCE_ON`` over the same images.  The thing ids are the catalog metadata's
+    contiguous thing ids."""
+    from ..data import catalog
+    from ..data.ood_datasets import InstanceFromPanoptic, SemSegFromPanoptic
+    from ..evalx.seg_evaluators import InstanceEvaluator, OpenPanopticEvaluator, SemSegEvaluator
+
+    thing_ids = None
+    if ds_name is not None:
+        m = catalog.metadata(ds_name).get("thing_dataset_id_to_contiguous_id")
+        if m:  # the open metadata maps the unknown things to 255, which is no class
+            thing_ids = tuple(sorted(v for v in set(m.values()) if v != 255))
+    ev = OpenPanopticEvaluator(cfg, model, thing_ids=thing_ids) if thing_ids is not None \
+        else OpenPanopticEvaluator(cfg, model)
+    n = len(ds) if not max_images else min(int(max_images), len(ds))
+    out = {}
+    # PANOPTIC_ON asks for PQ (the open mapper always does); PQ also where no TEST flag asks
+    # for anything, so that an evaluation never comes back empty
+    if (cfg.test.panoptic_on or "open_panoptic" in cfg.input.dataset_mapper_name
+            or not (cfg.test.semantic_on or cfg.test.instance_on)):
+        for i in range(n):
+            ev.process(*ds[i])
+        for split, stats in ev.evaluate().items():
+            if isinstance(stats, dict):
+                out.update({f"{split}_{k}": float(v) for k, v in stats.items() if isinstance(v, (int, float))})
+            elif isinstance(stats, (int, float)):
+                out[split] = float(stats)
+    if cfg.test.semantic_on:  # mIoU over the labels of the same panoptic ground truth
+        sem_ev = SemSegEvaluator(cfg, model)
+        sv = SemSegFromPanoptic(ds)
+        for i in range(n):
+            s = sv[i]
+            sem_ev.process(s.image, s.label)
+        sem_out = sem_ev.evaluate()
+        sem_out.pop("IoU_per_class", None)
+        out.update(sem_out)
+    if cfg.test.instance_on:  # mask AP over the thing segments of the same split
+        inst_ev = InstanceEvaluator(cfg, model)
+        iv = InstanceFromPanoptic(ds, thing_ids)
+        for i in range(n):
+            inst_ev.process(*iv[i])
+        out.update({f"instance_{k}": float(v) for k, v in inst_ev.evaluate().items() if isinstance(v, (int, float))})
+    out["eval_images"] = n
+    return out
 
 
 def data_iterator(cfg, args, batch_size: int) -> Iterator[dict]:
@@ -203,19 +329,21 @@ def data_iterator(cfg, args, batch_size: int) -> Iterator[dict]:
     if len(names) > 1:
         raise NotImplementedError(f"training on several datasets {list(names)} (ConcatDataset) is not ported "
                                   "yet (ROADMAP.md §A.4)")
+    mapper = build_mapper(cfg, args)  # refuses the mappers that are not ported first
     try:
         ds = _resolve_dataset(names[0], args.data_root)
     except OSError as e:
         raise FileNotFoundError(f"DATASETS.TRAIN {names[0]!r} not found under {args.data_root}: {e}") from e
     if len(ds) == 0:
         raise FileNotFoundError(f"DATASETS.TRAIN {names[0]!r} has no samples under {args.data_root}")
-    mapper = build_mapper(cfg, args)
     return prefetching_iterator(ds, mapper, batch_size, args.seed,
                                 workers=args.workers or cfg.solver.num_workers)
 
 
-def _eval_due(eval_period: int, start: int, max_iter: int) -> bool:
-    return eval_period > 0 and max_iter // eval_period > start // eval_period
+def _log(log_path: str, m: dict) -> None:
+    print(json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in m.items()}), flush=True)
+    with open(log_path, "a") as f:
+        f.write(json.dumps(m) + "\n")
 
 
 def main(argv=None):
@@ -229,8 +357,6 @@ def main(argv=None):
     if args.num_gpus != 1:
         raise NotImplementedError(f"--num-gpus {args.num_gpus}: training on several GPUs is not ported yet "
                                   "(ROADMAP.md §A.8)")
-    if args.eval_only:
-        raise NotImplementedError("--eval-only: the val-split evaluators are not ported yet (ROADMAP.md §A.5)")
     device = resolve_device(args.device, "train_net")
     os.makedirs(args.output_dir, exist_ok=True)
     ckpt_dir = os.path.join(args.output_dir, "checkpoints")
@@ -240,21 +366,31 @@ def main(argv=None):
     model = load_checkpoint_params(args.weights, cfg, device=device) if args.weights else None
     state = make_train_state(cfg, device=device, seed=args.seed, model=model)
     start = 0
-    if args.resume:
+    if args.resume or args.eval_only:
         step0 = latest_step(ckpt_dir)
         if step0 is not None:
             restore_train_state(ckpt_dir, state, step0)
             start = step0
             print(f"resumed from step {step0}")
-    eval_period = cfg.test.eval_period if args.eval_period is None else args.eval_period
-    if _eval_due(eval_period, start, max_iter):
-        raise NotImplementedError(
-            f"an in-train evaluation falls due (every {eval_period} steps, steps {start + 1}..{max_iter}): the "
-            "val-split evaluators are not ported yet (ROADMAP.md §A.5); pass --eval-period 0 to train without")
+        elif args.eval_only and not args.weights:
+            print("WARNING: --eval-only with no checkpoint and no --weights: seeded random weights")
+    log_path = os.path.join(args.output_dir, "metrics.jsonl")
 
+    if args.eval_only:
+        res = run_val_eval(cfg, state.model, args.data_root, args.eval_max_images)
+        if res is None:
+            raise FileNotFoundError(f"no val data for DATASETS.TEST {list(cfg.datasets_test)} under {args.data_root}")
+        if cfg.test.aug_enabled:  # TEST.AUG.ENABLED adds a test-time-augmentation pass
+            res_tta = run_val_eval(cfg, state.model, args.data_root, args.eval_max_images, tta=True)
+            if res_tta is not None:
+                res.update({f"{k}_TTA": v for k, v in res_tta.items() if k != "eval_images"})
+        res["step"] = start
+        _log(log_path, res)
+        return res
+
+    eval_period = cfg.test.eval_period if args.eval_period is None else args.eval_period
     step_fn = make_train_step(cfg, grad_accum=max(1, args.grad_accum))
     it = data_iterator(cfg, args, batch_size)
-    log_path = os.path.join(args.output_dir, "metrics.jsonl")
     t0 = time.time()
     for i in range(start, max_iter):
         batch = next(it)
@@ -265,12 +401,15 @@ def main(argv=None):
             if "outlier_masks" in batch:  # images of this step with a pasted object
                 m["ood_images"] = int((batch["outlier_masks"] == 1).any(axis=(1, 2)).sum())
             t0 = time.time()
-            print(json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in m.items()}), flush=True)
-            with open(log_path, "a") as f:
-                f.write(json.dumps(m) + "\n")
+            _log(log_path, m)
         if (args.checkpoint_period > 0 and (i + 1) % args.checkpoint_period == 0) or (i + 1) == max_iter:
             save_train_state(ckpt_dir, state, i + 1)
             print(f"saved checkpoint at step {i + 1}", flush=True)
+        if eval_period > 0 and (i + 1) % eval_period == 0:
+            res = run_val_eval(cfg, state.model, args.data_root, args.eval_max_images)
+            if res is not None:
+                res["step"] = i + 1
+                _log(log_path, res)
     it.close()  # stops the mapper threads
     return state
 

@@ -77,7 +77,9 @@ def test_tiny_config_and_overrides(tmp_path):
     got = tconfig.load_d2_config(str(path), compute_dtype="float32")
     _assert_fields_equal(got, jconfig.load_d2_config(str(path), compute_dtype="float32"))
     tiny = tconfig.tiny_test_config()
-    assert (got.swin, got.decoder, got.num_classes) == (tiny.swin, tiny.decoder, tiny.num_classes)
+    # the loader also keeps the raw DEC_LAYERS (3) and D2's TRANSFORMER_IN_FEATURE default, as rba_tpu's does
+    decoder = dataclasses.replace(tiny.decoder, dec_layers_total=3, transformer_in_feature="res5")
+    assert (got.swin, got.decoder, got.num_classes) == (tiny.swin, decoder, tiny.num_classes)
 
 
 def test_r50_loads_and_is_refused(tmp_path):

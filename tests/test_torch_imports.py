@@ -32,12 +32,19 @@ TRAINING_MODULES = ("rba_tpu_torch/ops/point_sample.py", "rba_tpu_torch/ops/lsap
                     "rba_tpu_torch/train/train_net.py", "rba_tpu_torch/data/mappers.py")
 
 
+EVALUATION_MODULES = ("rba_tpu_torch/models/inference.py", "rba_tpu_torch/evalx/panoptic.py",
+                      "rba_tpu_torch/evalx/seg_evaluators.py", "rba_tpu_torch/evalx/eval_semseg.py",
+                      "rba_tpu_torch/data/catalog.py", "rba_tpu_torch/data/categories.py",
+                      "rba_tpu_torch/tools/evaluate_pq_semseg.py")
+
+
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert "chip_smoke.py" in names and "rba_tpu_torch/models/maskformer.py" in names
     assert (ROOT / "chip_smoke.py").exists()
     # the training slice's modules are among the files checked below
     assert set(TRAINING_MODULES) <= names
+    assert set(EVALUATION_MODULES) <= names  # and the closed-set evaluation slice's
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -98,3 +105,17 @@ def test_trainer_defaults_to_the_gpu(tmp_path):
     else:
         with pytest.raises(RuntimeError, match="GPU"):
             make_train_state(tiny_test_config())
+
+
+def test_trainer_evaluation_defaults_to_the_gpu(tmp_path):
+    """``--eval-only`` runs on the card unless asked for the CPU: without one it raises
+    before it reads any data."""
+    from rba_tpu_torch.train import train_net
+    from tests.test_torch_train_cli import _config
+
+    args = ["--config-file", str(_config(tmp_path / "config.yaml")), "--data-root", str(tmp_path),
+            "--output-dir", str(tmp_path / "out"), "--eval-only"]
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is taken")
+    with pytest.raises(RuntimeError, match="GPU"):
+        train_net.main(args)

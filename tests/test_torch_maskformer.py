@@ -32,7 +32,7 @@ def tiny():
 def test_config_presets_agree():
     for name in ("swin_b_1dl", "swin_l_1dl", "tiny_test_config"):
         j, p = getattr(jconfig, name)(), getattr(tconfig, name)()
-        sections = ("swin", "pixel_decoder", "decoder", "input", "test", "ood", "loss", "solver")
+        sections = ("swin", "resnet", "pixel_decoder", "decoder", "input", "test", "ood", "loss", "solver")
         for sect in sections:
             tj, tp = getattr(j, sect), getattr(p, sect)
             for f in dataclasses.fields(tp):

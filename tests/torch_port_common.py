@@ -1,6 +1,8 @@
 """Helpers shared by the tests of the PyTorch port (tests/test_torch_*.py)."""
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -160,3 +162,25 @@ def criterion_draws(rng, loss_cfg, b: int, t: int, n_layers: int, matcher: bool 
         if p - n_unc > 0:
             draws.append(jax.random.uniform(k2, (b * t, p - n_unc, 2)))
     return draws
+
+
+@contextlib.contextmanager
+def catalogs_restored():
+    """Both packages' dataset catalogs as they were, afterwards: a test that registers the
+    standard names under its tmp_path must not leave them pointing there."""
+    from rba_tpu.data import catalog as jcatalog
+    from rba_tpu_torch.data import catalog as tcatalog
+
+    saved = [(c, dict(c._REGISTRY), dict(c._METADATA), set(c._STANDARD_OWNED), c._STANDARD_ROOT)
+             for c in (jcatalog, tcatalog)]
+    try:
+        yield
+    finally:
+        for c, registry, meta, owned, root in saved:
+            c._REGISTRY.clear()
+            c._REGISTRY.update(registry)
+            c._METADATA.clear()
+            c._METADATA.update(meta)
+            c._STANDARD_OWNED.clear()
+            c._STANDARD_OWNED.update(owned)
+            c._STANDARD_ROOT = root
