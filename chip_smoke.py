@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: build its CUDA kernels, hold each
 against its plain PyTorch version at the serving paths' shapes, serve Swin-B RbA
-requests at 1024x2048 through both serving paths and check the score maps.
+requests at 1024x2048 through both serving paths and check the score maps, then the
+other phases below, the non-Swin backbones last.
 
 - Path 1: ``maskformer_infer_rba(..., attention="fused")`` on ``swin_b_1dl()``:
   Kernel A (window attention) in every Swin block, Kernel B (RbA score) once.
@@ -52,6 +53,16 @@ requests at 1024x2048 through both serving paths and check the score maps.
 - ``train_eval``: the trainer on the train phase's trees and checkpoint for 4 steps with
   ``--eval-period 2 --eval-max-images 2``, then ``--eval-only`` from its checkpoint: the
   evaluations in ``metrics.jsonl`` and through Kernel A.
+- ``backbones``: six shipped configs with other backbones, from their YAMLs at full width
+  and depth (R50, R101 1dl, MiT-B5 1dl, MViT in21k 1dl, ViT, WiderResNet-38 1dl), each
+  served through ``maskformer_infer_rba`` at its precision and at ``fast_serving``:
+  Kernel B once per request where the mask features are at stride 4 (R50, R101, MiT,
+  MViT), never on ViT (stride 16) and WiderResNet-38 (stride 8); at fp32 the entry equals
+  its plain version and ``maskformer_infer(...)["rba"]``; parameters, ms/image, busy
+  time, idle share, busy per layer span and peak memory of each.
+- ``r50_d2``: a D2-format R50 ``config.yaml`` and a seeded full-width ``model_final.pth``
+  loaded with ``load_checkpoint_params`` (bit-equal to the CPU conversion), one request,
+  and the sweep CLI over that model directory.
 
 Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
@@ -2043,6 +2054,206 @@ def train_eval_phase():
     return dict(evaluations=evals, eval_s=eval_s, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# The non-Swin backbones: six shipped configs at full width and depth, served through
+# maskformer_infer_rba; the R50 Detectron2 checkpoint and the sweep through the normal
+# entry points
+# ---------------------------------------------------------------------------
+
+SEMSEG_CONFIGS = Path("configs/cityscapes/semantic-segmentation")
+BACKBONE_CONFIGS = {  # one config of each family
+    "R50": "maskformer2_R50_bs16_90k.yaml",
+    "R101_1dl": "maskformer2_R101_bs16_90k_1dl.yaml",
+    "mit_b5_1dl": "mix_transformer/maskformer_2_mit_b5_in21k_1dl.yaml",
+    "mvit_in21k_1dl": "mvit/maskformer_2_mvit_in21k_bs16_90k_1dl.yaml",
+    "vit": "vit/maskformer_2_vit_imagenet_bs16_90k.yaml",
+    "wrn38_1dl": "wideresnet/maskformer_2_wideresnet38_imagenet_bs16_90k_1dl.yaml",
+}
+# the Detectron2 YAML of the R50 model, as the release's config.yaml names its keys
+R50_D2_YAML = """MODEL:
+  BACKBONE: {NAME: build_resnet_backbone}
+  RESNETS: {DEPTH: 50, STRIDE_IN_1X1: false, OUT_FEATURES: [res2, res3, res4, res5]}
+  SEM_SEG_HEAD: {NAME: MaskFormerHead, NUM_CLASSES: 19,
+                 DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES: [res3, res4, res5]}
+  MASK_FORMER: {DEC_LAYERS: 10}
+"""
+
+
+def backbones_phase(images):
+    """Each config of ``BACKBONE_CONFIGS`` from its YAML at full width and depth, seeded
+    weights, ``N_REQUESTS`` 1024x2048 requests through ``maskformer_infer_rba`` at the
+    config's precision and at ``fast_serving`` (median ms/image), peak memory, one
+    profiled request (busy, idle share, busy per layer span) and the launches of every
+    kernel.  Gates: finite (1, 1024, 2048) maps; Kernel B once per request where the mask
+    features are at stride 4 and never elsewhere, no other kernel; at fp32 the entry
+    equals its plain version and ``maskformer_infer(...)["rba"]`` within 1e-3."""
+    from rba_tpu_torch.config import fast_serving, load_config
+    from rba_tpu_torch.models.maskformer import build_model, maskformer_infer, maskformer_infer_rba
+
+    out = {}
+    for name, rel in BACKBONE_CONFIGS.items():
+        t_cfg = time.perf_counter()
+        cfg = load_config(str(SEMSEG_CONFIGS / rel))
+        model = build_model(cfg, seed=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        stride = model.mask_stride(cfg)
+        per_image = {"fused_rba_score": 1} if stride == 4 else {}
+        row = dict(config=str(SEMSEG_CONFIGS / rel), backbone=cfg.backbone_name, parameters=n_params,
+                   mask_stride=stride, compute_dtype=cfg.compute_dtype)
+        for label, c in (("parity", cfg), ("fast", fast_serving(cfg))):
+            maskformer_infer_rba(model, c, images[0])  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counts = _zero_counts()
+            maps, times = [], []
+            for i in range(1, N_REQUESTS + 1):
+                rba, ms = _timed(maskformer_infer_rba, model, c, images[i])
+                maps.append(rba)
+                times.append(ms)
+            launches = counts()
+            bad = [tuple(r.shape) for r in maps if tuple(r.shape) != (1, *IMAGE_HW) or not bool(torch.isfinite(r).all())]
+            want = {k: per_image.get(k, 0) * N_REQUESTS for k in launches}
+            if bad or launches != want:
+                raise RuntimeError(f"backbones {name} {label}: maps {bad} not finite (1, 1024, 2048), launches "
+                                   f"{launches}, expected {want}")
+            row[label] = dict(ms_per_image=statistics.median(times), ms_all=times, launches=launches,
+                              peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        redesigned = {"fused_rba_mma_kernel": "fused_rba_kernel"} if per_image else {}
+        row["profile"] = profile_phase(f"backbones {name}", cfg, model, images[1], "fused", redesigned, top=6)
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        counts = _zero_counts()
+        r32 = maskformer_infer_rba(model, cfg32, images[1])
+        fused32 = counts()["fused_rba_score"]
+        plain32 = maskformer_infer_rba(model, cfg32, images[1], plain=True)
+        infer32 = maskformer_infer(model, cfg32, images[1])["rba"]
+        row["fp32"] = dict(vs_plain=max_abs(r32, plain32), vs_maskformer_infer=max_abs(r32, infer32),
+                           kernel_b_launches=fused32, bound=E2E_FP32_TOL)
+        if not (row["fp32"]["vs_plain"] <= E2E_FP32_TOL and row["fp32"]["vs_maskformer_infer"] <= E2E_FP32_TOL
+                and fused32 == per_image.get("fused_rba_score", 0)):
+            raise RuntimeError(f"backbones {name}: fp32 {row['fp32']}")
+        row["s"] = time.perf_counter() - t_cfg
+        prof = row["profile"]
+        log(f"backbones {name} ({cfg.backbone_name}, {n_params / 1e6:.2f} M parameters, mask stride {stride}): "
+            f"ms/image {row['parity']['ms_per_image']:.2f} at {cfg.compute_dtype} "
+            f"(all {[round(t, 2) for t in row['parity']['ms_all']]}), {row['fast']['ms_per_image']:.2f} at "
+            f"fast_serving; peak {row['parity']['peak_gib']:.2f} / {row['fast']['peak_gib']:.2f} GiB; busy "
+            f"{prof['busy_ms']} ms, idle share {prof['idle_share']}; Kernel B launches {row['parity']['launches']}"
+            f"; fp32 vs plain {row['fp32']['vs_plain']:.3e}, vs maskformer_infer "
+            f"{row['fp32']['vs_maskformer_infer']:.3e} (bound {E2E_FP32_TOL:.0e}); {row['s']:.1f} s")
+        out[name] = row
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _resnet_d2_name(name: str) -> str:
+    """The Detectron2 name of a port ResNet parameter: ``stem.norm1.mean`` →
+    ``stem.conv1.norm.running_mean``, ``res3.0.norm2.weight`` → ``res3.0.conv2.norm.weight``,
+    ``res3.0.shortcut_norm.var`` → ``res3.0.shortcut.norm.running_var``."""
+    import re
+
+    name = re.sub(r"^stem\.norm1\.", "stem.conv1.norm.", name)
+    name = re.sub(r"\.norm(\d)\.", r".conv\1.norm.", name)
+    name = name.replace(".shortcut_norm.", ".shortcut.norm.")
+    return re.sub(r"\.mean$", ".running_mean", re.sub(r"\.var$", ".running_var", name))
+
+
+def r50_d2_state_dict(cfg, seed: int = 0) -> dict:
+    """A seeded Detectron2 state dict of the R50 model: the backbone under the released
+    ResNet names (convs ~ N(0, 1/fan_in), batch-norm scales ~ 1, running variances above
+    1), and ``tests/d2_synthetic.py``'s heads at the ResNet's widths."""
+    import types
+
+    from rba_tpu_torch.models.resnet import ResNet
+    from tests.d2_synthetic import d2_state_dict
+
+    with torch.device("meta"):
+        backbone = ResNet(cfg.resnet)
+    swin = types.SimpleNamespace(embed_dim=8, patch_size=4, window_size=1, num_layers=0, out_features=(),
+                                 out_channels=backbone.out_channels, depths=(), num_heads=(), mlp_ratio=4.0)
+    sd = {k: v for k, v in d2_state_dict(types.SimpleNamespace(swin=swin, pixel_decoder=cfg.pixel_decoder,
+                                                               decoder=cfg.decoder, num_classes=cfg.num_classes),
+                                         seed).items() if not k.startswith("backbone.")}
+    rng = np.random.default_rng(seed + 1)
+    for name, p in backbone.named_parameters():
+        shape, leaf = tuple(p.shape), name.rpartition(".")[2]
+        if len(shape) == 4:
+            w = rng.standard_normal(shape, dtype=np.float32) / np.float32(math.sqrt(np.prod(shape[1:])))
+        elif leaf in ("weight", "var"):
+            w = 1 + np.abs(0.1 * rng.standard_normal(shape, dtype=np.float32))
+        else:
+            w = 0.1 * rng.standard_normal(shape, dtype=np.float32)
+        sd["backbone." + _resnet_d2_name(name)] = w
+    return sd
+
+
+def r50_d2_phase(image):
+    """R50 through the normal entry points: a D2-format ``config.yaml`` and a seeded
+    full-width ``model_final.pth`` under ``build/``, loaded onto the card with
+    ``load_checkpoint_params`` (every parameter bit-equal to the CPU conversion of the same
+    dict; the config equal to the native YAML's), one request from it (Kernel B once), and
+    ``python -m rba_tpu_torch.evalx.sweep``'s ``main`` over that model directory on its 4
+    synthetic images (finite metrics, the ``params.npz`` cache)."""
+    from rba_tpu_torch.config import load_config, load_d2_config
+    from rba_tpu_torch.convert import jax_params_to_state, load_checkpoint_params
+    from rba_tpu_torch.convert.d2_mapping import convert_d2_state_dict
+    from rba_tpu_torch.evalx import sweep
+    from rba_tpu_torch.models.maskformer import maskformer_infer_rba
+
+    zoo = SCRATCH / "zoo_r50"
+    model_dir = zoo / "r50"
+    shutil.rmtree(zoo, ignore_errors=True)
+    model_dir.mkdir(parents=True)
+    (model_dir / "config.yaml").write_text(R50_D2_YAML)
+    cfg = load_d2_config(str(model_dir / "config.yaml"))
+    native = load_config(str(SEMSEG_CONFIGS / BACKBONE_CONFIGS["R50"]))
+    fields = ("backbone_name", "resnet", "pixel_decoder", "num_classes", "compute_dtype")
+    if any(getattr(cfg, f) != getattr(native, f) for f in fields) or \
+            dataclasses.replace(cfg.decoder, transformer_in_feature="") != \
+            dataclasses.replace(native.decoder, transformer_in_feature=""):
+        raise RuntimeError(f"r50_d2: the D2 YAML does not load as {BACKBONE_CONFIGS['R50']}: {cfg}")
+    t0 = time.perf_counter()
+    sd = r50_d2_state_dict(cfg)
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}, "iteration": 89999},
+               model_dir / "model_final.pth")
+    write_s = time.perf_counter() - t0
+    want = {k: torch.from_numpy(v) for k, v in jax_params_to_state(convert_d2_state_dict(sd, cfg)).items()}
+    t0 = time.perf_counter()
+    model = load_checkpoint_params(str(model_dir), cfg)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    params = dict(model.named_parameters())
+    wrong = [n for n, p in params.items() if not (p.is_cuda and torch.equal(p.detach().cpu(), want[n]))]
+    if wrong or sorted(params) != sorted(want) or not (model_dir / "params.npz").exists():
+        raise RuntimeError(f"r50_d2: parameters differ from the CPU conversion: {wrong[:5]}")
+    maskformer_infer_rba(model, cfg, image)
+    counts = _zero_counts()
+    rba, ms = _timed(maskformer_infer_rba, model, cfg, image)
+    launches = counts()
+    if launches["fused_rba_score"] != 1 or not bool(torch.isfinite(rba).all()) or tuple(rba.shape) != (1, *IMAGE_HW):
+        raise RuntimeError(f"r50_d2: request launches {launches}, shape {tuple(rba.shape)}")
+    del model
+    (model_dir / "params.npz").unlink()  # the sweep converts model_final.pth itself
+    res_dir = SCRATCH / "sweep_out_r50"
+    shutil.rmtree(res_dir, ignore_errors=True)
+    counts = _zero_counts()
+    _, sweep_ms = _timed(sweep.main, ["--models_folder", str(zoo), "--datasets_folder", str(SCRATCH / "no_datasets"),
+                                      "--dataset_mode", "synthetic", "--out_path", str(res_dir)])
+    sweep_launches = counts()
+    metrics = json.loads((res_dir / "r50" / "results.json").read_text())["synthetic"]
+    cached = (model_dir / "params.npz").exists()
+    log(f"r50_d2: model_final.pth of {len(sd)} arrays ({sum(v.numel() for v in want.values()) / 1e6:.2f} M "
+        f"parameters) written in {write_s:.2f} s; load_checkpoint_params onto the card {load_s:.2f} s, every "
+        f"parameter equal to the CPU conversion; one request {ms:.2f} ms, launches {launches}; sweep "
+        f"{sweep_ms / 1e3:.2f} s, results {metrics}, launches {sweep_launches}, params.npz cached {cached}")
+    if sorted(metrics) != ["aupr", "auroc", "fpr95"] or not all(math.isfinite(v) for v in metrics.values()) \
+            or not cached or sweep_launches["fused_rba_score"] < 1:
+        raise RuntimeError(f"r50_d2 sweep: results {metrics}, cached {cached}, launches {sweep_launches}")
+    return dict(parameters=len(want), write_s=write_s, load_convert_s=load_s, request_ms=ms, launches=launches,
+                sweep_s=sweep_ms / 1e3, sweep_metrics=metrics, sweep_launches=sweep_launches)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, help="directory for chip_smoke.json, the run's measurements")
@@ -2153,6 +2364,12 @@ def main() -> int:
         train_eval = train_eval_phase()
         log(f"train_eval phase: {time.perf_counter() - t0:.1f} s")
     wa_seen |= wa_seen_eval | wa_seen_train_eval
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    backbones = backbones_phase(images)
+    r50_d2 = r50_d2_phase(images[1])
+    log(f"backbones and r50_d2 phases: {time.perf_counter() - t0:.1f} s")
     unchecked = sorted(wa_seen - wa_checked)
     log(f"Kernel A in these phases: {len(wa_seen)} distinct launch shapes (windows, heads, head dim, masked), "
         f"each held against its plain version at bf16 and fp32 in the kernel phase: {not unchecked} "
@@ -2165,7 +2382,9 @@ def main() -> int:
         ("sweep_cli_plain", sweep_cli["plain"]["launches"]), ("sweep_cli_tta", sweep_cli["tta"]["launches"]),
         ("sweep_cli_sliding", sweep_cli["sliding"]["launches"]), ("semseg", semseg["launches"]),
         ("panoptic", panoptic["launches"]), ("train_eval", train_eval["launches"]["train"]),
-        ("eval_only", train_eval["launches"]["eval_only"]))}
+        ("eval_only", train_eval["launches"]["eval_only"]),
+        *((f"backbones_{k}", v["parity"]["launches"]) for k, v in backbones.items()),
+        ("r50_d2_sweep", r50_d2["sweep_launches"]))}
 
     kernels = [
         dict(name="window_attention", route="cuda", source="rba_tpu_torch/csrc/window_attention.cu",
@@ -2211,7 +2430,8 @@ def main() -> int:
                  masked_softmax=ms_rows, fused_mlp=mlp_rows, serve=serve, paths_fp32_max_diff=cross32,
                  paths_bf16_max_diff_not_gated=cross16, profile=prof, fast=fast, xla=xla, eval=evaluation, d2=d2,
                  tta=tta, sliding=sliding, dense_hybrid=dense_hybrid, sweep_cli=sweep_cli, lsap=lsap_rows,
-                 train=train, semseg=semseg, panoptic=panoptic, train_eval=train_eval,
+                 train=train, semseg=semseg, panoptic=panoptic, train_eval=train_eval, backbones=backbones,
+                 r50_d2=r50_d2,
                  elapsed_s=time.perf_counter() - T_START, kernels=kernels), indent=1))
     log("(window_attention, masked_softmax and fused_mlp_residual times are per image: each call of one "
         "1024x2048 request, summed; ms is the mean of the first batch of 20 calls, ms_batches the means of "
@@ -2222,7 +2442,9 @@ def main() -> int:
         "1024x1024 tiles, launches_dense_hybrid one DenseHybrid request, launches_sweep_cli_* each sweep run over "
         f"the synthetic dataset, launches_semseg eval_semseg over {SEMSEG_FRAMES} frames, launches_panoptic the "
         f"panoptic run_val_eval over {PANOPTIC_FRAMES} COCO frames (PQ, mIoU and AP passes), launches_train_eval "
-        "the 4-step run with its two evaluations and launches_eval_only the --eval-only run; fused_rba_score's "
+        "the 4-step run with its two evaluations and launches_eval_only the --eval-only run, launches_backbones_* "
+        f"the {N_REQUESTS} requests of each non-Swin config at its precision, launches_r50_d2_sweep the sweep over "
+        "the R50 checkpoint; fused_rba_score's "
         "*_coco at Q=100, K=117, 200x272; lsap's launches count the train phase's "
         f"{TRAIN_WARMUP + TRAIN_TIMED} steps, its ms, "
         "plain_ms and bound are per launch on one step's real costs, scipy_ms scipy's host time on them with the "

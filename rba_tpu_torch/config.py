@@ -1,4 +1,4 @@
-"""Configuration of the PyTorch port: the fields the Swin-B RbA scoring path reads.
+"""Configuration of the PyTorch port: the fields its models, evaluations and trainer read.
 
 A copy, not an import, of the dataclasses of ``rba_tpu/config.py`` and of its
 presets.  Field names and defaults are the same, so a config of one package can be
@@ -93,12 +93,22 @@ class DecoderConfig:
 
 @dataclass(frozen=True)
 class ResNetConfig:
-    """Detectron2's ResNet (``MODEL.RESNETS``): read, and refused by ``check_supported``."""
+    """Detectron2's ResNet (``MODEL.RESNETS``).  Every depth is built of bottlenecks, as
+    the JAX package builds it; its batch norms run as frozen ones whatever ``norm`` says."""
     depth: int = 50
     stem_out_channels: int = 64
     stride_in_1x1: bool = False
     out_features: Tuple[str, ...] = ("res2", "res3", "res4", "res5")
     norm: str = "SyncBN"
+
+    @property
+    def stage_blocks(self) -> Tuple[int, ...]:
+        return {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
+                101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}[self.depth]
+
+    @property
+    def out_channels(self) -> Dict[str, int]:
+        return {f"res{i + 2}": 256 * 2**i for i in range(4)}
 
 
 @dataclass(frozen=True)
@@ -243,17 +253,21 @@ class RbAConfig:
         return 255
 
 
+# the backbone families the port runs (models/backbones.py)
+BACKBONES = ("swin", "resnet", "mix_transformer", "mit_b0", "mit_b1", "mit_b2", "mit_b3", "mit_b4", "mit_b5",
+             "vit", "vit_sfp", "mvit", "wideresnet38")
+
+
 def check_supported(cfg: RbAConfig) -> None:
     """Raise ``NotImplementedError`` for an option that no slice of the port runs yet."""
     later = {
-        "backbones other than Swin": cfg.backbone_name != "swin",
+        f"backbone {cfg.backbone_name!r}": cfg.backbone_name not in BACKBONES,
         "per-pixel baseline heads": cfg.sem_seg_head_name != "MaskFormerHead",
         "pixel decoders other than MSDeformAttn": cfg.pixel_decoder.name != "MSDeformAttnPixelDecoder",
         "decoders other than the masked-attention one": cfg.decoder.name != "MultiScaleMaskedTransformerDecoder",
         "pre-norm decoder layers": cfg.decoder.pre_norm,
         "Swin attention layouts other than partition": cfg.swin.attn_layout != "partition",
         f"Swin mlp_impl={cfg.swin.mlp_impl!r}": cfg.swin.mlp_impl not in ("xla", "fused"),
-        "Swin absolute position embedding": cfg.swin.ape,
         "weight_quant": cfg.weight_quant != "none",
         "param_dtype other than float32": cfg.param_dtype != "float32",
         "GroupNorm-free pixel decoders": cfg.pixel_decoder.norm != "GN",

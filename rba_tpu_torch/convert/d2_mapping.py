@@ -1,5 +1,6 @@
 """Detectron2 checkpoint → parameter-pytree conversion (a copy of ``rba_tpu/convert/d2_mapping.py``
-for the families the port runs).
+for the families the port runs: every backbone, the MSDeformAttn pixel decoder and the
+masked-attention decoder).
 
 Takes a released ``model_final.pth`` state dict (numpy arrays under Detectron2's
 names) to the JAX package's pytree, leaf for leaf the tree ``rba_tpu`` produces;
@@ -14,8 +15,8 @@ names) to the JAX package's pytree, leaf for leaf the tree ``rba_tpu`` produces;
   * ``relative_position_index`` and other buffers are dropped: the model
     regenerates them
 
-Families the port has no model for (backbones other than Swin, the FPN pixel
-decoders, the standard and per-pixel heads) raise ``NotImplementedError``.
+Families the port has no model for (the FPN pixel decoders, the standard and per-pixel
+heads) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import numpy as np
 
 from ..config import RbAConfig
 
-_LATER = "is not ported yet (ROADMAP.md §A.6, other heads and backbones)"
+_LATER = "is not ported yet (ROADMAP.md §A.6, other heads)"
 
 
 def _t(w):  # linear transpose
@@ -121,6 +122,240 @@ def convert_swin_backbone(sd: Dict[str, np.ndarray], cfg: RbAConfig) -> Dict:
     for i in range(scfg.num_layers):
         if f"backbone.norm{i}.weight" in sd:
             p[f"norm{i}"] = _ln(sd, f"backbone.norm{i}")
+    return p
+
+
+def _bn(sd, prefix):
+    return {
+        "scale": np.asarray(sd[prefix + ".weight"]),
+        "bias": np.asarray(sd[prefix + ".bias"]),
+        "mean": np.asarray(sd[prefix + ".running_mean"]),
+        "var": np.asarray(sd[prefix + ".running_var"]),
+    }
+
+
+def convert_vit_backbone(sd: Dict[str, np.ndarray], prefix: str = "backbone") -> Dict:
+    """ViTDet ``{prefix}.*`` keys (reference backbone/vit.py D2ViT) →
+    vit param tree (rba_tpu/models/vit.py vit_init layout)."""
+    p: Dict = {"patch_embed": {"proj": _conv2d(sd, f"{prefix}.patch_embed.proj")}}
+    if f"{prefix}.pos_embed" in sd:
+        p["pos_embed"] = np.asarray(sd[f"{prefix}.pos_embed"])  # (1, tokens, C)
+    blocks: List[Dict] = []
+    i = 0
+    while f"{prefix}.blocks.{i}.norm1.weight" in sd:
+        pre = f"{prefix}.blocks.{i}"
+        blk: Dict = {
+            "norm1": _ln(sd, pre + ".norm1"),
+            "attn": {
+                "qkv": _linear(sd, pre + ".attn.qkv"),
+                "proj": _linear(sd, pre + ".attn.proj"),
+            },
+            "norm2": _ln(sd, pre + ".norm2"),
+            "mlp": {
+                "fc1": _linear(sd, pre + ".mlp.fc1"),
+                "fc2": _linear(sd, pre + ".mlp.fc2"),
+            },
+        }
+        if pre + ".attn.rel_pos_h" in sd:
+            blk["attn"]["rel_pos_h"] = np.asarray(sd[pre + ".attn.rel_pos_h"])
+            blk["attn"]["rel_pos_w"] = np.asarray(sd[pre + ".attn.rel_pos_w"])
+        if pre + ".residual.conv1.weight" in sd:
+            blk["residual"] = {
+                "conv1": _conv2d(sd, pre + ".residual.conv1"),
+                "norm1": _ln(sd, pre + ".residual.norm1"),
+                "conv2": _conv2d(sd, pre + ".residual.conv2"),
+                "norm2": _ln(sd, pre + ".residual.norm2"),
+                "conv3": _conv2d(sd, pre + ".residual.conv3"),
+                "norm3": _ln(sd, pre + ".residual.norm3"),
+            }
+        blocks.append(blk)
+        i += 1
+    p["blocks"] = blocks
+    return p
+
+
+def _convt(sd, prefix):
+    """ConvTranspose2d IOHW → our HWIO conv-transpose kernel."""
+    p = {"kernel": np.ascontiguousarray(np.asarray(sd[prefix + ".weight"]).transpose(2, 3, 0, 1))}
+    if prefix + ".bias" in sd:
+        p["bias"] = np.asarray(sd[prefix + ".bias"])
+    return p
+
+
+def convert_sfp(sd: Dict[str, np.ndarray],
+                scale_factors=(4.0, 2.0, 1.0, 0.5)) -> Dict:
+    """SimpleFeaturePyramid ``backbone.simfp_{2..5}.*`` keys (reference
+    vit.py:478-525: Sequential indices — scale 4: convT@0, LN@1, GELU@2,
+    convT@3, lateral@4, output@5; scale 2: convT@0, lateral@1, output@2;
+    scale 1: lateral@0, output@1; scale 0.5: maxpool@0, lateral@1, output@2)."""
+    stages = []
+    for scale in scale_factors:
+        stage_id = {4.0: 2, 2.0: 3, 1.0: 4, 0.5: 5}[scale]
+        pre = f"backbone.simfp_{stage_id}"
+        stage: Dict = {"scale": scale}
+        if scale == 4.0:
+            stage["up1"] = _convt(sd, f"{pre}.0")
+            stage["up1_norm"] = _ln(sd, f"{pre}.1")
+            stage["up2"] = _convt(sd, f"{pre}.3")
+            lat, out = 4, 5
+        elif scale == 2.0:
+            stage["up1"] = _convt(sd, f"{pre}.0")
+            lat, out = 1, 2
+        elif scale == 1.0:
+            lat, out = 0, 1
+        else:  # 0.5 — maxpool at index 0
+            lat, out = 1, 2
+        stage["lateral"] = {
+            "conv": _conv2d(sd, f"{pre}.{lat}"),
+            "norm": _ln(sd, f"{pre}.{lat}.norm"),
+        }
+        stage["output"] = {
+            "conv": _conv2d(sd, f"{pre}.{out}"),
+            "norm": _ln(sd, f"{pre}.{out}.norm"),
+        }
+        stages.append(stage)
+    return {"stages": stages}
+
+
+def convert_mvit_backbone(sd: Dict[str, np.ndarray], cfg: RbAConfig) -> Dict:
+    """MViTv2 ``backbone.*`` keys (reference backbone/mvit.py D2MViT) →
+    mvit param tree (rba_tpu/models/mvit.py mvit_init layout)."""
+    p: Dict = {"patch_embed": {"proj": _conv2d(sd, "backbone.patch_embed.proj")}}
+    if "backbone.pos_embed" in sd:
+        p["pos_embed"] = np.asarray(sd["backbone.pos_embed"])
+    blocks: List[Dict] = []
+    i = 0
+    while f"backbone.blocks.{i}.norm1.weight" in sd:
+        pre = f"backbone.blocks.{i}"
+        blk: Dict = {
+            "norm1": _ln(sd, pre + ".norm1"),
+            "attn": {
+                "qkv": _linear(sd, pre + ".attn.qkv"),
+                "proj": _linear(sd, pre + ".attn.proj"),
+                "pool_q": {"kernel": _conv(sd[pre + ".attn.pool_q.weight"])},
+                "norm_q": _ln(sd, pre + ".attn.norm_q"),
+                "pool_k": {"kernel": _conv(sd[pre + ".attn.pool_k.weight"])},
+                "norm_k": _ln(sd, pre + ".attn.norm_k"),
+                "pool_v": {"kernel": _conv(sd[pre + ".attn.pool_v.weight"])},
+                "norm_v": _ln(sd, pre + ".attn.norm_v"),
+            },
+            "norm2": _ln(sd, pre + ".norm2"),
+            "mlp": {
+                "fc1": _linear(sd, pre + ".mlp.fc1"),
+                "fc2": _linear(sd, pre + ".mlp.fc2"),
+            },
+        }
+        if pre + ".attn.rel_pos_h" in sd:
+            blk["attn"]["rel_pos_h"] = np.asarray(sd[pre + ".attn.rel_pos_h"])
+            blk["attn"]["rel_pos_w"] = np.asarray(sd[pre + ".attn.rel_pos_w"])
+        if pre + ".proj.weight" in sd:  # dim-change projection on the block
+            blk["proj"] = _linear(sd, pre + ".proj")
+        blocks.append(blk)
+        i += 1
+    p["blocks"] = blocks
+    for k in (2, 3, 4, 5):
+        if f"backbone.scale{k}_norm.weight" in sd:
+            p[f"scale{k}_norm"] = _ln(sd, f"backbone.scale{k}_norm")
+    return p
+
+
+def convert_mit_backbone(sd: Dict[str, np.ndarray]) -> Dict:
+    """MixVisionTransformer ``backbone.*`` keys (reference
+    backbone/mix_transformer.py mit_b0..b5) → mit param tree
+    (rba_tpu/models/mix_transformer.py mit_init layout: stages[s])."""
+    stages: List[Dict] = []
+    for s in range(1, 5):
+        stage: Dict = {
+            "patch_embed": {
+                "proj": _conv2d(sd, f"backbone.patch_embed{s}.proj"),
+                "norm": _ln(sd, f"backbone.patch_embed{s}.norm"),
+            },
+            "blocks": [],
+            "norm": _ln(sd, f"backbone.norm{s}"),
+        }
+        b = 0
+        while f"backbone.block{s}.{b}.norm1.weight" in sd:
+            pre = f"backbone.block{s}.{b}"
+            blk: Dict = {
+                "norm1": _ln(sd, pre + ".norm1"),
+                "attn": {
+                    "q": _linear(sd, pre + ".attn.q"),
+                    "kv": _linear(sd, pre + ".attn.kv"),
+                    "proj": _linear(sd, pre + ".attn.proj"),
+                },
+                "norm2": _ln(sd, pre + ".norm2"),
+                "mlp": {
+                    "fc1": _linear(sd, pre + ".mlp.fc1"),
+                    "dwconv": _conv2d(sd, pre + ".mlp.dwconv.dwconv"),
+                    "fc2": _linear(sd, pre + ".mlp.fc2"),
+                },
+            }
+            if pre + ".attn.sr.weight" in sd:
+                blk["attn"]["sr"] = _conv2d(sd, pre + ".attn.sr")
+                blk["attn"]["sr_norm"] = _ln(sd, pre + ".attn.norm")
+            stage["blocks"].append(blk)
+            b += 1
+        stages.append(stage)
+    return {"stages": stages}
+
+
+def convert_wideresnet_backbone(sd: Dict[str, np.ndarray]) -> Dict:
+    """WiderResNetA2 ``backbone.*`` keys (reference backbone/wideresnet38.py:
+    mod1.conv1, mod{2..7}.block{k}.bn1/convs.conv*/convs.bn*/proj_conv,
+    bn_out) → wideresnet param tree."""
+    p: Dict = {"mod1": {"kernel": _conv(sd["backbone.mod1.conv1.weight"])}}
+    for mod in range(2, 8):
+        blocks: List[Dict] = []
+        b = 1
+        while f"backbone.mod{mod}.block{b}.bn1.weight" in sd:
+            pre = f"backbone.mod{mod}.block{b}"
+            blk: Dict = {
+                "bn1": _bn(sd, pre + ".bn1"),
+                "conv1": {"kernel": _conv(sd[pre + ".convs.conv1.weight"])},
+                "bn2": _bn(sd, pre + ".convs.bn2"),
+                "conv2": {"kernel": _conv(sd[pre + ".convs.conv2.weight"])},
+            }
+            if pre + ".convs.bn3.weight" in sd:  # bottleneck block
+                blk["bn3"] = _bn(sd, pre + ".convs.bn3")
+                blk["conv3"] = {"kernel": _conv(sd[pre + ".convs.conv3.weight"])}
+            if pre + ".proj_conv.weight" in sd:
+                blk["proj_conv"] = {"kernel": _conv(sd[pre + ".proj_conv.weight"])}
+            blocks.append(blk)
+            b += 1
+        p[f"mod{mod}"] = blocks
+    p["bn_out"] = _bn(sd, "backbone.bn_out")
+    return p
+
+
+def convert_resnet_backbone(sd: Dict[str, np.ndarray], cfg: RbAConfig) -> Dict:
+    """D2 ResNet ``backbone.*`` keys (stem.conv1(.norm), res{2..5}.{b}.conv{1..3}
+    (.norm), res*.0.shortcut(.norm)) → resnet param tree.  The D2 layout is
+    what DetectionCheckpointer loads; torchvision .pth files are first mapped
+    by the JAX package's ``tools/convert_checkpoint.py torchvision``."""
+    p: Dict = {
+        "stem": {
+            "conv1": {"kernel": _conv(sd["backbone.stem.conv1.weight"])},
+            "norm1": _bn(sd, "backbone.stem.conv1.norm"),
+        }
+    }
+    for stage, n_blocks in enumerate(cfg.resnet.stage_blocks):
+        name = f"res{stage + 2}"
+        blocks: List[Dict] = []
+        for b in range(n_blocks):
+            pre = f"backbone.{name}.{b}"
+            blk: Dict = {
+                "conv1": {"kernel": _conv(sd[pre + ".conv1.weight"])},
+                "norm1": _bn(sd, pre + ".conv1.norm"),
+                "conv2": {"kernel": _conv(sd[pre + ".conv2.weight"])},
+                "norm2": _bn(sd, pre + ".conv2.norm"),
+                "conv3": {"kernel": _conv(sd[pre + ".conv3.weight"])},
+                "norm3": _bn(sd, pre + ".conv3.norm"),
+            }
+            if pre + ".shortcut.weight" in sd:
+                blk["shortcut"] = {"kernel": _conv(sd[pre + ".shortcut.weight"])}
+                blk["shortcut_norm"] = _bn(sd, pre + ".shortcut.norm")
+            blocks.append(blk)
+        p[name] = blocks
     return p
 
 
@@ -245,15 +480,29 @@ def convert_predictor(sd: Dict[str, np.ndarray], cfg: RbAConfig) -> Dict:
 
 
 def convert_backbone(sd: Dict[str, np.ndarray], cfg: RbAConfig) -> Dict:
-    """The backbone's tree; Swin is the one backbone the port runs."""
-    if cfg.backbone_name == "swin":
+    """The backbone's tree, by ``cfg.backbone_name``."""
+    name = cfg.backbone_name
+    if name == "swin":
         return convert_swin_backbone(sd, cfg)
-    raise NotImplementedError(f"the converter for backbone {cfg.backbone_name!r} {_LATER}")
+    if name == "vit":
+        return convert_vit_backbone(sd)
+    if name == "vit_sfp":  # the pyramid wraps the net: the ViT's keys are under backbone.net
+        return {"vit": convert_vit_backbone(sd, prefix="backbone.net"), "sfp": convert_sfp(sd)}
+    if name == "mvit":
+        return convert_mvit_backbone(sd, cfg)
+    if name == "mix_transformer" or name.startswith("mit_"):
+        return convert_mit_backbone(sd)
+    if name == "resnet":
+        return convert_resnet_backbone(sd, cfg)
+    if name == "wideresnet38":
+        return convert_wideresnet_backbone(sd)
+    raise NotImplementedError(f"the converter for backbone {name!r}")
 
 
 def convert_d2_state_dict(sd: Dict[str, np.ndarray], cfg: RbAConfig) -> Dict:
-    """Full D2 state dict → parameter pytree of a Swin / MSDeformAttn / masked-decoder
-    model (``MaskFormerHead``), with the historical renames applied first."""
+    """Full D2 state dict → parameter pytree of a model with an MSDeformAttn pixel decoder
+    and the masked-attention decoder (``MaskFormerHead``), with the historical renames
+    applied first."""
     later = [name for name, hit in (
         (f"pixel decoder {cfg.pixel_decoder.name!r}", cfg.pixel_decoder.name != "MSDeformAttnPixelDecoder"),
         (f"head {cfg.sem_seg_head_name!r}", cfg.sem_seg_head_name != "MaskFormerHead"),

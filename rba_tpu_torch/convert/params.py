@@ -3,9 +3,12 @@
 The port's parameter names are the pytree paths, so the mapping is mechanical:
 a leaf ``kernel`` becomes ``weight`` (a linear's (in, out) transposed to
 (out, in); an HWIO conv kernel to OIHW), a norm's ``scale`` becomes
-``weight``, ``bias`` stays, and any other leaf (bias tables, embeddings, a batch
-norm's ``mean`` and ``var``) keeps its name.  Leaves may be numpy arrays or anything
-``np.asarray`` takes.
+``weight``, ``bias`` stays, and any other leaf (bias and position tables,
+embeddings, a batch norm's ``mean`` and ``var``) keeps its name.  Leaves may be numpy
+arrays or anything ``np.asarray`` takes.  A number of rank 0 in the tree (the
+SimpleFeaturePyramid's scale of each stage) is configuration, not a parameter: the
+model holds it, and ``model_to_jax_params`` puts it back (a module's
+``jax_constants()``).
 
 ``params.npz`` is the JAX package's flat file: one array per leaf, keyed by the
 leaf's path joined with ``|`` (dict keys, list indices).  ``save_params`` writes it
@@ -39,6 +42,8 @@ def jax_params_to_state(params: Any) -> Dict[str, np.ndarray]:
     state = {}
     for parts, leaf in _leaves(params):
         arr = np.asarray(leaf)
+        if arr.ndim == 0:
+            continue
         path = ".".join(parts)
         head, _, leaf_name = path.rpartition(".")
         name = f"{head}.{_LEAF_NAMES[leaf_name]}" if head and leaf_name in _LEAF_NAMES else path
@@ -92,6 +97,10 @@ def model_to_jax_params(model: nn.Module):
         elif name.endswith(".weight") and arr.ndim == 4:
             arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
         flat[jax_path(name, arr.ndim).replace("/", _SEP)] = np.ascontiguousarray(arr)
+    for name, mod in model.named_modules():
+        if hasattr(mod, "jax_constants"):
+            for parts, value in _leaves(mod.jax_constants(), tuple(name.split(".")) if name else ()):
+                flat[_SEP.join(parts)] = value
     return _unflatten(flat)
 
 

@@ -1,9 +1,15 @@
 """MaskFormer with the RbA score (counterpart of ``rba_tpu/models/maskformer.py``).
 
-The serving path: ``preprocess`` → Swin → MSDeformAttn pixel decoder (fp32, or bf16
-inputs under ``fast_serving``) → masked-attention decoder (fp32) → RbA tail.  ``maskformer_infer_rba`` hands the
-decoder's ``bhwq`` masks to the fused RbA kernel, as the JAX package's TPU
-branch does.  Its ``attention`` argument picks Swin's window-attention branch:
+The serving path: ``preprocess`` → backbone (``models/backbones.py``: Swin, ResNet,
+MiT, ViT, MViT or WiderResNet-38) → MSDeformAttn pixel decoder (fp32, or bf16 inputs
+under ``fast_serving``) → masked-attention decoder (fp32) → RbA tail.
+``maskformer_infer_rba`` hands the decoder's ``bhwq`` masks to the fused RbA kernel, as
+the JAX package's TPU branch does, where the mask features are at stride 4 of the
+padded input, the kernel's ×4 upsample.  A model whose mask features lie at another
+stride (ViT at 16, WiderResNet-38 at 8) takes ``maskformer_infer(...)["rba"]``, which
+resizes the masks to the padded input as the reference does; ``rba_tpu``'s fused tail
+returns a map of the wrong size there (ROADMAP.md §C).  The ``attention`` argument
+picks Swin's window-attention branch (the other backbones run no kernel):
 ``"fused"`` (Kernel A, path 1), ``"fused_softmax"`` (Kernel C, path 2, which
 with ``SwinConfig.mlp_impl="fused"`` also runs Kernel D) or ``"xla"`` (``rba_tpu``'s
 default chain in plain PyTorch); see ``models/swin.py``.
@@ -31,8 +37,9 @@ from torch.profiler import record_function
 from ..config import RbAConfig, check_supported
 from ..kernels.fused_rba import fused_rba_score, fused_rba_score_reference
 from ..ops.resize import resize_bilinear
+from .backbones import backbone_apply, build_backbone
 from .pixel_decoder import MSDeformAttn, PixelDecoder, pixel_decoder_apply
-from .swin import Swin, swin_apply
+from .swin import swin_apply
 from .transformer_decoder import MaskedDecoder, decoder_apply
 
 # record_function spans of one request, in the order they run
@@ -46,11 +53,15 @@ class RbAModel(nn.Module):
     def __init__(self, cfg: RbAConfig):
         super().__init__()
         check_supported(cfg)
-        self.backbone = Swin(cfg.swin)
+        self.backbone = build_backbone(cfg)
         self.sem_seg_head = nn.ModuleDict({
-            "pixel_decoder": PixelDecoder(cfg.pixel_decoder, cfg.swin.out_channels),
+            "pixel_decoder": PixelDecoder(cfg.pixel_decoder, self.backbone.out_channels),
             "predictor": MaskedDecoder(cfg.decoder, cfg.num_classes, cfg.pixel_decoder.conv_dim),
         })
+
+    def mask_stride(self, cfg: RbAConfig) -> int:
+        """The stride of the mask features: that of the pixel decoder's finest input."""
+        return self.backbone.out_strides[cfg.pixel_decoder.in_features[0]]
 
 
 def _trunc_normal(shape, gen, device, std=0.02):
@@ -65,9 +76,10 @@ def _trunc_normal(shape, gen, device, std=0.02):
 @torch.no_grad()
 def init_params(model: RbAModel, seed: int) -> None:
     """Seeded random init after the JAX package's scheme: truncated normal (0.02) for
-    the backbone's linears and bias tables, Xavier-uniform for other linears, He-normal
-    convs, unit norms, normal embeddings, and the directional sampling-offset bias with
-    zero offset and attention-weight projections."""
+    the backbone's linears, bias and position tables, Xavier-uniform for other linears,
+    He-normal convs, unit norms, normal embeddings, and the directional sampling-offset
+    bias with zero offset and attention-weight projections.  Batch norms keep unit
+    scale and variance, zero bias and mean."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     for mname, mod in model.named_modules():
@@ -94,7 +106,7 @@ def init_params(model: RbAModel, seed: int) -> None:
             mod.sampling_offsets.bias.copy_(torch.as_tensor(mod.offset_bias_grid(), device=device))
             mod.attention_weights.weight.zero_()
     for name, p in model.named_parameters():
-        if name.endswith("relative_position_bias_table"):
+        if name.endswith(("relative_position_bias_table", "pos_embed", "rel_pos_h", "rel_pos_w")):
             p.copy_(_trunc_normal(p.shape, gen, device))
         elif name.endswith(("level_embed", "query_feat", "query_embed")):
             p.copy_(torch.randn(p.shape, generator=gen, device=device))
@@ -149,13 +161,16 @@ def maskformer_forward(
     plain: bool = False,
     attention: str = "fused",
 ) -> Dict:
-    """pred_logits (B, Q, K+1) and pred_masks at stride 4, (B, Q, H/4, W/4) or
-    (B, H/4, W/4, Q), with ``aux_outputs`` under ``need_aux``.  ``attention``: Swin's
-    window-attention branch (``swin_apply``)."""
+    """pred_logits (B, Q, K+1) and pred_masks at the mask features' stride s (4 but for
+    ViT and WiderResNet-38), (B, Q, H/s, W/s) or (B, H/s, W/s, Q), with ``aux_outputs``
+    under ``need_aux``.  ``attention``: Swin's window-attention branch (``swin_apply``)."""
     check_supported(cfg)
     with record_function("backbone"):
-        features = swin_apply(model.backbone, cfg.swin, images, _dtype(cfg.compute_dtype), plain=plain,
-                              attention=attention, fast_math=cfg.fast_math)
+        if cfg.backbone_name == "swin":
+            features = swin_apply(model.backbone, cfg.swin, images, _dtype(cfg.compute_dtype), plain=plain,
+                                  attention=attention, fast_math=cfg.fast_math)
+        else:
+            features = backbone_apply(model.backbone, cfg, images, _dtype(cfg.compute_dtype))
     head = model.sem_seg_head
     with record_function("pixel_decoder"):
         mask_features, _, ms_feats = pixel_decoder_apply(head["pixel_decoder"], cfg.pixel_decoder, features,
@@ -204,8 +219,12 @@ def maskformer_infer_rba(
     """RbA score map: the full-resolution tail (x4 upsample → sigmoid → class
     contraction → -Σ tanh) runs as the fused RbA kernel on the decoder's bhwq masks,
     and the padding is cropped off.  Equal to ``maskformer_infer(...)["rba"]`` when the
-    output size is the input size.  ``attention``: ``"fused"`` (Kernel A),
-    ``"fused_softmax"`` (Kernel C) or ``"xla"``, Swin's window-attention branch."""
+    output size is the input size.  A model whose mask features are not at stride 4
+    returns ``maskformer_infer(...)["rba"]`` itself, without the kernel.  ``attention``:
+    ``"fused"`` (Kernel A), ``"fused_softmax"`` (Kernel C) or ``"xla"``, Swin's
+    window-attention branch."""
+    if model.mask_stride(cfg) != 4:
+        return maskformer_infer(model, cfg, images, attention=attention, plain=plain)["rba"]
     images = _on_model(model, images)
     h_img, w_img = images.shape[1], images.shape[2]
     with record_function("preprocess"):
@@ -235,13 +254,15 @@ def maskformer_infer(
     images = _on_model(model, images)
     h_img, w_img = images.shape[1], images.shape[2]
     out_hw = out_hw or (h_img, w_img)
-    x = preprocess(cfg, images)
+    with record_function("preprocess"):
+        x = preprocess(cfg, images)
     hp, wp = x.shape[1], x.shape[2]
     out = maskformer_forward(model, cfg, x, attention=attention, plain=plain)
-    mask_pred = resize_bilinear(out["pred_masks"], (hp, wp), align_corners=False)
-    sem = semantic_inference(out["pred_logits"], mask_pred, include_void=include_void)
-    sem = resize_bilinear(sem[:, :, :h_img, :w_img], out_hw, align_corners=False)
-    result = {"sem_seg": sem, "rba": rba_score(sem)}
+    with record_function("rba_tail"):
+        mask_pred = resize_bilinear(out["pred_masks"], (hp, wp), align_corners=False)
+        sem = semantic_inference(out["pred_logits"], mask_pred, include_void=include_void)
+        sem = resize_bilinear(sem[:, :, :h_img, :w_img], out_hw, align_corners=False)
+        result = {"sem_seg": sem, "rba": rba_score(sem)}
     if "ood_pred" in out:
         result["ood_pred"] = resize_bilinear(out["ood_pred"], (h_img, w_img), align_corners=True)
     return result

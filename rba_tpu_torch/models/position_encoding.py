@@ -2,8 +2,10 @@
 
 With an all-valid mask the cumulative sums of the reference reduce to row and
 column index + 1, so the embedding is a closed form, computed in numpy once per
-shape.  Layout (H, W, C): channels [pos_y | pos_x], each half interleaved as
-(sin, cos) pairs per frequency.
+shape and copied to a device once per shape, dtype and device (a stride-8 level of a
+1024×2048 frame is 33.5 MB of fp32 that would otherwise cross from pageable host memory
+on every request).  Layout (H, W, C): channels [pos_y | pos_x], each half interleaved as
+(sin, cos) pairs per frequency.  Callers must not write into the returned tensor.
 """
 from __future__ import annotations
 
@@ -33,8 +35,14 @@ def _sine_pos_embed_np(h: int, w: int, num_pos_feats: int, temperature: float = 
     return np.concatenate([pos_y, pos_x], axis=2)
 
 
+@functools.lru_cache(maxsize=16)
+def _sine_pos_embed_on(h: int, w: int, channels: int, dtype, device) -> torch.Tensor:
+    with torch.inference_mode(False):  # the cached tensor also serves calls that track gradients
+        return torch.as_tensor(_sine_pos_embed_np(h, w, channels // 2), dtype=dtype, device=device)
+
+
 def sine_pos_embed(h: int, w: int, channels: int, dtype=torch.float32, device=None) -> torch.Tensor:
     """(H, W, channels) sine embedding; ``channels`` must be even."""
     if channels % 2:
         raise ValueError(f"channels must be even, got {channels}")
-    return torch.as_tensor(_sine_pos_embed_np(h, w, channels // 2), dtype=dtype, device=device)
+    return _sine_pos_embed_on(h, w, channels, dtype, torch.device(device) if device is not None else None)

@@ -41,6 +41,7 @@ from ..kernels.fused_mlp import beneficial, fused_mlp_residual, fused_mlp_residu
 from ..kernels.masked_softmax import masked_softmax, masked_softmax_reference
 from ..kernels.window_attention import window_attention, window_attention_reference
 from ..ops.nn import apply_linear, apply_norm
+from ..ops.resize import resize_bicubic_nhwc
 
 ATTENTION = ("fused", "fused_softmax", "xla")  # the window-attention branches
 
@@ -106,14 +107,20 @@ class SwinLayer(nn.Module):
 
 
 class Swin(nn.Module):
-    """Parameters of the Swin backbone; ``swin_apply`` runs it."""
+    """Parameters of the Swin backbone; ``swin_apply`` runs it.  With ``ape`` it holds the
+    (1, n, n, C) absolute position table of the pretraining size."""
 
     def __init__(self, cfg: SwinConfig):
         super().__init__()
+        self.out_channels = cfg.out_channels
+        self.out_strides = {f"res{i + 2}": cfg.patch_size * 2**i for i in range(cfg.num_layers)}
         embed = nn.ModuleDict({"proj": nn.Conv2d(3, cfg.embed_dim, cfg.patch_size, cfg.patch_size)})
         if cfg.patch_norm:
             embed["norm"] = nn.LayerNorm(cfg.embed_dim)
         self.patch_embed = embed
+        if cfg.ape:
+            n = cfg.pretrain_img_size // cfg.patch_size
+            self.absolute_pos_embed = nn.Parameter(torch.zeros(1, n, n, cfg.embed_dim))
         self.layers = nn.ModuleList(SwinLayer(cfg, i) for i in range(cfg.num_layers))
         for i in range(cfg.num_layers):
             if f"res{i + 2}" in cfg.out_features:
@@ -317,6 +324,8 @@ def swin_apply(
     x = x + proj.bias.to(compute_dtype)  # rounded after the product, as rba_tpu does
     if "norm" in model.patch_embed:
         x = apply_norm(model.patch_embed["norm"], x)
+    if cfg.ape:  # resized bicubic in fp32, added in the compute dtype
+        x = x + resize_bicubic_nhwc(model.absolute_pos_embed, (x.shape[1], x.shape[2])).to(compute_dtype)
 
     outs: Dict[str, torch.Tensor] = {}
     for i, layer in enumerate(model.layers):

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import DecoderConfig
-from ..ops.nn import apply_conv, apply_linear, apply_norm, mlp_apply
+from ..ops.nn import apply_conv, apply_linear, apply_norm, frozen_batch_norm, mlp_apply
 from ..ops.resize import resize_bilinear, resize_bilinear_nhwc
 from .position_encoding import sine_pos_embed
 
@@ -151,10 +151,7 @@ def _aux_heads(
 def ood_pred_apply(head: nn.ModuleDict, mask_features: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) mask features → (B, 2, H, W) DenseHybrid logits: BN (eps 1e-5) → ReLU →
     1x1 conv, in fp32."""
-    bn = head["bn"]
-    x = (mask_features.float() - bn.mean) * torch.rsqrt(bn.var + 1e-5)
-    x = x * bn.weight + bn.bias
-    return apply_conv(head["conv"], F.relu(x)).permute(0, 3, 1, 2)
+    return apply_conv(head["conv"], frozen_batch_norm(mask_features.float(), head["bn"], relu=True)).permute(0, 3, 1, 2)
 
 
 def decoder_apply(

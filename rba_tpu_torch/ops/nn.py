@@ -8,7 +8,7 @@ rounded twice, as there.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -62,23 +62,75 @@ def apply_group_norm(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
     return group_norm(x, norm.weight, norm.bias, norm.num_groups, norm.eps)
 
 
-def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Stride-1 SAME conv of (N, H, W, C) with an OIHW weight of odd size, the only
-    convs of the pixel decoder and the decoder.  A 1x1 conv is a channel matmul."""
+def _same_pads(size: int, k: int, stride: int, dilation: int) -> Tuple[int, int]:
+    """XLA's SAME padding of one axis: the odd pixel goes after."""
+    total = max((-(-size // stride) - 1) * stride + (k - 1) * dilation + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    stride: int = 1,
+    padding: Union[str, int] = "SAME",
+    groups: int = 1,
+    dilation: int = 1,
+    dot_1x1: bool = True,
+) -> torch.Tensor:
+    """Conv of (N, H, W, C) with an OIHW weight, as ``jax.lax.conv_general_dilated``
+    computes it: ``padding`` "SAME" (odd kernels; XLA's split of a strided one), "VALID"
+    or pixels on each side.  With
+    ``dot_1x1`` a 1x1 stride-1 conv without padding or groups is a channel matmul, as the
+    JAX package's ``conv2d`` takes it."""
     o, i, kh, kw = weight.shape
-    if kh % 2 == 0 or kw % 2 == 0:
-        raise ValueError(f"SAME padding is ported for odd kernels, got {kh}x{kw}")
-    if kh == 1 and kw == 1:
+    h, w = x.shape[1], x.shape[2]
+    if padding == "SAME":
+        if kh % 2 == 0 or kw % 2 == 0:  # no caller needs XLA's uneven split of an even kernel
+            raise ValueError(f"SAME padding is ported for odd kernels, got {kh}x{kw}")
+        (top, bottom), (left, right) = _same_pads(h, kh, stride, dilation), _same_pads(w, kw, stride, dilation)
+    elif padding == "VALID":
+        top = bottom = left = right = 0
+    else:
+        top = bottom = left = right = int(padding)
+    if dot_1x1 and kh == kw == 1 and stride == 1 and groups == 1 and not (top or bottom or left or right):
         return linear(x, weight.reshape(o, i), bias)
+    xc = x.permute(0, 3, 1, 2)
+    if (top, left) != (bottom, right):
+        xc = F.pad(xc, (left, right, top, bottom))
+        top = left = 0
     fused = x.dtype == torch.float32
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), _cast(bias, x.dtype) if fused else None,
-                 padding=((kh - 1) // 2, (kw - 1) // 2))
+    y = F.conv2d(xc, weight.to(x.dtype), _cast(bias, x.dtype) if fused else None, stride=stride,
+                 padding=(top, left), dilation=dilation, groups=groups)
     y = y.permute(0, 2, 3, 1)
     return y if fused else _add_bias(y, bias)
 
 
-def apply_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    return conv2d(x, conv.weight, conv.bias)
+def apply_conv(conv: nn.Conv2d, x: torch.Tensor, **kw) -> torch.Tensor:
+    """``conv2d`` with the module's weight and bias; SAME padding unless ``padding`` is given."""
+    return conv2d(x, conv.weight, conv.bias, **kw)
+
+
+def centered_layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    """LayerNorm in fp32 with the variance as the mean of (x − mean)², cast back to x's
+    dtype: the ``_ln`` of the JAX package's ViT, MViT and MiT (eps from the module)."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    return ((x32 - mean) * torch.rsqrt(var + norm.eps) * norm.weight + norm.bias).to(x.dtype)
+
+
+def frozen_batch_norm(x: torch.Tensor, bn: nn.Module, eps: float = 1e-5, relu: bool = False) -> torch.Tensor:
+    """Inference batch norm of channels-last ``x`` with running statistics, in fp32 in
+    the JAX package's order, (x − mean)·rsqrt(var + eps)·scale + bias, then ReLU where
+    asked, cast back to x's dtype.  ``bn`` holds ``weight``, ``bias``, ``mean``, ``var``."""
+    y = (x.float() - bn.mean) * torch.rsqrt(bn.var + eps) * bn.weight + bn.bias
+    return (F.relu(y) if relu else y).to(x.dtype)
+
+
+def max_pool_nhwc(x: torch.Tensor, k: int, stride: int, padding: int = 0) -> torch.Tensor:
+    """Max pool of (N, H, W, C); padding counts as −inf, as ``lax.reduce_window``'s does."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), k, stride, padding).permute(0, 2, 3, 1)
 
 
 def mlp_apply(layers: Sequence[nn.Linear], x: torch.Tensor, act=F.relu) -> torch.Tensor:

@@ -6,6 +6,7 @@ import dataclasses
 from pathlib import Path
 
 import pytest
+import torch
 import yaml
 
 from rba_tpu import config as jconfig
@@ -83,9 +84,14 @@ def test_tiny_config_and_overrides(tmp_path):
 
 
 def test_r50_loads_and_is_refused(tmp_path):
+    """The name is kept from when the port refused ResNet: a Detectron2 R50 YAML now loads
+    to rba_tpu's fields, passes ``check_supported`` and builds."""
+    from rba_tpu_torch.models.maskformer import RbAModel
+
     child = _write_chain(tmp_path, "build_resnet_backbone")
     cfg = tconfig.load_d2_config(str(child))
     _assert_fields_equal(cfg, jconfig.load_d2_config(str(child)))
     assert cfg.backbone_name == "resnet"
-    with pytest.raises(NotImplementedError, match="backbones other than Swin"):
-        tconfig.check_supported(cfg)
+    tconfig.check_supported(cfg)
+    with torch.device("meta"):
+        assert set(RbAModel(cfg).backbone.out_channels) == {"res2", "res3", "res4", "res5"}

@@ -3,11 +3,13 @@ against rba_tpu's: ``load_config`` of every YAML in configs/ gives rba_tpu's
 ``config_to_dict``, ``save_config`` round-trips, the catalog's metadata is rba_tpu's, and
 ``PanopticDataset`` / ``InstanceFromPanoptic`` / ``SemSegFromPanoptic`` read what rba_tpu's
 read."""
+import dataclasses
 import json
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from rba_tpu import config as jconfig
@@ -16,6 +18,7 @@ from rba_tpu.data import ood_datasets as jds
 from rba_tpu_torch import config as tconfig
 from rba_tpu_torch.data import catalog as tcatalog
 from rba_tpu_torch.data import ood_datasets as tds
+from rba_tpu_torch.models.maskformer import RbAModel
 from tests.torch_port_common import catalogs_restored
 
 CONFIGS = Path(__file__).resolve().parent.parent / "configs"
@@ -57,8 +60,11 @@ def test_load_config_overrides_and_refusals(tmp_path):
     assert cfg.compute_dtype == "float32"
     r50 = tconfig.load_config(str(CONFIGS / "coco" / "open-panoptic-segmentation" / "maskformer2_R50_bs16_50ep.yaml"))
     assert (r50.backbone_name, r50.resnet.depth) == ("resnet", 50)
-    with pytest.raises(NotImplementedError, match="backbones other than Swin"):
-        tconfig.check_supported(r50)
+    tconfig.check_supported(r50)  # the COCO open-panoptic R50 loads and builds (ResNet is ported)
+    with torch.device("meta"):
+        RbAModel(r50)
+    with pytest.raises(NotImplementedError, match="backbone 'resnet18_basic'"):
+        tconfig.check_supported(dataclasses.replace(r50, backbone_name="resnet18_basic"))
 
 
 @pytest.mark.parametrize("open_panoptic", [False, True])

@@ -188,7 +188,7 @@ def test_d2_cli_writes_rba_tpus_npz(tmp_path, tiny_sd, capsys):
 
 
 @pytest.mark.parametrize("change", [
-    dict(backbone_name="resnet"),
+    dict(decoder=dataclasses.replace(tconfig.DecoderConfig(), name="MultiScalePerPixelDecoder")),
     dict(sem_seg_head_name="PerPixelBaselineHead"),
     dict(pixel_decoder=dataclasses.replace(tconfig.PixelDecoderConfig(), name="BasePixelDecoder")),
     dict(decoder=dataclasses.replace(tconfig.DecoderConfig(), name="StandardTransformerDecoder")),

@@ -38,6 +38,11 @@ EVALUATION_MODULES = ("rba_tpu_torch/models/inference.py", "rba_tpu_torch/evalx/
                       "rba_tpu_torch/tools/evaluate_pq_semseg.py")
 
 
+BACKBONE_MODULES = ("rba_tpu_torch/models/backbones.py", "rba_tpu_torch/models/resnet.py",
+                    "rba_tpu_torch/models/mix_transformer.py", "rba_tpu_torch/models/wideresnet.py",
+                    "rba_tpu_torch/models/vit.py", "rba_tpu_torch/models/mvit.py")
+
+
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert "chip_smoke.py" in names and "rba_tpu_torch/models/maskformer.py" in names
@@ -45,6 +50,7 @@ def test_port_files_exist():
     # the training slice's modules are among the files checked below
     assert set(TRAINING_MODULES) <= names
     assert set(EVALUATION_MODULES) <= names  # and the closed-set evaluation slice's
+    assert set(BACKBONE_MODULES) <= names  # and the backbones'
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -111,7 +111,7 @@ def test_tiny_infer_matches(tiny, rng):
 
 
 @pytest.mark.parametrize("change", [
-    dict(backbone_name="resnet"), dict(param_dtype="bfloat16"),
+    dict(backbone_name="no_such_backbone"), dict(param_dtype="bfloat16"),
     dict(decoder=dataclasses.replace(tconfig.tiny_test_config().decoder, pre_norm=True)),
     dict(weight_quant="int8"), dict(sem_seg_head_name="PerPixelBaselineHead"),
 ])

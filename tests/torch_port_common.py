@@ -184,3 +184,85 @@ def catalogs_restored():
             c._STANDARD_OWNED.clear()
             c._STANDARD_OWNED.update(owned)
             c._STANDARD_ROOT = root
+
+
+# Detectron2 names of the non-Swin backbones, from the port's parameter names: (pattern,
+# replacement) in order, per family; a batch norm's mean and var are running statistics.
+_D2_NAMES = {
+    "resnet": [(r"^stem\.norm1\.", "stem.conv1.norm."), (r"\.norm(\d)\.", r".conv\1.norm."),
+               (r"\.shortcut_norm\.", ".shortcut.norm.")],
+    "mit": [(r"^stages\.(\d)\.patch_embed\.", lambda m: f"patch_embed{int(m[1]) + 1}."),
+            (r"^stages\.(\d)\.blocks\.", lambda m: f"block{int(m[1]) + 1}."),
+            (r"^stages\.(\d)\.norm\.", lambda m: f"norm{int(m[1]) + 1}."),
+            (r"\.attn\.sr_norm\.", ".attn.norm."), (r"\.mlp\.dwconv\.", ".mlp.dwconv.dwconv.")],
+    "wideresnet38": [(r"^mod1\.weight$", "mod1.conv1.weight"), (r"^mod(\d)\.(\d+)\.", lambda m: f"mod{m[1]}.block{int(m[2]) + 1}."),
+                     (r"(\.block\d+)\.(conv\d|bn[23])\.", r"\1.convs.\2.")],
+    "vit": [],
+    "mvit": [],
+    "vit_sfp": [(r"^vit\.", "net."), (r"^sfp\.stages\.(\d)\.", lambda m: f"simfp_{int(m[1]) + 2}.")],
+}
+# the Sequential index of each part of a SimpleFeaturePyramid stage, by the stage's scale
+_SFP_INDEX = {4.0: dict(up1="0", up1_norm="1", up2="3", lateral="4", output="5"),
+              2.0: dict(up1="0", lateral="1", output="2"), 1.0: dict(lateral="0", output="1"),
+              0.5: dict(lateral="1", output="2")}
+
+
+def d2_backbone_state_dict(cfg, seed: int, model=None):
+    """A seeded Detectron2 state dict of the backbone of ``cfg`` (the port's config), any
+    family but Swin: the released checkpoints' ``backbone.*`` names and torch layouts
+    (a transposed conv's weight (in, out, 2, 2)), in numpy.  Convs and linears
+    ~ N(0, 1/fan_in), norm scales 1 + N(0, 0.01²), biases, running means and position
+    tables ~ N(0, 0.02²) (means 0.1), running variances 1 + |N(0, 0.1²)|.  ``model``: the
+    port's backbone module to take the names and shapes from (a smaller one than the
+    family's fixed config); by default ``build_backbone(cfg)``'s."""
+    import re
+
+    from rba_tpu_torch.models.backbones import build_backbone
+
+    if model is None:
+        with torch.device("meta"):
+            model = build_backbone(cfg)
+    family = "mit" if cfg.backbone_name.startswith("mit") or cfg.backbone_name == "mix_transformer" else cfg.backbone_name
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for name, p in model.named_parameters():
+        shape, leaf = tuple(p.shape), name.rpartition(".")[2]
+        if leaf == "weight" and len(shape) in (2, 4):
+            w = rng.standard_normal(shape, dtype=np.float32) / np.float32(np.sqrt(np.prod(shape[1:])))
+        elif leaf == "weight":
+            w = 1 + 0.01 * rng.standard_normal(shape, dtype=np.float32)
+        elif leaf == "var":
+            w = 1 + np.abs(0.1 * rng.standard_normal(shape, dtype=np.float32))
+        else:
+            w = (0.1 if leaf == "mean" else 0.02) * rng.standard_normal(shape, dtype=np.float32)
+        d2 = name
+        if family == "vit_sfp" and name.startswith("sfp."):
+            _, _, i, part, *rest = name.split(".")
+            if part in ("up1", "up2") and leaf == "weight":
+                w = np.ascontiguousarray(w.transpose(1, 0, 2, 3))
+            idx = _SFP_INDEX[model.sfp.stages[int(i)].scale][part]
+            d2 = f"sfp.stages.{i}.{idx}." + ("norm." + leaf if rest[0] == "norm" else leaf)
+        for pat, rep in _D2_NAMES[family]:
+            d2 = re.sub(pat, rep, d2)
+        d2 = re.sub(r"\.mean$", ".running_mean", re.sub(r"\.var$", ".running_var", d2))
+        sd["backbone." + d2] = w.astype(np.float32)
+    return sd
+
+
+def d2_full_state_dict(cfg, seed: int):
+    """``d2_state_dict`` of the heads of ``cfg`` over ``d2_backbone_state_dict``'s backbone:
+    a seeded Detectron2 state dict of a whole non-Swin model."""
+    import types
+
+    from rba_tpu_torch.models.backbones import build_backbone
+
+    with torch.device("meta"):
+        channels = build_backbone(cfg).out_channels
+    swin = types.SimpleNamespace(embed_dim=8, patch_size=4, window_size=1, num_layers=0, out_features=(),
+                                 out_channels=channels, depths=(), num_heads=(), mlp_ratio=4.0)
+    heads = d2_state_dict(types.SimpleNamespace(swin=swin, pixel_decoder=cfg.pixel_decoder, decoder=cfg.decoder,
+                                                num_classes=cfg.num_classes), seed)
+    sd = {k: v for k, v in heads.items() if not k.startswith("backbone.")}
+    sd.update(d2_backbone_state_dict(cfg, seed + 1))
+    return sd
+
