@@ -597,13 +597,13 @@ def serve_phase(name, cfg, model, images, attention, per_image):
 
 def _annotations():
     """The names of the port's record_function spans: the layers of a request
-    (``maskformer.LAYERS``), each deformable-sampling call and the parts of a train step
-    (``train_step.SPANS``)."""
+    (``maskformer.LAYERS``), each deformable-sampling call and its backward and the parts
+    of a train step (``train_step.SPANS``)."""
     from rba_tpu_torch.models.maskformer import LAYERS
-    from rba_tpu_torch.ops.deform_sampling import SPAN
+    from rba_tpu_torch.ops.deform_sampling import BACKWARD_SPAN, SPAN
     from rba_tpu_torch.train.train_step import SPANS
 
-    return (*LAYERS, SPAN, *SPANS)
+    return (*LAYERS, SPAN, BACKWARD_SPAN, *SPANS)
 
 
 def _device_kernels(prof):
@@ -721,9 +721,12 @@ def _eval_timed(fn, *args, **kw):
     return out, ms / 1e3, fell_back
 
 
-def _profile(name, fn, top: int = 8):
+def _profile(name, fn, top: int = 8, spans=()):
     """torch.profiler over one call of ``fn``: wall, device busy time, idle share and the
-    kernels that take the most device time."""
+    kernels that take the most device time; for each record_function name in ``spans``,
+    how many such spans ran and the device time of the kernels launched inside them (the
+    host-side span's ``device_time_total``: its ops' kernels, on whatever thread it ran)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -736,6 +739,10 @@ def _profile(name, fn, top: int = 8):
     busy_ms = sum(r[1] for r in kernels)
     out = dict(wall_ms=wall_ms, busy_ms=busy_ms or None, idle_share=1 - busy_ms / wall_ms if busy_ms else None,
                top=[dict(kernel=k[:120], ms=t, calls=c) for k, t, c in kernels[:top]])
+    if spans:
+        host = [e for e in prof.events() if e.device_type == DeviceType.CPU and e.name in spans]
+        out["spans"] = {sp: dict(count=sum(e.name == sp for e in host),
+                                 busy_ms=sum(e.device_time_total for e in host if e.name == sp) / 1e3) for sp in spans}
     log(f"{name}: profile (profiler on): wall {wall_ms:.2f} ms, device busy "
         + (f"{busy_ms:.2f} ms, idle share {out['idle_share']:.3f}" if busy_ms else "not measured"))
     for r in out["top"]:
@@ -1499,11 +1506,10 @@ def train_phase(pth: Path, image):
     checkpoint serves a path-1 request."""
     from rba_tpu_torch.config import load_d2_config
     from rba_tpu_torch.convert import load_checkpoint_params
-    from rba_tpu_torch.convert.params import load_jax_params, load_params
     from rba_tpu_torch.kernels.lsap import batched_linear_sum_assignment
     from rba_tpu_torch.models.maskformer import maskformer_infer_rba
     from rba_tpu_torch.train import train_net
-    from rba_tpu_torch.train.train_step import make_train_state, make_train_step
+    from rba_tpu_torch.train.train_step import make_train_step
 
     root = SCRATCH / "train"
     shutil.rmtree(root, ignore_errors=True)
@@ -1586,21 +1592,11 @@ def train_phase(pth: Path, image):
            if prof["busy_ms"] else "not measured"))
 
     # fp32: a step through Kernel E and a step through the plain LSAP, from the same weights and draws
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    params = load_params(str(weights / "params.npz"))
-    small = {k: v[:2] for k, v in batch.items()}
-    fp32 = {}
-    for plain in (False, True):
-        load_jax_params(state.model, params)
-        st = make_train_state(cfg32, model=state.model, seed=TRAIN_SEED)
-        fp32["plain" if plain else "kernel"] = {k: float(v) for k, v in make_train_step(cfg32, plain=plain)(
-            st, small).items()}
-    diff = max(abs(fp32["kernel"][k] - fp32["plain"][k]) for k in fp32["kernel"])
+    fp32 = _fp32_kernel_vs_plain(cfg, state.model, batch)
     log(f"train: fp32, 2 images: losses with Kernel E {fp32['kernel']['total']:.6f}, with the plain LSAP "
-        f"{fp32['plain']['total']:.6f}; largest difference over all {len(fp32['kernel'])} metrics {diff:.3e}")
-    if sorted(fp32["kernel"]) != sorted(fp32["plain"]) or diff > 1e-6 * max(1.0, abs(fp32["plain"]["total"])):
-        raise RuntimeError(f"train: fp32 losses differ between Kernel E and the plain LSAP: {fp32}")
-    del state, st
+        f"{fp32['plain']['total']:.6f}; largest difference over all {len(fp32['kernel'])} metrics "
+        f"{fp32['max_diff']:.3e}")
+    del state
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1621,7 +1617,7 @@ def train_phase(pth: Path, image):
                 ms_per_step_all=ms_step, images_per_s=TRAIN_BATCH * 1e3 / statistics.median(ms_step),
                 peak_gib=run["peak_gib"], wall_s=run["wall_s"], launches=run["launches"], pasted_images=pasted,
                 images=len(lines) * TRAIN_BATCH, first=lines[0], last=lines[-1], profile=prof,
-                mapper_ms_per_image=mapper_ms, step_in_memory_ms=in_memory_ms, lsap_real=real, fp32=fp32, fp32_max_diff=diff, serve_ms=ms,
+                mapper_ms_per_image=mapper_ms, step_in_memory_ms=in_memory_ms, lsap_real=real, fp32=fp32, serve_ms=ms,
                 serve_launches=served, write_trees_s=write_s)
 
 
@@ -2253,6 +2249,229 @@ def r50_d2_phase(image):
     return dict(parameters=len(want), write_s=write_s, load_convert_s=load_s, request_ms=ms, launches=launches,
                 sweep_s=sweep_ms / 1e3, sweep_metrics=metrics, sweep_launches=sweep_launches)
 
+# ---------------------------------------------------------------------------
+# Training the non-Swin backbones: the four RbA outlier fine-tunes and the 90k R50 and ViT
+# ---------------------------------------------------------------------------
+
+TRAIN_BACKBONE_CONFIGS = {  # frozen backbone and pixel decoder on the coco-mix recipes, unfrozen on R50 and ViT
+    "R101_1dl_coco_mix": "maskformer2_R101_bs16_90k_1dl_coco_mix.yaml",
+    "mit_b5_1dl_coco_mix": "mix_transformer/maskformer_2_mit_b5_in21k_1dl_coco_mix.yaml",
+    "mvit_in21k_1dl_coco_mix": "mvit/maskformer_2_mvit_in21k_bs16_90k_1dl_coco_mix.yaml",
+    "wrn38_1dl_coco_mix": "wideresnet/maskformer_2_wideresnet38_imagenet_bs16_90k_1dl_coco_mix.yaml",
+    "R50": "maskformer2_R50_bs16_90k.yaml",
+    "vit": "vit/maskformer_2_vit_imagenet_bs16_90k.yaml",
+}
+TRAIN_BB_WARMUP, TRAIN_BB_TIMED = 1, 3  # steps of each config
+CLI_CONFIG = "R101_1dl_coco_mix"  # the config that the trainer CLI also runs
+CLI_STEPS = 2
+FROZEN = ("backbone.", "sem_seg_head.pixel_decoder.")
+
+
+def _changed(model, before, prefixes):
+    """(changed, all) counts of the parameters under ``prefixes`` against ``before``."""
+    names = [n for n in before if n.startswith(prefixes)]
+    params = dict(model.named_parameters())
+    return sum(not torch.equal(params[n].detach(), before[n]) for n in names), len(names)
+
+
+def _train_steps(cfg, model, batch, counts):
+    """Steps of ``make_train_step`` on ``batch`` at the global batch of 8, per step the
+    largest of 8 / 4 / 2 images that fits and the rest by ``grad_accum``: one warm-up and
+    ``TRAIN_BB_TIMED`` timed (host clock to a synchronize).  Returns the state, the step
+    function and what was measured."""
+    from rba_tpu_torch.train.train_step import make_train_state, make_train_step
+
+    for micro in (8, 4, 2):
+        for fn in counts.values():
+            fn.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = make_train_state(cfg, model=model, seed=TRAIN_SEED)
+        step_fn = make_train_step(cfg, grad_accum=TRAIN_BATCH // micro)
+        try:
+            metrics, times = [], []
+            for i in range(TRAIN_BB_WARMUP + TRAIN_BB_TIMED):
+                m, ms = _timed(step_fn, state, batch)
+                metrics.append({k: float(v) for k, v in m.items()})
+                times.append(ms)
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"train_backbones: a per-step batch of {micro} does not fit ({str(e).splitlines()[0][:100]})")
+            model.zero_grad(set_to_none=True)
+            del state, step_fn
+            gc.collect()
+            continue
+        return state, step_fn, dict(micro=micro, grad_accum=TRAIN_BATCH // micro, metrics=metrics,
+                                    ms_all=times[TRAIN_BB_WARMUP:], launches={k: fn.launches for k, fn in counts.items()},
+                                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    raise RuntimeError("train_backbones: no per-step batch of 8, 4 or 2 fits on the card")
+
+
+def _fp32_kernel_vs_plain(cfg, model, batch):
+    """At fp32 on 2 images from the model's current weights: a step through Kernel E and
+    a step through the plain LSAP (same weights, same draws) give equal metrics; the
+    model keeps the plain step's update."""
+    from rba_tpu_torch.train.train_step import make_train_state, make_train_step
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    weights = {n: p.detach().clone() for n, p in model.named_parameters()}
+    small = {k: v[:2] for k, v in batch.items()}
+    out = {}
+    for plain in (False, True):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(weights[n])
+        st = make_train_state(cfg32, model=model, seed=TRAIN_SEED)
+        out["plain" if plain else "kernel"] = {k: float(v) for k, v in make_train_step(cfg32, plain=plain)(
+            st, small).items()}
+    # each metric within 1e-6 of its own size: the losses come from the same matching, and
+    # grad_norm differs in its last bits between any two runs of one step (the backward's
+    # atomic adds sum in no fixed order)
+    diff = max(abs(out["kernel"][k] - out["plain"][k]) for k in out["kernel"])
+    if sorted(out["kernel"]) != sorted(out["plain"]) or any(
+            abs(out["kernel"][k] - v) > 1e-6 * max(1.0, abs(v)) for k, v in out["plain"].items()):
+        raise RuntimeError(f"fp32 metrics differ between Kernel E and the plain LSAP: {out}")
+    return dict(kernel=out["kernel"], plain=out["plain"], max_diff=diff)
+
+
+def _trainer_cli(rel: str, image, micro: int):
+    """``train_net.main`` on the recipe for ``CLI_STEPS`` steps from seeded weights over the
+    train phase's trees, then its last checkpoint loaded and served one request through
+    ``maskformer_infer_rba`` (Kernel B once, at mask stride 4)."""
+    from rba_tpu_torch.config import load_config
+    from rba_tpu_torch.convert import load_checkpoint_params
+    from rba_tpu_torch.kernels.lsap import batched_linear_sum_assignment
+    from rba_tpu_torch.models.maskformer import maskformer_infer_rba
+    from rba_tpu_torch.train import train_net
+
+    root, out = SCRATCH / "train", SCRATCH / "train_backbones_cli"
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = load_config(str(SEMSEG_CONFIGS / rel))
+    lsap_launches = batched_linear_sum_assignment.launches
+    counts = _zero_counts()
+    argv = ["--config-file", str(SEMSEG_CONFIGS / rel), "--data-root", str(root / "cityscapes"), "--coco-root",
+            str(root / "coco"), "--output-dir", str(out), "--max-iter", str(CLI_STEPS), "--batch-size",
+            str(TRAIN_BATCH), "--grad-accum", str(TRAIN_BATCH // micro), "--log-period", "1",
+            "--checkpoint-period", "0", "--seed", str(TRAIN_SEED), "--workers", str(min(8, os.cpu_count() or 1))]
+    state, wall_ms = _timed(train_net.main, argv)
+    del state
+    gc.collect()
+    train_launches = dict(counts(), lsap=batched_linear_sum_assignment.launches - lsap_launches)
+    lines = [json.loads(line) for line in open(out / "metrics.jsonl")]
+    expected_e = CLI_STEPS * (TRAIN_BATCH // micro) * (1 + cfg.decoder.dec_layers)
+    finite = all(math.isfinite(v) for m in lines for v in m.values())
+    model = load_checkpoint_params(str(out / "checkpoints" / f"step_{CLI_STEPS}"), cfg)
+    maskformer_infer_rba(model, cfg, image)  # warm-up
+    counts = _zero_counts()
+    rba, serve_ms = _timed(maskformer_infer_rba, model, cfg, image)
+    served = counts()
+    ok = bool(torch.isfinite(rba).all()) and tuple(rba.shape) == (1, *IMAGE_HW)
+    row = dict(steps=len(lines), wall_s=wall_ms / 1e3, first=lines[0], last=lines[-1], launches=train_launches,
+               expected_lsap=expected_e, serve_ms=serve_ms, serve_launches=served, serve_ok=ok)
+    log(f"train_backbones {rel}: train_net.main ran {len(lines)} steps in {wall_ms / 1e3:.1f} s (model build, "
+        f"mapper threads and checkpoint included), launches {train_launches} (Kernel E expected {expected_e}); its "
+        f"checkpoint served one request in {serve_ms:.2f} ms, launches {served}, finite and of the frame's shape: {ok}")
+    serving = {k: v for k, v in train_launches.items() if k != "lsap" and v}
+    if len(lines) != CLI_STEPS or not finite or "outlier_loss" not in lines[0] or serving \
+            or train_launches["lsap"] != expected_e or not ok or served != dict(dict.fromkeys(served, 0),
+                                                                                fused_rba_score=1):
+        raise RuntimeError(f"train_backbones trainer CLI: {row}")
+    del model
+    return row
+
+
+def train_backbones_phase(image):
+    """Each config of ``TRAIN_BACKBONE_CONFIGS`` from its YAML at full width and depth,
+    seeded weights, TF32 off: ``TRAIN_BB_WARMUP`` + ``TRAIN_BB_TIMED`` steps of
+    ``make_train_step`` at the global batch of 8 on the first 8 frames of the train phase's
+    synthetic trees, mapped by the config's own mapper at its 512x1024 crop; ms/step,
+    images/s, peak memory, one profiled step (busy, idle share, top kernels, the
+    deformable sampling's forward and backward spans).  Gates, each of which fails the
+    run: finite losses and grad_norm, outlier_loss on the coco-mix recipes; Kernel E
+    launched steps x micro-batches x (1 + decoder layers) times, and no A, B, C or D; on
+    the frozen recipes every backbone and pixel-decoder parameter bit for bit unchanged and
+    every decoder parameter changed; on R50 and ViT every backbone parameter changed.  On
+    ``CLI_CONFIG`` also the fp32 step through Kernel E against the plain LSAP and the
+    trainer CLI with its checkpoint served (``_trainer_cli``)."""
+    from rba_tpu_torch.config import load_config
+    from rba_tpu_torch.kernels.lsap import batched_linear_sum_assignment
+    from rba_tpu_torch.models.maskformer import build_model
+    from rba_tpu_torch.ops.deform_sampling import BACKWARD_SPAN, SPAN
+    from rba_tpu_torch.train import train_net
+
+    root = SCRATCH / "train"
+    counts = {**_wrappers(), "lsap": batched_linear_sum_assignment}
+    out, lsap_total = {}, 0
+    for name, rel in TRAIN_BACKBONE_CONFIGS.items():
+        t_cfg = time.perf_counter()
+        cfg = load_config(str(SEMSEG_CONFIGS / rel))
+        args = train_net.parse_args(["--config-file", str(SEMSEG_CONFIGS / rel), "--data-root",
+                                     str(root / "cityscapes"), "--coco-root", str(root / "coco"), "--seed",
+                                     str(TRAIN_SEED)])
+        batch, mapper_ms = _mapped_batch(cfg, args)
+        model = build_model(cfg, seed=0)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        frozen = cfg.solver.freeze_backbone and cfg.solver.freeze_pixel_decoder
+        coco_mix = cfg.input.dataset_mapper_name == "mask_former_semantic_coco_mix"
+        state, step_fn, run = _train_steps(cfg, model, batch, counts)
+        steps = TRAIN_BB_WARMUP + TRAIN_BB_TIMED
+        expected_e = steps * run["grad_accum"] * (1 + cfg.decoder.dec_layers)
+        lsap_total += run["launches"]["lsap"]
+        finite = all(math.isfinite(v) for m in run["metrics"] for v in m.values())
+        other = {k: v for k, v in run["launches"].items() if k != "lsap" and v}
+        frozen_moved = _changed(model, before, FROZEN) if frozen else None
+        decoder_moved = _changed(model, before, ("sem_seg_head.predictor.",))
+        backbone_moved = _changed(model, before, ("backbone.",))
+        ms = statistics.median(run["ms_all"])
+        prof = _profile(f"train_backbones {name} step", lambda: step_fn(state, batch), top=8, spans=(SPAN, BACKWARD_SPAN))
+        row = dict(config=str(SEMSEG_CONFIGS / rel), backbone=cfg.backbone_name,
+                   parameters=sum(p.numel() for p in model.parameters()), frozen=frozen, coco_mix=coco_mix,
+                   dec_layers=cfg.decoder.dec_layers, mask_stride=model.mask_stride(cfg), micro=run["micro"],
+                   grad_accum=run["grad_accum"], ms_per_step=ms, ms_all=run["ms_all"], images_per_s=TRAIN_BATCH * 1e3 / ms,
+                   peak_gib=run["peak_gib"], launches=run["launches"], expected_lsap=expected_e,
+                   first=run["metrics"][0], last=run["metrics"][-1], mapper_ms_per_image=mapper_ms, profile=prof,
+                   frozen_changed=frozen_moved, decoder_changed=decoder_moved, backbone_changed=backbone_moved)
+        spans = prof.get("spans", {})
+        log(f"train_backbones {name} ({cfg.backbone_name}, {row['parameters'] / 1e6:.2f} M parameters, "
+            f"{'frozen backbone and pixel decoder' if frozen else 'unfrozen'}, {cfg.decoder.dec_layers} decoder "
+            f"layer(s), mask stride {row['mask_stride']}): per-step batch {run['micro']} x {run['grad_accum']}; "
+            f"{ms:.1f} ms/step median of {[round(t, 1) for t in run['ms_all']]}, {row['images_per_s']:.2f} images/s, "
+            f"peak {run['peak_gib']:.2f} GiB; busy {prof['busy_ms']} ms of one profiled step, idle share "
+            f"{prof['idle_share']}; deformable sampling forward / backward busy "
+            + " / ".join(f"{spans.get(sp, {}).get('busy_ms', float('nan')):.2f} ms ({spans.get(sp, {}).get('count')} "
+                         f"spans)" for sp in (SPAN, BACKWARD_SPAN))
+            + f"; launches {run['launches']} (Kernel E expected {expected_e}); changed parameters: backbone "
+            f"{backbone_moved}, decoder {decoder_moved}, frozen {frozen_moved}; step 1 total "
+            f"{run['metrics'][0]['total']:.4f}, grad_norm {run['metrics'][0]['grad_norm']:.4f}")
+        bad = []
+        if not finite:
+            bad.append("a loss or grad_norm is not finite")
+        if coco_mix and "outlier_loss" not in run["metrics"][0]:
+            bad.append("no outlier_loss")
+        if run["launches"]["lsap"] != expected_e or other:
+            bad.append(f"launches {run['launches']}, Kernel E expected {expected_e}")
+        if frozen and (frozen_moved[0] or decoder_moved[0] != decoder_moved[1]):
+            bad.append(f"frozen parameters changed {frozen_moved}, decoder parameters changed {decoder_moved}")
+        if not frozen and backbone_moved[0] != backbone_moved[1]:
+            bad.append(f"backbone parameters changed {backbone_moved}")
+        if bad:
+            raise RuntimeError(f"train_backbones {name}: " + "; ".join(bad))
+        if name == CLI_CONFIG:
+            row["fp32"] = _fp32_kernel_vs_plain(cfg, model, batch)
+            log(f"train_backbones {name}: fp32, 2 images: total with Kernel E {row['fp32']['kernel']['total']:.6f}, "
+                f"with the plain LSAP {row['fp32']['plain']['total']:.6f}; largest difference {row['fp32']['max_diff']:.3e}")
+        del state, step_fn, model, before
+        gc.collect()
+        torch.cuda.empty_cache()
+        if name == CLI_CONFIG:
+            row["cli"] = _trainer_cli(rel, image, run["micro"])
+        row["s"] = time.perf_counter() - t_cfg
+        log(f"train_backbones {name}: {row['s']:.1f} s")
+        out[name] = row
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["lsap_launches"] = lsap_total
+    return out
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2370,6 +2589,11 @@ def main() -> int:
     backbones = backbones_phase(images)
     r50_d2 = r50_d2_phase(images[1])
     log(f"backbones and r50_d2 phases: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_backbones = train_backbones_phase(images[1])
+    log(f"train_backbones phase: {time.perf_counter() - t0:.1f} s")
     unchecked = sorted(wa_seen - wa_checked)
     log(f"Kernel A in these phases: {len(wa_seen)} distinct launch shapes (windows, heads, head dim, masked), "
         f"each held against its plain version at bf16 and fp32 in the kernel phase: {not unchecked} "
@@ -2421,7 +2645,8 @@ def main() -> int:
              scipy_ms=train["lsap_real"]["scipy_ms"], latency_bound_ms=train["lsap_real"]["latency_bound_ms"],
              shape=train["lsap_real"]["shape"], launches_per_step=train["launches"]["lsap"] // (
                  TRAIN_WARMUP + TRAIN_TIMED), ms_B8x32x100=lsap_rows["B8x32x100"]["ms"],
-             launches_train_eval=train_eval["launches"]["train"]["lsap"]),
+             launches_train_eval=train_eval["launches"]["train"]["lsap"],
+             launches_train_backbones=train_backbones["lsap_launches"]),
     ]
     if args.out:
         args.out.mkdir(parents=True, exist_ok=True)
@@ -2431,7 +2656,7 @@ def main() -> int:
                  paths_bf16_max_diff_not_gated=cross16, profile=prof, fast=fast, xla=xla, eval=evaluation, d2=d2,
                  tta=tta, sliding=sliding, dense_hybrid=dense_hybrid, sweep_cli=sweep_cli, lsap=lsap_rows,
                  train=train, semseg=semseg, panoptic=panoptic, train_eval=train_eval, backbones=backbones,
-                 r50_d2=r50_d2,
+                 r50_d2=r50_d2, train_backbones=train_backbones,
                  elapsed_s=time.perf_counter() - T_START, kernels=kernels), indent=1))
     log("(window_attention, masked_softmax and fused_mlp_residual times are per image: each call of one "
         "1024x2048 request, summed; ms is the mean of the first batch of 20 calls, ms_batches the means of "
@@ -2446,7 +2671,8 @@ def main() -> int:
         f"the {N_REQUESTS} requests of each non-Swin config at its precision, launches_r50_d2_sweep the sweep over "
         "the R50 checkpoint; fused_rba_score's "
         "*_coco at Q=100, K=117, 200x272; lsap's launches count the train phase's "
-        f"{TRAIN_WARMUP + TRAIN_TIMED} steps, its ms, "
+        f"{TRAIN_WARMUP + TRAIN_TIMED} steps, launches_train_backbones the train_backbones phase's "
+        f"{TRAIN_BB_WARMUP + TRAIN_BB_TIMED} steps of each config, its ms, "
         "plain_ms and bound are per launch on one step's real costs, scipy_ms scipy's host time on them with the "
         f"copy; {time.perf_counter() - T_START:.1f} s in all)")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -20,6 +20,7 @@ heads) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, List
 
 import numpy as np
@@ -330,8 +331,8 @@ def convert_wideresnet_backbone(sd: Dict[str, np.ndarray]) -> Dict:
 def convert_resnet_backbone(sd: Dict[str, np.ndarray], cfg: RbAConfig) -> Dict:
     """D2 ResNet ``backbone.*`` keys (stem.conv1(.norm), res{2..5}.{b}.conv{1..3}
     (.norm), res*.0.shortcut(.norm)) → resnet param tree.  The D2 layout is
-    what DetectionCheckpointer loads; torchvision .pth files are first mapped
-    by the JAX package's ``tools/convert_checkpoint.py torchvision``."""
+    what DetectionCheckpointer loads; a torchvision .pth is first mapped by
+    ``torchvision_resnet_to_d2`` (``tools/convert_checkpoint.py torchvision``)."""
     p: Dict = {
         "stem": {
             "conv1": {"kernel": _conv(sd["backbone.stem.conv1.weight"])},
@@ -357,6 +358,31 @@ def convert_resnet_backbone(sd: Dict[str, np.ndarray], cfg: RbAConfig) -> Dict:
             blocks.append(blk)
         p[name] = blocks
     return p
+
+
+def torchvision_resnet_to_d2(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """torchvision ResNet state-dict names → Detectron2 names, the mapping of the
+    reference's ``tools/convert-torchvision-to-d2.py``: ``conv1``/``bn1`` → the stem,
+    ``layer{L}`` → ``res{L+1}``, ``bn{k}`` → ``conv{k}.norm``, ``downsample.0``/``.1`` →
+    ``shortcut``/``shortcut.norm``; the classifier and ``num_batches_tracked`` dropped."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("fc."):
+            continue
+        nk = k
+        if nk.startswith("conv1."):
+            nk = nk.replace("conv1.", "stem.conv1.")
+        if nk.startswith("bn1."):
+            nk = nk.replace("bn1.", "stem.conv1.norm.")
+        for layer in range(1, 5):
+            nk = nk.replace(f"layer{layer}.", f"res{layer + 1}.")
+        nk = re.sub(r"\.bn(\d)\.", r".conv\1.norm.", nk)
+        nk = nk.replace(".downsample.0.", ".shortcut.")
+        nk = nk.replace(".downsample.1.", ".shortcut.norm.")
+        if "num_batches_tracked" in nk:
+            continue
+        out["backbone." + nk] = np.asarray(v)
+    return out
 
 
 def convert_pixel_decoder(sd: Dict[str, np.ndarray], cfg: RbAConfig) -> Dict:

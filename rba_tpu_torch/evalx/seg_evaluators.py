@@ -8,7 +8,10 @@
 - ``OpenPanopticEvaluator``: panoptic inference, optionally with the open-world RbA
   branch, into PQ with the known / unknown split (``evalx/panoptic.py``).  The open
   branch's RbA map is Kernel B (``kernels/fused_rba.py``) on the padded low-resolution
-  mask logits, cropped; on the CPU the kernel's plain version.
+  mask logits, cropped, where the mask features are at stride 4 (on the CPU the kernel's
+  plain version); at another stride (ViT 16, WiderResNet-38 8), which the kernel's fixed
+  ×4 upsample does not fit, it is ``open_rba_map`` of the full-resolution logits, as
+  ``rba_tpu`` takes it at every stride.
 - ``mask_average_precision``, ``open_world_ap`` and ``InstanceEvaluator``: COCO-style
   mask AP in host numpy, after pycocotools.
 """
@@ -21,7 +24,7 @@ import torch
 
 from ..config import RbAConfig
 from ..kernels.fused_rba import fused_rba_score
-from ..models.inference import CITYSCAPES_THING_IDS, instance_inference, panoptic_inference
+from ..models.inference import CITYSCAPES_THING_IDS, instance_inference, open_rba_map, panoptic_inference
 from ..models.maskformer import maskformer_forward, maskformer_infer, preprocess
 from ..ops.resize import resize_bilinear
 from .panoptic import UNKNOWN_CATEGORY, pq_compute
@@ -96,7 +99,7 @@ class OpenPanopticEvaluator:
 
     @torch.inference_mode()
     def raw_outputs(self, image: np.ndarray):
-        """(Q, K+1) class logits, (Q, h, w) mask logits at stride 4 of the padded image, and
+        """(Q, K+1) class logits, (Q, h, w) mask logits at the mask stride of the padded image, and
         (Q, H, W) mask logits upsampled to the padded size and cropped to the image, all on
         the model's device."""
         images = torch.from_numpy(np.array(image)[None]).to(_device(self.model))
@@ -106,15 +109,21 @@ class OpenPanopticEvaluator:
         mask_pred = resize_bilinear(low, (x.shape[1], x.shape[2]), align_corners=False)
         return out["pred_logits"][0], low, mask_pred[:, : image.shape[0], : image.shape[1]]
 
-    @staticmethod
-    def rba_map(mask_cls: torch.Tensor, low: torch.Tensor, hw) -> torch.Tensor:
-        """The open branch's (H, W) RbA map: Kernel B (its plain version on the CPU) on the
-        padded low-resolution logits, cropped to ``hw``."""
-        return fused_rba_score(mask_cls[None], low[None])[0, : hw[0], : hw[1]]
+    def rba_map(self, mask_cls: torch.Tensor, low: torch.Tensor, hw, mask_pred: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """The open branch's (H, W) RbA map.  At mask stride 4: Kernel B (its plain version
+        on the CPU) on the padded low-resolution logits, cropped to ``hw``.  At another
+        stride: ``open_rba_map`` of ``mask_pred``, the (Q, H, W) logits at full
+        resolution that ``raw_outputs`` returns."""
+        if self.model.mask_stride(self.cfg) == 4:
+            return fused_rba_score(mask_cls[None], low[None])[0, : hw[0], : hw[1]]
+        if mask_pred is None:
+            raise ValueError("at a mask stride other than 4 the open branch's map needs the full-resolution mask_pred")
+        return open_rba_map(mask_cls, mask_pred)
 
     def predict(self, image: np.ndarray):
         mask_cls, low, mask_pred = self.raw_outputs(image)
-        rba_map = self.rba_map(mask_cls, low, image.shape[:2]) if self.open_panoptic else None
+        rba_map = self.rba_map(mask_cls, low, image.shape[:2], mask_pred) if self.open_panoptic else None
         return panoptic_inference(self.cfg, mask_cls, mask_pred, thing_ids=self.thing_ids,
                                   open_panoptic=self.open_panoptic, ood_threshold=self.ood_threshold,
                                   pixel_min=self.pixel_min, rba_map=rba_map)

@@ -74,6 +74,14 @@ def _trunc_normal(shape, gen, device, std=0.02):
 
 
 @torch.no_grad()
+def init_norm_(norm: nn.Module) -> nn.Module:
+    """The init of every LayerNorm and GroupNorm in ``init_params``: unit scale, zero bias."""
+    norm.weight.fill_(1.0)
+    norm.bias.zero_()
+    return norm
+
+
+@torch.no_grad()
 def init_params(model: RbAModel, seed: int) -> None:
     """Seeded random init after the JAX package's scheme: truncated normal (0.02) for
     the backbone's linears, bias and position tables, Xavier-uniform for other linears,
@@ -84,8 +92,7 @@ def init_params(model: RbAModel, seed: int) -> None:
     gen = torch.Generator(device=device).manual_seed(seed)
     for mname, mod in model.named_modules():
         if isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
-            mod.weight.fill_(1.0)
-            mod.bias.zero_()
+            init_norm_(mod)
         elif isinstance(mod, nn.Conv2d):
             fan_in = mod.weight[0].numel()
             mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen, device=device) * math.sqrt(2.0 / fan_in))

@@ -7,7 +7,9 @@ MLP with a 3×3 depthwise conv, and a final LayerNorm; ``res2``…``res5`` at st
 The attention rounds as ``rba_tpu``'s does: q·kᵀ in the compute dtype, times the scale
 rounded to it, the softmax in fp32 rounded back, ``· v`` summed in fp32 and rounded.
 Parameter names follow the JAX pytree: ``stages.2.blocks.5.attn.kv``,
-``stages.0.blocks.1.mlp.dwconv``, ``stages.3.norm``.
+``stages.0.blocks.1.mlp.dwconv``, ``stages.3.norm``.  ``drop_path_rate`` is kept and not
+applied, in training too: ``rba_tpu``'s MiT has no stochastic depth and its
+``maskformer_forward`` passes the backbone no rng (ROADMAP.md §C.5).
 """
 from __future__ import annotations
 

@@ -14,7 +14,10 @@ Plain PyTorch, in fp32, one of two forms per level:
 
 Gradients have the semantics of ``rba_tpu``'s custom VJPs: the gather's is autograd of
 the gather (``rba_tpu`` pins its own equal to it); the one-hot form is ``OneHotLevel``,
-whose backward rebuilds the row matrix in fp32 instead of saving it.
+whose backward rebuilds the row matrix in fp32 instead of saving it.  Each call runs in
+the ``SPAN`` record_function span; under autograd its backward runs in
+``BACKWARD_SPAN``, from the output's gradient to the inputs' (a profile reads what the
+training step's sampling costs from the two).
 
 ``method="auto"`` picks the one-hot form for a level where N·M·Lq·H·W <= the cap, as
 ``rba_tpu`` does.  In fp32 the one-hot form computes the gather's sums (``rba_tpu``
@@ -29,6 +32,7 @@ import torch
 from torch.profiler import record_function
 
 SPAN = "deform_sampling"  # the record_function span of each ms_deform_attn_core call
+BACKWARD_SPAN = "deform_sampling_backward"  # and of its backward, where autograd runs one
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))  # (dy, dx)
 
 
@@ -138,6 +142,37 @@ class OneHotLevel(torch.autograd.Function):
         return dvalue, dloc, dattn
 
 
+class _OpenBackwardSpan(torch.autograd.Function):
+    """Identity on the sampling's output; its backward, the first of the sampling's
+    backward, opens ``BACKWARD_SPAN`` and leaves it in ``span``."""
+
+    @staticmethod
+    def forward(ctx, span, out):
+        ctx.span = span
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.span.append(record_function(BACKWARD_SPAN).__enter__())
+        return None, g
+
+
+class _CloseBackwardSpan(torch.autograd.Function):
+    """Identity on the sampling's inputs; its backward, which autograd runs once their
+    three gradients are complete, closes the span that ``_OpenBackwardSpan`` opened."""
+
+    @staticmethod
+    def forward(ctx, span, *inputs):
+        ctx.span = span
+        return tuple(x.view_as(x) for x in inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if ctx.span:
+            ctx.span.pop().__exit__(None, None, None)
+        return (None, *grads)
+
+
 def sampling_methods(
     n: int, m: int, lq: int, spatial_shapes: Sequence[Tuple[int, int]], method: str = "auto",
     onehot_cap: int = 192 * 1024 * 1024,
@@ -167,6 +202,10 @@ def ms_deform_attn_core(
     if sum(h * w for h, w in spatial_shapes) != s:
         raise ValueError(f"spatial shapes {spatial_shapes} do not sum to S = {s}")
     methods = sampling_methods(n, m, lq, spatial_shapes, method, onehot_cap)
+    inputs = (value, sampling_locations, attention_weights)
+    span = [] if torch.is_grad_enabled() and any(x.requires_grad for x in inputs) else None
+    if span is not None:
+        value, sampling_locations, attention_weights = _CloseBackwardSpan.apply(span, *inputs)
     with record_function(SPAN):
         value = value.float()
         sampling_locations = sampling_locations.float()
@@ -179,4 +218,5 @@ def ms_deform_attn_core(
             sample = OneHotLevel.apply if onehot else _sample_level
             out = out + sample(v, sampling_locations[:, :, :, lid], attention_weights[:, :, :, lid])
             start += h * w
-        return out.reshape(n, lq, m * d)
+        out = out.reshape(n, lq, m * d)
+    return out if span is None else _OpenBackwardSpan.apply(span, out)

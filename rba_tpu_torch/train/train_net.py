@@ -6,7 +6,9 @@ Usage:
         [--max-iter N] [--batch-size B] [--grad-accum K] [--resume] [--device cpu] \
         [--eval-only] [--eval-period N] [--eval-max-images N]
 
-A config-driven loop on one GPU (``--device`` asks for another device, e.g. the CPU): the
+``--config-file`` is a Detectron2 YAML or a native one (``config.load_config``), such as
+the non-Swin recipes under ``configs/cityscapes/semantic-segmentation/`` (ResNet, MiT,
+MViT, ViT, WiderResNet-38: every backbone family trains).  A config-driven loop on one GPU (``--device`` asks for another device, e.g. the CPU): the
 mapper named by ``INPUT.DATASET_MAPPER_NAME`` fed by mapper threads, the train step of
 ``train/train_step.py`` (the batch goes to the card), ``metrics.jsonl`` every
 ``--log-period`` steps (the losses, ``grad_norm``, images/s and, with the COCO-mix
@@ -348,12 +350,12 @@ def _log(log_path: str, m: dict) -> None:
 
 def main(argv=None):
     args = parse_args(argv)
-    from ..config import load_d2_config
+    from ..config import load_config
     from ..convert.checkpoint import latest_step, load_checkpoint_params, restore_train_state, save_train_state
     from ..models.maskformer import resolve_device
     from .train_step import make_train_state, make_train_step
 
-    cfg = load_d2_config(args.config_file)
+    cfg = load_config(args.config_file)
     if args.num_gpus != 1:
         raise NotImplementedError(f"--num-gpus {args.num_gpus}: training on several GPUs is not ported yet "
                                   "(ROADMAP.md §A.8)")

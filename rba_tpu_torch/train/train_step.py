@@ -38,10 +38,6 @@ def _check_trainable(cfg: RbAConfig) -> None:
     if cfg.sem_seg_head_name != "MaskFormerHead":
         raise NotImplementedError(
             f"training the per-pixel baseline head {cfg.sem_seg_head_name!r} is not ported yet (ROADMAP.md §A.6)")
-    if cfg.backbone_name != "swin":
-        raise NotImplementedError(
-            f"training the {cfg.backbone_name!r} backbone is not ported yet (ROADMAP.md §A.7): the port serves "
-            "the non-Swin backbones, and trains Swin only")
 
 
 def make_train_state(cfg: RbAConfig, device=None, seed: int = 0, model: Optional[RbAModel] = None) -> TrainState:

@@ -13,7 +13,11 @@
 - The pixel decoder with one input feature (ViT) and with five features at one stride
   (WiderResNet-38: four FPN levels that need no resize) against rba_tpu's.
 - The mask stride of each family's shipped config, and the trainer's refusal of
-  non-Swin backbones.
+  per-pixel heads (it trains every backbone family).
+- The open-panoptic evaluator on the stride-16 ViT model: its open branch's map is
+  ``open_rba_map`` of the full-resolution logits (Kernel B's ×4 does not fit there), so
+  ``predict`` equals rba_tpu's ``panoptic_inference`` with ``rba_map=None``, segments
+  and panoptic map.
 """
 import dataclasses
 
@@ -161,9 +165,35 @@ def test_mask_stride_of_each_family(path, stride):
         assert RbAModel(cfg).mask_stride(cfg) == stride
 
 
-def test_training_refuses_non_swin_backbones():
+def test_training_refuses_per_pixel_heads():
     from rba_tpu_torch.train.train_step import make_train_state
 
-    cfg = dataclasses.replace(tconfig.tiny_test_config(), backbone_name="resnet")
-    with pytest.raises(NotImplementedError, match="§A.7"):
+    cfg = dataclasses.replace(small_head(tconfig, "resnet", ("res5",)), sem_seg_head_name="PerPixelBaselineHead")
+    with pytest.raises(NotImplementedError, match="§A.6"):
         make_train_state(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("ood_threshold", [-1e9, -2.5])
+def test_vit_open_panoptic_equals_rba_tpu(vit, monkeypatch, ood_threshold):
+    """One seeded 64x96 frame, object-mask and overlap thresholds 0: the port's
+    ``OpenPanopticEvaluator.predict`` on the stride-16 ViT model against rba_tpu's
+    ``panoptic_inference`` (``rba_map=None``: the map from the full-resolution logits) on
+    rba_tpu's own outputs.  Kernel B (and its plain version) is never called.  At the
+    threshold -1e9 the unlabelled pixels form an unknown segment."""
+    from rba_tpu.evalx import seg_evaluators as jse
+    from rba_tpu.models import inference as jinf
+    from rba_tpu_torch.evalx import seg_evaluators as tse
+
+    jcfg, tcfg, params, model = vit
+    jcfg, tcfg = ((dataclasses.replace(c, test=dataclasses.replace(c.test, object_mask_threshold=0.0,
+                                                                    overlap_threshold=0.0)))
+                  for c in (jcfg, tcfg))
+    monkeypatch.setattr(tse, "fused_rba_score", None)
+    image = np.random.RandomState(7).randint(0, 256, (64, 96, 3)).astype(np.uint8)
+    kw = dict(thing_ids=(5, 6), open_panoptic=True, ood_threshold=ood_threshold)
+    got_map, got_segs = tse.OpenPanopticEvaluator(tcfg, model, **kw).predict(image)
+    mask_cls, mask_pred = jse.OpenPanopticEvaluator(jcfg, params, **kw)._raw_outputs(image)
+    want_map, want_segs = jinf.panoptic_inference(jcfg, mask_cls, mask_pred, rba_map=None, **kw)
+    assert got_map.shape == (64, 96)
+    assert np.array_equal(got_map, want_map) and got_segs == want_segs
+    assert any(seg["category_id"] == 255 for seg in got_segs) == (ood_threshold == -1e9)

@@ -88,6 +88,43 @@ def test_train_cli_end_to_end(tmp_path):
     assert any(not torch.equal(p, q) for p, q in zip(step2.parameters(), model.parameters()))
 
 
+def test_train_cli_on_a_native_non_swin_recipe(tmp_path):
+    """A native YAML (``save_config``'s format, as the non-Swin recipes under
+    ``configs/cityscapes/semantic-segmentation/`` are): MiT-B0 under the narrow head with
+    the coco-mix recipes' solver, backbone and pixel decoder frozen.  One step: finite
+    losses with the outlier loss; the checkpoint keeps the frozen parameters of the seeded
+    model bit for bit and moves the decoder's."""
+    import dataclasses
+
+    from rba_tpu_torch.models.maskformer import build_model
+    from tests.torch_port_common import train_head_cfg
+
+    _write_trees(tmp_path)
+    cfg = train_head_cfg(tconfig, "mit_b0", freeze_backbone=True, freeze_pixel_decoder=True, ims_per_batch=2,
+                         max_iter=1, num_workers=1)
+    cfg = dataclasses.replace(
+        cfg, input=dataclasses.replace(cfg.input, dataset_mapper_name="mask_former_semantic_coco_mix",
+                                       min_size_train=(40, 48), max_size_train=200, crop_size=(32, 64),
+                                       color_aug_ssd=False),
+        ood=dataclasses.replace(cfg.ood, ood_prob=1.0), test=dataclasses.replace(cfg.test, eval_period=0))
+    cfg_path = tmp_path / "mit_b0_coco_mix.yaml"
+    tconfig.save_config(str(cfg_path), cfg)
+    assert "MODEL" not in yaml.safe_load(cfg_path.read_text())
+    out = tmp_path / "out"
+    state = train_net.main(["--config-file", str(cfg_path), "--data-root", str(tmp_path / "cityscapes"),
+                            "--output-dir", str(out), "--log-period", "1", "--seed", "1", "--device", "cpu"])
+    assert state.step == 1
+    (m,) = [json.loads(line) for line in open(out / "metrics.jsonl")]
+    assert "outlier_loss" in m and all(np.isfinite(v) for v in m.values())
+    start = dict(build_model(cfg, device="cpu", seed=1).named_parameters())
+    trained = load_checkpoint_params(str(out / "checkpoints" / "step_1"), cfg, device="cpu")
+    for name, p in trained.named_parameters():
+        if name.startswith(("backbone.", "sem_seg_head.pixel_decoder.")):
+            assert torch.equal(p, start[name]), name
+        else:
+            assert not torch.equal(p, start[name]), name
+
+
 @pytest.mark.parametrize("extra,item", [(["--mapper", "mask_former_semantic_void"], "§A.4"),
                                         (["--num-gpus", "2"], "§A.8")])
 def test_unported_paths_are_refused(tmp_path, extra, item):

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -265,4 +266,180 @@ def d2_full_state_dict(cfg, seed: int):
     sd = {k: v for k, v in heads.items() if not k.startswith("backbone.")}
     sd.update(d2_backbone_state_dict(cfg, seed + 1))
     return sd
+
+
+
+# ---------------------------------------------------------------------------
+# Training parity on every backbone family (tests/test_torch_train_backbones*.py)
+# ---------------------------------------------------------------------------
+
+# the pixel decoder's inputs and deformable levels of each family's small training head:
+# the shipped recipes' features (ResNet at R50's three levels)
+TRAIN_HEAD_FEATURES = {
+    "resnet": (("res2", "res3", "res4", "res5"), ("res3", "res4", "res5")),
+    "mit_b0": (("res2", "res3", "res4", "res5"), ("res5",)),
+    "mvit": (("scale2", "scale3", "scale4", "scale5"), ("scale5",)),
+    "vit": (("last_feat",), ("last_feat",)),
+    "vit_sfp": (("res2", "res3", "res4", "res5"), ("res5",)),
+    "wideresnet38": (("res4", "res5", "res6", "res7", "res7_bn"), ("res7_bn",)),
+}
+TRAIN_OOD = dict(outlier_supervision=True, outlier_loss_target="nls", score_norm="tanh",
+                 outlier_loss_func="squared_hinge")
+TRAIN_B, TRAIN_HW, TRAIN_T = 2, (64, 96), 3
+
+
+def train_head_cfg(pkg, backbone: str, **solver):
+    """``tiny_test_config``'s narrow head (one decoder layer, 48 points) over the full
+    ``backbone`` at fp32, with the outlier loss of the coco-mix recipes, from ``pkg``
+    (``rba_tpu.config`` or the port's)."""
+    base = pkg.tiny_test_config()
+    in_features, levels = TRAIN_HEAD_FEATURES[backbone]
+    return dataclasses.replace(
+        base, backbone_name=backbone, compute_dtype="float32",
+        pixel_decoder=dataclasses.replace(base.pixel_decoder, in_features=in_features, transformer_in_features=levels),
+        decoder=dataclasses.replace(base.decoder, num_feature_levels=len(levels), dec_layers=1),
+        ood=dataclasses.replace(base.ood, **TRAIN_OOD), loss=dataclasses.replace(base.loss, train_num_points=48),
+        solver=dataclasses.replace(base.solver, **solver))
+
+
+def train_batch(seed: int, b: int = TRAIN_B, hw=TRAIN_HW, t: int = TRAIN_T) -> dict:
+    """A seeded training batch in numpy: raw images, ``t`` class targets from a label map
+    with a pasted outlier block (254), one invalid target."""
+    rs = np.random.RandomState(seed)
+    h, w = hw
+    sem = rs.randint(0, 4, (b, h, w)).astype(np.int32)
+    sem[:, h // 4 : h // 2, w // 6 : w // 2] = 254
+    batch = dict(images=(rs.rand(b, h, w, 3) * 255).astype(np.float32),
+                 gt_labels=np.tile(np.arange(t, dtype=np.int32), (b, 1)),
+                 gt_masks=np.stack([[sem[i] == c for c in range(t)] for i in range(b)]).astype(np.float32),
+                 gt_valid=np.ones((b, t), np.float32), sem_seg=sem, outlier_masks=(sem == 254).astype(np.int32))
+    batch["gt_valid"][-1, -1] = 0.0
+    return batch
+
+
+def torch_batch(batch: dict) -> dict:
+    return {k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.int32 else v) for k, v in batch.items()}
+
+
+def _split_numbers(tree):
+    """(the tree with its Python-number leaves set to None, a function that puts them
+    back): the SFP tree keeps its scale factors as numbers, which ``jax.jit`` would trace."""
+    numbers = [(p, v) for p, v in tree_leaves(tree) if isinstance(v, (int, float))]
+
+    def put(t, path, value):
+        t = list(t) if isinstance(t, (list, tuple)) else dict(t)
+        t[path[0]] = value if len(path) == 1 else put(t[path[0]], path[1:], value)
+        return t
+
+    stripped = tree
+    for path, _ in numbers:
+        stripped = put(stripped, path, None)
+
+    def restore(t):
+        for path, value in numbers:
+            t = put(t, path, value)
+        return t
+
+    return stripped, restore
+
+
+def train_pair(backbone: str, seed: int = 0, **solver):
+    """(jcfg, tcfg, rba_tpu's tree, the port's model on the CPU) of ``train_head_cfg``,
+    both converted from one seeded Detectron2 dict (``d2_full_state_dict``)."""
+    from rba_tpu import config as jconfig
+    from rba_tpu.convert.d2_mapping import convert_d2_state_dict
+    from rba_tpu_torch import config as tconfig
+    from rba_tpu_torch.convert import load_jax_params
+    from rba_tpu_torch.models.maskformer import build_model
+
+    jcfg, tcfg = train_head_cfg(jconfig, backbone, **solver), train_head_cfg(tconfig, backbone, **solver)
+    params = convert_d2_state_dict(d2_full_state_dict(tcfg, seed), jcfg)
+    model = build_model(tcfg, device="cpu", seed=seed)
+    load_jax_params(model, params)
+    return jcfg, tcfg, params, model
+
+
+def rba_tpu_loss_and_grads(jcfg, params, batch: dict, key):
+    """The body of rba_tpu's ``make_train_step`` ``loss_fn`` under ``jax.value_and_grad``,
+    jitted: (the weighted losses with ``total``, the gradients by the port's parameter
+    names, the gradient tree)."""
+    from rba_tpu.models import maskformer as jmf
+    from rba_tpu.train import criterion as jcrit
+    from rba_tpu_torch.convert.params import jax_params_to_state
+
+    arrays, restore = _split_numbers(params)
+
+    def loss_fn(p, b):
+        outputs = jmf.maskformer_forward(restore(p), jcfg, jmf.preprocess(jcfg, b["images"]))
+        losses = jcrit.criterion(jcfg, key, outputs, {k: v for k, v in b.items() if k != "images"})
+        return losses["total"], losses
+
+    (total, losses), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        to_jax(arrays), {k: jnp.asarray(v) for k, v in batch.items()})
+    grads = jax.tree_util.tree_map(np.asarray, grads)
+    assert float(total) == float(losses["total"])
+    # the numbers' None leaves drop out of the named gradients
+    return {k: float(v) for k, v in losses.items()}, jax_params_to_state(grads), grads
+
+
+class TrainStepPair:
+    """One training step of ``train_head_cfg(backbone)`` in both packages on
+    ``train_batch(1)`` with the criterion's draws of one key: ``want`` / ``got`` the
+    weighted losses, ``want_grads`` / ``got_grads`` the gradients by parameter name."""
+
+    def __init__(self, backbone: str, seed: int = 0):
+        self.jcfg, self.tcfg, self.params, self.model = train_pair(backbone, seed)
+        self.batch, self.key = train_batch(1), jax.random.PRNGKey(5)
+        self.want, self.want_grads, self.want_tree = rba_tpu_loss_and_grads(self.jcfg, self.params, self.batch,
+                                                                            self.key)
+        self.got, self.got_grads = port_loss_and_grads(self.tcfg, self.model, self.batch, self.key)
+
+
+LOSS_TOL = 1e-4  # each weighted loss, relative to max(1, |loss|)
+GRAD_TOL = 1e-4  # each gradient, relative to its leaf's largest magnitude
+
+
+def assert_losses_match(pair: TrainStepPair) -> float:
+    assert sorted(pair.got) == sorted(pair.want)
+    assert "outlier_loss" in pair.got and "outlier_loss_0" in pair.got
+    errs = {k: abs(pair.got[k] - w) / max(1.0, abs(w)) for k, w in pair.want.items()}
+    assert max(errs.values()) <= LOSS_TOL, errs
+    return max(errs.values())
+
+
+def port_loss_and_grads(tcfg, model, batch: dict, key):
+    """The port's forward (``need_aux=True``, ``attention="xla"``), criterion on rba_tpu's
+    draws of ``key`` replayed, and backward: (the weighted losses, the gradients by name)."""
+    from rba_tpu_torch.models import maskformer as tmf
+    from rba_tpu_torch.train import criterion as tcrit
+
+    uniform = replay(criterion_draws(key, tcfg.loss, TRAIN_B, TRAIN_T, 1 + tcfg.decoder.dec_layers))
+    tb = torch_batch(batch)
+    model.zero_grad(set_to_none=True)
+    outputs = tmf.maskformer_forward(model, tcfg, tmf.preprocess(tcfg, tb["images"]), need_aux=True,
+                                     attention="xla")
+    losses = tcrit.criterion(tcfg, uniform, outputs, {k: v for k, v in tb.items() if k != "images"})
+    assert not uniform.left
+    losses["total"].backward()
+    # a parameter outside the graph has a zero gradient, as in jax.grad
+    grads = {n: p.grad.numpy().copy() if p.grad is not None else np.zeros(tuple(p.shape), np.float32)
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    """Per parameter, max |got − want| relative to the leaf's largest |want|."""
+    assert sorted(got) == sorted(want), sorted(set(got) ^ set(want))
+    return {n: float(np.abs(got[n] - w).max() / max(np.abs(w).max(), 1e-30)) for n, w in want.items()}
+
+
+def assert_gradients_match(pair: TrainStepPair, request) -> dict:
+    """Every gradient of ``pair`` within ``GRAD_TOL`` of rba_tpu's, relative to its leaf's
+    largest magnitude; the largest error is recorded.  Returns the port's gradients."""
+    errs = grad_errors(pair.got_grads, pair.want_grads)
+    worst = max(errs, key=errs.get)
+    record(request, grad_rel_err=errs[worst], leaves=len(errs))
+    assert errs[worst] <= GRAD_TOL, (worst, errs[worst])
+    return pair.got_grads
 
