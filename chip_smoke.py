@@ -63,6 +63,17 @@ other phases below, the non-Swin backbones last.
 - ``r50_d2``: a D2-format R50 ``config.yaml`` and a seeded full-width ``model_final.pth``
   loaded with ``load_checkpoint_params`` (bit-equal to the CPU conversion), one request,
   and the sweep CLI over that model directory.
+- ``train_backbones``: the non-Swin recipes' training steps (``train_backbones_phase``).
+- ``swin_l``: ``swin_l_1dl()`` from a seeded full-width Detectron2 checkpoint (bit-equal to
+  the CPU conversion), 1024x2048 requests on path 1 (A 24, B 1) and path 2 (C 24, no D at
+  Swin-L's widths, B 1), fp32 kernels against plain and path 2 against path 1; then 720x1280
+  StreetHazards frames read through the catalog and evaluated by ``OODEvaluator``.
+- ``train_datasets``: ``train_net.main`` on the Swin-L Mapillary + Cityscapes fine-tune (a
+  ``ConcatDataset``, from the swin_l checkpoint, then ``--eval-only`` on Mapillary val), the
+  COCO open-panoptic Swin-B recipe (``coco_panoptic_lsj``) and Mapillary Vistas' 65 classes
+  on R50 (then ``--eval-only``), at full width and depth over synthetic Mapillary
+  (3072x4096) and COCO panoptic trees: Kernel E's launches, the frozen parameters, the
+  unknown classes never targets, the sampling's forward and backward spans.
 
 Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
@@ -108,6 +119,8 @@ SFU_OPS_PER_S = ALU_OPS_PER_S / 8
 IMAGE_HW = (1024, 2048)
 BIG_FRAME_HW = (3072, 4096)  # a Mapillary Vistas-sized frame, the sliding window's use
 COCO_HW = (800, 1067)  # a 640x480 COCO image at MIN_SIZE_TEST 800: the panoptic phase's frames
+MAPILLARY_EVAL_HW = (1536, 2048)  # a 3072x4096 Mapillary frame at MIN_SIZE_TEST 2048, MAX_SIZE_TEST 2048
+STREET_HAZARDS_HW = (720, 1280)  # StreetHazards' frame size, 736x1280 once padded to 32
 N_REQUESTS = 4  # distinct images served after one warm-up request
 E2E_FP32_TOL = 1e-3  # score-map bound of rba_tpu's selfcheck
 BF16_ULP = 2.0**-7  # one bf16 ulp, relative to the value, at most
@@ -185,7 +198,8 @@ def served_sizes(cfg):
     """Every input size that the driven phases give the backbone, padded to the size
     divisibility, in first-use order: the 1024x2048 request and the sweep's synthetic
     images, each whole, in its TTA variants and in its sliding-window tiles, the
-    3072x4096 frame's tiles, and the panoptic phase's COCO frames."""
+    3072x4096 frame's tiles, the panoptic phase's COCO frames, the Mapillary evaluation's
+    frames and StreetHazards' frames."""
     from rba_tpu_torch.data.ood_datasets import SyntheticAnomaly
     from rba_tpu_torch.models.sliding_window import tile_grid
     from rba_tpu_torch.models.tta import tta_variants
@@ -193,7 +207,17 @@ def served_sizes(cfg):
     sizes = []
     for hw in (IMAGE_HW, SyntheticAnomaly().hw):
         sizes += [hw, *((h, w) for h, w, _ in tta_variants(cfg, *hw)), tile_grid(*hw)[:2]]
-    sizes += [tile_grid(*BIG_FRAME_HW)[:2], COCO_HW]
+    sizes += [tile_grid(*BIG_FRAME_HW)[:2], COCO_HW, MAPILLARY_EVAL_HW, STREET_HAZARDS_HW]
+    return _padded(cfg, sizes)
+
+
+def swin_l_sizes(cfg):
+    """The input sizes of the swin_l and train_datasets phases, padded as ``served_sizes``:
+    the 1024x2048 request, the Mapillary evaluation's frames, StreetHazards' frames."""
+    return _padded(cfg, [IMAGE_HW, MAPILLARY_EVAL_HW, STREET_HAZARDS_HW])
+
+
+def _padded(cfg, sizes):
     div = cfg.input.size_divisibility
     return list(dict.fromkeys((-(-h // div) * div, -(-w // div) * div) for h, w in sizes))
 
@@ -214,11 +238,14 @@ def stage_shapes(cfg, hw=IMAGE_HW):
 
 
 # ---------------------------------------------------------------------------
-# Kernel A: window attention at the Swin-B 1024x2048 stage shapes (timed) and at every
-# other shape that the driven phases give it
+# Kernel A: window attention at the Swin-B and Swin-L 1024x2048 stage shapes (timed) and
+# at every other shape that the driven phases give it
 # ---------------------------------------------------------------------------
 
-def window_attention_phase(cfg, gen):
+def _window_attention_timed(cfg, gen):
+    """Kernel A against its plain version at bf16 and fp32, timed against it and SDPA, at
+    each stage shape of one 1024x2048 request of ``cfg``: (rows, totals per image, worst
+    bf16 error)."""
     from rba_tpu_torch.kernels.window_attention import window_attention, window_attention_reference
     from rba_tpu_torch.models.swin import shifted_window_mask
 
@@ -271,14 +298,31 @@ def window_attention_phase(cfg, gen):
         for key, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b_ms)):
             totals[key] += count * t
         totals["ms_batches"] = [a + count * t for a, t in zip(totals["ms_batches"], t_all)]
+    return rows, totals, worst
+
+
+def window_attention_phase(cfg, gen, cfg_l):
+    """Kernel A against its plain version, timed, at every stage shape of one 1024x2048
+    request of ``cfg`` (Swin-B) and of ``cfg_l`` (Swin-L's head counts), then at every other
+    shape that the driven phases give it.  Returns the rows, Swin-B's and Swin-L's totals
+    per image, the worst bf16 error and the shapes held."""
+    rows, totals, worst = _window_attention_timed(cfg, gen)
+    rows_l, totals_l, worst_l = _window_attention_timed(cfg_l, gen)
+    rows += [dict(r, config="swin_l") for r in rows_l]
+    worst = max(worst, worst_l)
     # correctness alone at every other window-attention shape that the driven phases
     # give the kernel (served_sizes: TTA variants up to 1792x3584, 1024x1024 tiles, the
-    # sweep's synthetic images), at bf16 and fp32; main() gates that these cover every
-    # shape the kernel was launched at
-    checked = {(nw, nh, c // nh, masked) for _, masked, nw, nh, c, _, _, _ in stage_shapes(cfg)}
-    for hw in served_sizes(cfg)[1:]:
+    # sweep's synthetic images, the Mapillary and StreetHazards frames; swin_l_sizes at
+    # Swin-L's head counts), at bf16 and fp32; main() gates that these cover every shape
+    # the kernel was launched at
+    from rba_tpu_torch.kernels.window_attention import window_attention, window_attention_reference
+    from rba_tpu_torch.models.swin import shifted_window_mask
+
+    ws, n = cfg.swin.window_size, cfg.swin.window_size**2
+    checked = {(nw, nh, c // nh, masked) for c_ in (cfg, cfg_l) for _, masked, nw, nh, c, _, _, _ in stage_shapes(c_)}
+    for scfg, hw in [(cfg, hw) for hw in served_sizes(cfg)[1:]] + [(cfg_l, hw) for hw in swin_l_sizes(cfg_l)[1:]]:
         first = len(rows)
-        for s, masked, nw, nh, c, hp, wp, _ in stage_shapes(cfg, hw):
+        for s, masked, nw, nh, c, hp, wp, _ in stage_shapes(scfg, hw):
             if (nw, nh, c // nh, masked) in checked:
                 continue
             checked.add((nw, nh, c // nh, masked))
@@ -292,19 +336,20 @@ def window_attention_phase(cfg, gen):
             err32 = max_abs(window_attention(q32, bias, mask, nh, scale),
                             window_attention_reference(q32, bias, mask, nh, scale))
             err, tol, share = max_abs(got, want), BF16_ULP * float(want.float().abs().max()), bf16_ulp_share(got, want)
-            rows.append(dict(image_hw=list(hw), stage=s, masked=masked, nW=nw, nh=nh, max_abs_err_bf16=err,
+            rows.append(dict(image_hw=list(hw), nh_per_stage=list(scfg.swin.num_heads), stage=s, masked=masked, nW=nw,
+                             nh=nh, max_abs_err_bf16=err,
                              tol_bf16=tol, bf16_ulp_share=share, max_abs_err_fp32=err32, tol_fp32=1e-4))
             if not (err <= tol and share >= BF16_SHARE and err32 <= 1e-4):
                 raise RuntimeError(f"window_attention disagrees with its plain version at {hw}: {rows[-1]}")
             worst = max(worst, err)
         new = rows[first:]
         if new:
-            log(f"window_attention at {hw[0]}x{hw[1]}, {len(new)} new shapes (nW "
+            log(f"window_attention at {hw[0]}x{hw[1]}, heads {scfg.swin.num_heads}, {len(new)} new shapes (nW "
                 f"{sorted({r['nW'] for r in new}, reverse=True)}): worst bf16 err / tol "
                 f"{max(r['max_abs_err_bf16'] / r['tol_bf16'] for r in new):.3f}, least share within 1 ulp "
                 f"{min(r['bf16_ulp_share'] for r in new):.6f} (tol {BF16_SHARE}), worst fp32 err "
                 f"{max(r['max_abs_err_fp32'] for r in new):.3e} (tol 1e-4)")
-    return rows, totals, worst, checked
+    return rows, totals, worst, checked, totals_l
 
 
 # ---------------------------------------------------------------------------
@@ -348,7 +393,9 @@ def fused_rba_phase(cfg, gen):
         raise RuntimeError(f"fused_rba_score disagrees with its plain version: {row}")
     # correctness alone: two batch elements with different cls, and a K that needs a
     # second pass of 24 classes, on masks whose width is not a whole tile of patches
-    for b, k2, h2, w2 in ((2, k, 64, 200), (2, 40, 64, 200)):
+    # and at StreetHazards' stride-4 logits of a 736x1280 padded frame
+    sh = [-(-d // 32) * 8 for d in STREET_HAZARDS_HW]
+    for b, k2, h2, w2 in ((2, k, 64, 200), (2, 40, 64, 200), (1, k, *sh)):
         cls2 = torch.randn(b, q, k2 + 1, generator=gen, device="cuda")
         masks2 = torch.randn(b, h2, w2, q, generator=gen, device="cuda") * 2
         got2 = fused_rba_score(cls2, masks2, masks_layout="bhwq")
@@ -1760,20 +1807,20 @@ def semseg_phase(model_dir: Path):
                 fp32_miou=miou[False], fp32_miou_plain=miou[True])
 
 
-def _write_coco_panoptic(root: Path, frames: int, seed: int = 0):
-    """``frames`` COCO-format panoptic frames of COCO_HW under ``root/coco`` (val2017/*.png
-    images, panoptic_val2017/*.png RGB id maps, annotations/panoptic_val2017.json) in raw
-    COCO category ids: a grid of 4x6 segments, each of a random class of the 133 (so some
-    of the open protocol's unknown things), a few crowds, and void seams."""
+def _write_coco_panoptic(root: Path, frames: int, seed: int = 0, split: str = "val"):
+    """``frames`` COCO-format panoptic frames of COCO_HW under ``root/coco`` (<split>2017/*.png
+    images, panoptic_<split>2017/*.png RGB id maps, annotations/panoptic_<split>2017.json) in
+    raw COCO category ids: a grid of 4x6 segments, each of a random class of the 133 (so
+    some of the open protocol's unknown things), a few crowds, and void seams."""
     from PIL import Image
 
     from rba_tpu_torch.data.categories import COCO_PANOPTIC_CATEGORIES
 
     rs = np.random.RandomState(seed)
     h, w = COCO_HW
-    img_dir, pan_dir, ann_dir = (root / "coco" / d for d in ("val2017", "panoptic_val2017", "annotations"))
+    img_dir, pan_dir, ann_dir = (root / "coco" / d for d in (f"{split}2017", f"panoptic_{split}2017", "annotations"))
     for d in (img_dir, pan_dir, ann_dir):
-        d.mkdir(parents=True)
+        d.mkdir(parents=True, exist_ok=True)
     palette = rs.randint(0, 256, (len(COCO_PANOPTIC_CATEGORIES), 3))
     images, anns = [], []
     for i in range(frames):
@@ -1795,7 +1842,7 @@ def _write_coco_panoptic(root: Path, frames: int, seed: int = 0):
         Image.fromarray(rgb).save(pan_dir / f"{i:012d}.png", compress_level=1)
         images.append({"id": i, "file_name": f"{i:012d}.png", "height": h, "width": w})
         anns.append({"image_id": i, "file_name": f"{i:012d}.png", "segments_info": segs})
-    (ann_dir / "panoptic_val2017.json").write_text(json.dumps({"images": images, "annotations": anns}))
+    (ann_dir / f"panoptic_{split}2017.json").write_text(json.dumps({"images": images, "annotations": anns}))
 
 
 @contextlib.contextmanager
@@ -2473,6 +2520,397 @@ def train_backbones_phase(image):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Swin-L on the card: a seeded Detectron2 checkpoint served on both paths, and the OOD
+# evaluation of StreetHazards frames through path 1
+# ---------------------------------------------------------------------------
+
+STREET_HAZARDS_FRAMES = 4  # synthetic StreetHazards test frames
+
+
+def _write_street_hazards(root: Path, frames: int, seed: int = 0):
+    """``frames`` StreetHazards test frames of STREET_HAZARDS_HW under ``root/street_hazards``
+    (images/test/t5/*.png and annotations/test/t5/*.png, the 1-based class ids 1-13 in
+    blocks and the anomaly id 14 on an ellipse)."""
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    h, w = STREET_HAZARDS_HW
+    img_dir, ann_dir = (root / "street_hazards" / d / "test" / "t5" for d in ("images", "annotations"))
+    for d in (img_dir, ann_dir):
+        d.mkdir(parents=True, exist_ok=True)
+    palette = rs.randint(0, 256, (15, 3))
+    yy, xx = np.mgrid[0:h, 0:w]
+    for i in range(frames):
+        lab = (rs.randint(1, 14, (9, 16)).repeat(h // 9, 0).repeat(w // 16, 1)).astype(np.uint8)
+        cy, cx, ry, rx = rs.randint(h // 3, 2 * h // 3), rs.randint(w // 4, 3 * w // 4), rs.randint(30, 90), rs.randint(40, 140)
+        lab[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1] = 14
+        img = np.clip(palette[lab] + rs.randint(-25, 26, (h, w, 3)), 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(img_dir / f"{i:06d}.png", compress_level=1)
+        Image.fromarray(lab).save(ann_dir / f"{i:06d}.png", compress_level=1)
+
+
+def swin_l_phase(images):
+    """``swin_l_1dl()`` at full width and depth: a seeded Detectron2 ``model_final.pth``
+    (``write_d2_checkpoint``) loaded onto the card with ``load_checkpoint_params``, every
+    parameter bit-equal to the CPU conversion of the same dict; ``N_REQUESTS`` 1024x2048
+    requests on path 1 (A 24, B 1 each) and on path 2 (C 24, D 0: Swin-L's widths take no
+    fused MLP, B 1), each path's fp32 entry against its plain kernels within 1e-3 and
+    path 2's fp32 maps against path 1's; ms/image, peak memory and one profiled request
+    of each (busy, idle share, busy per layer).  Then StreetHazards: STREET_HAZARDS_FRAMES
+    720x1280 frames read through ``catalog.get("street_hazards_test")`` and evaluated by
+    ``OODEvaluator`` through path 1 (A 24 and B 1 per frame), metrics finite.  Returns the
+    measurements and the model directory."""
+    from rba_tpu_torch.config import swin_l_1dl
+    from rba_tpu_torch.convert import jax_params_to_state, load_checkpoint_params
+    from rba_tpu_torch.convert.d2_mapping import convert_d2_state_dict
+    from rba_tpu_torch.data import catalog
+    from rba_tpu_torch.evalx.evaluator import OODEvaluator
+    from rba_tpu_torch.kernels.fused_mlp import beneficial as fused_mlp_beneficial
+
+    cfg = swin_l_1dl()
+    cfg2 = dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, mlp_impl="fused"))
+    model_dir = SCRATCH / "swin_l" / "swin_l_1dl"
+    shutil.rmtree(model_dir, ignore_errors=True)
+    model_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    sd = write_d2_checkpoint(cfg, model_dir / "model_final.pth")
+    write_s = time.perf_counter() - t0
+    want = {k: torch.from_numpy(v) for k, v in jax_params_to_state(convert_d2_state_dict(sd, cfg)).items()}
+    t0 = time.perf_counter()
+    model = load_checkpoint_params(str(model_dir), cfg)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    params = dict(model.named_parameters())
+    wrong = [n for n, p in params.items() if not (p.is_cuda and torch.equal(p.detach().cpu(), want[n]))]
+    n_params = sum(p.numel() for p in params.values())
+    log(f"swin_l: model_final.pth of {len(sd)} arrays ({n_params / 1e6:.2f} M parameters) written in {write_s:.2f} s, "
+        f"converted onto the card in {load_s:.2f} s; parameters not equal to the CPU conversion: {len(wrong)}")
+    if wrong or sorted(params) != sorted(want):
+        raise RuntimeError(f"swin_l: parameters differ from the CPU conversion: {wrong[:5]}")
+    del sd, want, params
+    n_blocks = sum(cfg.swin.depths)
+    if any(fused_mlp_beneficial(1024, cfg.swin.stage_dim(i)) for i in range(cfg.swin.num_layers)):
+        raise RuntimeError("swin_l: the fused-MLP dispatch would take Kernel D at a Swin-L width")
+    paths = [("path1", cfg, "fused", {"window_attention": n_blocks, "fused_rba_score": 1},
+              {"window_attention_mma_kernel": "window_attention_kernel", "fused_rba_mma_kernel": "fused_rba_kernel"}),
+             ("path2", cfg2, "fused_softmax", {"masked_softmax": n_blocks, "fused_rba_score": 1},
+              {"masked_softmax_walk_kernel": "masked_softmax_kernel", "fused_rba_mma_kernel": "fused_rba_kernel"})]
+    out = dict(parameters=n_params, write_s=write_s, load_convert_s=load_s)
+    scores32 = {}
+    for name, pcfg, attention, per_image, redesigned in paths:
+        out[name], _, scores32[name] = serve_phase(f"swin_l {name}", pcfg, model, images, attention, per_image)
+        out[name]["profile"] = profile_phase(f"swin_l {name}", pcfg, model, images[1], attention, redesigned)
+    cross32 = max(max_abs(a, b) for a, b in zip(scores32["path1"], scores32["path2"]))
+    out["paths_fp32_max_diff"] = cross32
+    log(f"swin_l: score map, path 2 vs path 1: fp32 max diff {cross32:.3e} (bound {E2E_FP32_TOL:.0e}, gated)")
+    if not cross32 <= E2E_FP32_TOL:
+        raise RuntimeError(f"swin_l: fp32 score maps of path 2 and path 1 differ by {cross32} > {E2E_FP32_TOL}")
+    del scores32
+
+    # StreetHazards through the catalog and the OOD evaluator, path 1
+    root = SCRATCH / "train"
+    _write_street_hazards(root, STREET_HAZARDS_FRAMES)
+    catalog.register_standard_datasets(str(root))
+    ds = catalog.get("street_hazards_test")
+    samples = [ds[i] for i in range(len(ds))]
+    ev = OODEvaluator(cfg, model)
+    ev.score_fn(samples[0].image[None])  # warm-up at the frame's size
+    counts = _zero_counts()
+    metrics, secs, fell_back = _eval_timed(ev.evaluate_dataset, samples, cohort=1)
+    launches = counts()
+    passes = 2 if fell_back else 1  # a fall-back scores every frame again on the exact path
+    want_launches = dict(window_attention=n_blocks * len(samples) * passes, fused_rba_score=len(samples) * passes,
+                         masked_softmax=0, fused_mlp_residual=0)
+    anomaly_share = float(np.mean([(smp.label == 1).mean() for smp in samples]))
+    out["street_hazards"] = dict(frames=len(samples), hw=list(samples[0].image.shape[:2]), metrics=metrics, s=secs,
+                                 fell_back=fell_back, launches=launches, anomaly_pixel_share=anomaly_share)
+    log(f"swin_l: StreetHazards, {len(samples)} frames of {samples[0].image.shape[:2]} through catalog "
+        f"'street_hazards_test' (anomaly share {anomaly_share:.4f}), OODEvaluator path 1: {secs:.2f} s, "
+        f"{'fell back to the exact path' if fell_back else 'certified streaming result'}; metrics {metrics}; "
+        f"launches {launches}")
+    if len(samples) != STREET_HAZARDS_FRAMES or launches != want_launches or not all(
+            math.isfinite(v) for v in metrics.values() if isinstance(v, float)):
+        raise RuntimeError(f"swin_l: StreetHazards: {out['street_hazards']}, launches expected {want_launches}")
+    del model, ev
+    return out, model_dir
+
+
+# ---------------------------------------------------------------------------
+# The recipes that train on other datasets than Cityscapes, through the trainer CLI
+# ---------------------------------------------------------------------------
+
+MAPILLARY_CONFIGS = Path("configs/mapillary-vistas/semantic-segmentation")
+# name: (config, whether the recipe starts from the swin_l phase's checkpoint, the per-step
+# batches to try, largest first).  The 1024x1024 recipes start at 4: a per-step batch of 8 ran
+# out of the card's 80 GB on both (PERF.md, the train_datasets cell).
+TRAIN_DATASET_RECIPES = {
+    "swin_l_1dl_coco_mix": (MAPILLARY_CONFIGS / "finetuning_with_cityscapes" / "maskformer2_swin_large_1dl_coco_mix.yaml",
+                            True, (8, 4, 2)),
+    "coco_open_panoptic_swin_b": (COCO_CONFIG, False, (4, 2)),
+    "mapillary_R50_65": (MAPILLARY_CONFIGS / "maskformer2_R50_bs16_300k.yaml", False, (4, 2)),
+}
+MAPILLARY_TRAIN_FRAMES = 8  # synthetic BIG_FRAME_HW Mapillary training frames
+MAPILLARY_VAL_FRAMES = 2  # of MAPILLARY_EVAL_HW
+COCO_TRAIN_FRAMES = 8
+TRAIN_DS_WARMUP, TRAIN_DS_TIMED = 1, 3
+
+
+def _write_mapillary(root: Path, split: str, frames: int, hw, seed: int):
+    """``frames`` Mapillary Vistas frames of ``hw`` under ``root/mapillary_vistas/<split>``
+    (images/*.jpg, labels/*.png of the 66 ids, 65 the void, in blocks)."""
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    h, w = hw
+    img_dir, lab_dir = (root / "mapillary_vistas" / split / d for d in ("images", "labels"))
+    for d in (img_dir, lab_dir):
+        d.mkdir(parents=True, exist_ok=True)
+    palette = rs.randint(0, 256, (66, 3)).astype(np.int16)
+    blk = h // 8
+    shade = ((np.arange(w)[None] + np.arange(h)[:, None]) % 64 - 32).astype(np.int16)[..., None]
+    for i in range(frames):
+        lab = rs.randint(0, 66, (8, -(-w // blk))).repeat(blk, 0).repeat(blk, 1)[:h, :w].astype(np.uint8)
+        img = np.clip(palette[lab] + shade, 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(img_dir / f"synth_{i:06d}.jpg", quality=90)
+        Image.fromarray(lab).save(lab_dir / f"synth_{i:06d}.png", compress_level=1)
+
+
+def _write_train_dataset_trees(root: Path):
+    """Beside the train phase's Cityscapes and COCO-proxy trees: Mapillary Vistas training
+    frames of BIG_FRAME_HW and validation frames of MAPILLARY_EVAL_HW, a COCO panoptic
+    train2017 split and the open protocol's ``unknown/unknown_K20.txt``.  Returns the
+    seconds it took."""
+    from rba_tpu_torch.data.categories import OPEN_PANOPTIC_UNKNOWN_CLASSES
+
+    t0 = time.perf_counter()
+    shutil.rmtree(root / "mapillary_vistas", ignore_errors=True)
+    _write_mapillary(root, "training", MAPILLARY_TRAIN_FRAMES, BIG_FRAME_HW, seed=5)
+    _write_mapillary(root, "validation", MAPILLARY_VAL_FRAMES, MAPILLARY_EVAL_HW, seed=6)
+    shutil.rmtree(root / "coco" / "panoptic_train2017", ignore_errors=True)
+    _write_coco_panoptic(root, COCO_TRAIN_FRAMES, seed=7, split="train")
+    (root / "unknown").mkdir(exist_ok=True)
+    (root / "unknown" / "unknown_K20.txt").write_text("\n".join(OPEN_PANOPTIC_UNKNOWN_CLASSES) + "\n")
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _concat_draws():
+    """Record which part of a ``ConcatDataset`` each sample read comes from."""
+    from rba_tpu_torch.data.ood_datasets import ConcatDataset
+
+    real, parts = ConcatDataset.__getitem__, []
+
+    def recorded(self, i):
+        parts.append(int(np.searchsorted(self._offsets, i, side="right")) - 1)
+        return real(self, i)
+
+    ConcatDataset.__getitem__ = recorded
+    try:
+        yield parts
+    finally:
+        ConcatDataset.__getitem__ = real
+
+
+def _recipe_argv(config: Path, out: Path, micro: int, max_iter: int, weights=None):
+    root = SCRATCH / "train"
+    return (["--config-file", str(config), "--data-root", str(root / "cityscapes"), "--coco-root", str(root / "coco"),
+             "--output-dir", str(out), "--max-iter", str(max_iter), "--batch-size", str(TRAIN_BATCH), "--grad-accum",
+             str(TRAIN_BATCH // micro), "--log-period", "1", "--checkpoint-period", "0", "--seed", str(TRAIN_SEED),
+             "--workers", str(min(8, os.cpu_count() or 1))] + (["--weights", str(weights)] if weights else []))
+
+
+def _train_recipe(name: str, config: Path, weights, micros):
+    """``train_net.main`` on one recipe for TRAIN_DS_WARMUP + TRAIN_DS_TIMED steps at the
+    global batch of 8, per step the largest of ``micros`` images that fits; then one
+    profiled step of the same configuration on a batch from the trainer's own iterator.
+    Gates: finite metrics, the steps all logged, Kernel E launched steps x micro-batches x
+    (1 + decoder layers) times and no serving kernel."""
+    from rba_tpu_torch.config import load_config
+    from rba_tpu_torch.kernels.lsap import batched_linear_sum_assignment
+    from rba_tpu_torch.ops.deform_sampling import BACKWARD_SPAN, SPAN
+    from rba_tpu_torch.train import train_net
+    from rba_tpu_torch.train.train_step import make_train_step
+
+    cfg = load_config(str(config))
+    counts = {**_wrappers(), "lsap": batched_linear_sum_assignment}
+    steps = TRAIN_DS_WARMUP + TRAIN_DS_TIMED
+    run = None
+    for micro in micros:
+        out = SCRATCH / "train_datasets" / name
+        shutil.rmtree(out, ignore_errors=True)
+        for fn in counts.values():
+            fn.launches = 0
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with _concat_draws() as draws:
+                t0 = time.perf_counter()
+                state = train_net.main(_recipe_argv(config, out, micro, steps, weights))
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"train_datasets {name}: a per-step batch of {micro} does not fit ({str(e).splitlines()[0][:100]})")
+            state = None
+            continue
+        run = dict(micro=micro, grad_accum=TRAIN_BATCH // micro, wall_s=wall_s, out=out,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   launches={k: fn.launches for k, fn in counts.items()}, concat_draws=list(draws))
+        break
+    if run is None:
+        raise RuntimeError(f"train_datasets {name}: no per-step batch of {micros} fits on the card")
+    lines = [json.loads(line) for line in open(run["out"] / "metrics.jsonl")]
+    ms_step = [TRAIN_BATCH * 1e3 / m["imgs_per_sec"] for m in lines[TRAIN_DS_WARMUP:]]
+    expected_e = len(lines) * run["grad_accum"] * (1 + cfg.decoder.dec_layers)
+    finite = all(math.isfinite(v) for m in lines for v in m.values())
+    serving = {k: v for k, v in run["launches"].items() if k != "lsap" and v}
+    bad = []
+    if len(lines) != steps or not finite:
+        bad.append(f"{len(lines)} steps logged, finite {finite}")
+    if run["launches"]["lsap"] != expected_e or serving:
+        bad.append(f"launches {run['launches']}, Kernel E expected {expected_e}")
+    # one profiled step on a batch of the trainer's own iterator (its mapper threads)
+    args = train_net.parse_args(_recipe_argv(config, run["out"], run["micro"], 1, weights))
+    t0 = time.perf_counter()
+    it = train_net.data_iterator(cfg, args, TRAIN_BATCH)
+    batch = next(it)
+    it.close()
+    first_batch_s = time.perf_counter() - t0
+    step_fn = make_train_step(cfg, grad_accum=run["grad_accum"])
+    step_fn(state, batch)  # the profiler's own warm-up
+    _, in_memory_ms = _timed(step_fn, state, batch)
+    prof = _profile(f"train_datasets {name} step", lambda: step_fn(state, batch), top=8, spans=(SPAN, BACKWARD_SPAN))
+    ms = statistics.median(ms_step)
+    row = dict(config=str(config), backbone=cfg.backbone_name, mapper=cfg.input.dataset_mapper_name,
+               datasets_train=list(cfg.datasets_train), num_classes=cfg.num_classes, dec_layers=cfg.decoder.dec_layers,
+               crop=list(cfg.input.crop_size), parameters=sum(p.numel() for p in state.model.parameters()),
+               micro=run["micro"], grad_accum=run["grad_accum"], ms_per_step=ms, ms_all=ms_step,
+               images_per_s=TRAIN_BATCH * 1e3 / ms, wall_s=run["wall_s"], peak_gib=run["peak_gib"],
+               launches=run["launches"], expected_lsap=expected_e, first=lines[0], last=lines[-1],
+               first_batch_s=first_batch_s, step_in_memory_ms=in_memory_ms, profile=prof,
+               idle_share_loop=1 - prof["busy_ms"] / ms if prof["busy_ms"] else None,
+               idle_share_in_memory=1 - prof["busy_ms"] / in_memory_ms if prof["busy_ms"] else None)
+    spans = prof.get("spans", {})
+    log(f"train_datasets {name} ({cfg.backbone_name}, {row['parameters'] / 1e6:.2f} M parameters, "
+        f"{cfg.input.dataset_mapper_name} on {list(cfg.datasets_train)}, {cfg.num_classes} classes, "
+        f"{cfg.decoder.dec_layers} decoder layer(s)): per-step batch {run['micro']} x {run['grad_accum']}; "
+        f"{ms:.1f} ms/step median of {[round(t, 1) for t in ms_step]} in the trainer's loop, "
+        f"{row['images_per_s']:.2f} images/s, peak {run['peak_gib']:.2f} GiB; one step with its batch in memory "
+        f"{in_memory_ms:.1f} ms; busy {prof['busy_ms']} ms of one profiled step, idle share "
+        f"{row['idle_share_in_memory']} in memory and {row['idle_share_loop']} of the loop's step; deformable "
+        "sampling forward / backward busy "
+        + " / ".join(f"{spans.get(sp, {}).get('busy_ms', float('nan')):.2f} ms ({spans.get(sp, {}).get('count')} spans)"
+                     for sp in (SPAN, BACKWARD_SPAN))
+        + f"; launches {run['launches']} (Kernel E expected {expected_e}); first batch from the trainer's iterator "
+        f"{first_batch_s:.1f} s; {run['wall_s']:.1f} s for the {steps} steps (model build and mapper start included)")
+    if bad:
+        raise RuntimeError(f"train_datasets {name}: " + "; ".join(bad))
+    return row, state, batch, run["concat_draws"]
+
+
+def _eval_only(name: str, config: Path, weights, out: Path, blocks: int):
+    """``train_net.main --eval-only`` from the recipe's last checkpoint on 2 val frames:
+    mIoU finite, Kernel A ``blocks`` times per frame and Kernel E never."""
+    from rba_tpu_torch.kernels.lsap import batched_linear_sum_assignment
+    from rba_tpu_torch.train import train_net
+
+    counts = {**_wrappers(), "lsap": batched_linear_sum_assignment}
+    for fn in counts.values():
+        fn.launches = 0
+    argv = _recipe_argv(config, out, TRAIN_BATCH, TRAIN_DS_WARMUP + TRAIN_DS_TIMED, weights)
+    res, ms = _timed(train_net.main, argv + ["--eval-only", "--eval-max-images", str(MAPILLARY_VAL_FRAMES)])
+    launches = {k: fn.launches for k, fn in counts.items()}
+    log(f"train_datasets {name} --eval-only: {ms / 1e3:.1f} s, mIoU {res.get('mIoU')} over "
+        f"{res.get('eval_images')} frames of {MAPILLARY_EVAL_HW} (step {res.get('step')}), launches {launches}")
+    want = dict(dict.fromkeys(launches, 0), window_attention=blocks * MAPILLARY_VAL_FRAMES)
+    if not (math.isfinite(res.get("mIoU", float("nan"))) and res.get("eval_images") == MAPILLARY_VAL_FRAMES
+            and res.get("step") == TRAIN_DS_WARMUP + TRAIN_DS_TIMED and launches == want):
+        raise RuntimeError(f"train_datasets {name} --eval-only: {res}, launches {launches}, expected {want}")
+    return dict(s=ms / 1e3, result=res, launches=launches)
+
+
+def train_datasets_phase(swin_l_dir: Path):
+    """The three recipe kinds that train on other datasets than Cityscapes, through
+    ``train_net.main`` at full width and depth, TRAIN_DS_WARMUP + TRAIN_DS_TIMED steps at the
+    global batch of 8 each (``_train_recipe``), over synthetic trees written beside the
+    train phase's (``_write_train_dataset_trees``):
+
+    - the Swin-L RbA fine-tune on Mapillary Vistas with Cityscapes (a ``ConcatDataset`` of
+      both, COCO-mix mapper, frozen backbone and pixel decoder) from the swin_l phase's
+      checkpoint: the dataset's length is the sum of its parts' and the steps draw from
+      both; the frozen parameters bit for bit unchanged; Kernel E 2 per micro-batch; then
+      ``--eval-only`` on ``mapillary_cityscapes_sem_seg_val`` (Kernel A 24 per frame);
+    - the COCO open-panoptic Swin-B recipe (``coco_panoptic_lsj``, 1024x1024 canvas,
+      ``DATASETS.UNSEEN_LABEL_SET``): no unknown class a target; Kernel E 10 per
+      micro-batch; the sampling's forward and backward spans;
+    - Mapillary Vistas' 65 classes on R50 (``SemSegFolder``, 1024x1024 crops from frames
+      resized to a shortest edge of 1024-4096): Kernel E 10 per micro-batch; then
+      ``--eval-only`` on ``mapillary_vistas_sem_seg_val``, a 65-class mIoU."""
+    from rba_tpu_torch.config import load_config
+    from rba_tpu_torch.convert import jax_params_to_state, load_params
+    from rba_tpu_torch.data.categories import COCO_PANOPTIC_CATEGORIES, OPEN_PANOPTIC_UNKNOWN_CLASSES
+    from rba_tpu_torch.train import train_net
+
+    root = SCRATCH / "train"
+    write_s = _write_train_dataset_trees(root)
+    log(f"train_datasets: {MAPILLARY_TRAIN_FRAMES} Mapillary training frames of {BIG_FRAME_HW}, "
+        f"{MAPILLARY_VAL_FRAMES} validation frames of {MAPILLARY_EVAL_HW} and {COCO_TRAIN_FRAMES} COCO panoptic "
+        f"train frames of {COCO_HW} written in {write_s:.1f} s")
+    out = dict(write_trees_s=write_s)
+    lsap_total = 0
+    for name, (config, from_swin_l, micros) in TRAIN_DATASET_RECIPES.items():
+        t_recipe = time.perf_counter()
+        weights = swin_l_dir if from_swin_l else None
+        cfg = load_config(str(config))
+        # the recipe's reader, as the trainer builds it (the output directory is not read)
+        ds = train_net.train_dataset(cfg, train_net.parse_args(_recipe_argv(config, root, TRAIN_BATCH, 1, weights)))
+        row, state, batch, draws = _train_recipe(name, config, weights, micros)
+        lsap_total += row["launches"]["lsap"]
+        bad = []
+        if name == "swin_l_1dl_coco_mix":
+            sizes = [len(p) for p in ds.parts]
+            by_part = [draws.count(j) for j in range(len(sizes))]
+            row.update(concat_parts=[type(p).__name__ for p in ds.parts], concat_sizes=sizes, concat_len=len(ds),
+                       draws_by_part=by_part)
+            start = jax_params_to_state(load_params(str(weights / "params.npz")))
+            frozen = {n: p for n, p in state.model.named_parameters() if n.startswith(FROZEN)}
+            moved = [n for n, p in frozen.items() if not np.array_equal(p.detach().cpu().numpy(), start[n])]
+            row["frozen_changed"] = [len(moved), len(frozen)]
+            log(f"train_datasets {name}: ConcatDataset {row['concat_parts']} of {sizes} samples, length {len(ds)}; "
+                f"the steps' samples by part {by_part}; frozen parameters changed after the 4 steps of the CLI: "
+                f"{len(moved)} of {len(frozen)}; ood_images {[m.get('ood_images') for m in [row['first'], row['last']]]}")
+            if len(ds) != sum(sizes) or sizes != [MAPILLARY_TRAIN_FRAMES, TRAIN_FRAMES] or min(by_part) < 1 \
+                    or sum(by_part) < (TRAIN_DS_WARMUP + TRAIN_DS_TIMED) * TRAIN_BATCH or moved or not frozen:
+                bad.append(f"concat {sizes} / {len(ds)}, draws {by_part}, frozen changed {len(moved)} of {len(frozen)}")
+        if name == "coco_open_panoptic_swin_b":
+            unknown = {i for i, _, n, _ in COCO_PANOPTIC_CATEGORIES if n in OPEN_PANOPTIC_UNKNOWN_CLASSES}
+            raw = [s for i in range(len(ds)) for s in ds.entries[i][2]]
+            targets = batch["gt_labels"][batch["gt_valid"] > 0]
+            row.update(unknown_segments=sum(s["category_id"] in unknown for s in raw), segments=len(raw),
+                       batch_targets=int(len(targets)), batch_target_labels=sorted({int(x) for x in targets}))
+            log(f"train_datasets {name}: {row['unknown_segments']} of {len(raw)} segments in the split are of the 16 "
+                f"unknown classes (255 in the open metadata); the profiled batch has {len(targets)} targets, labels "
+                f"{row['batch_target_labels'][:12]}..., none of them 255: {255 not in targets}")
+            if 255 in targets or row["unknown_segments"] < 1 or len(targets) < 1 or targets.max() >= cfg.num_classes:
+                bad.append(f"unknown classes among the targets: {row['batch_target_labels']}")
+        if bad:
+            raise RuntimeError(f"train_datasets {name}: " + "; ".join(bad))
+        del state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        if name != "coco_open_panoptic_swin_b":
+            blocks = sum(cfg.swin.depths) if cfg.backbone_name == "swin" else 0
+            row["eval_only"] = _eval_only(name, config, weights, SCRATCH / "train_datasets" / name, blocks)
+            gc.collect()
+            torch.cuda.empty_cache()
+        row["s"] = time.perf_counter() - t_recipe
+        log(f"train_datasets {name}: {row['s']:.1f} s")
+        out[name] = row
+    out["lsap_launches"] = lsap_total
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, help="directory for chip_smoke.json, the run's measurements")
@@ -2486,7 +2924,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from rba_tpu_torch.config import swin_b_1dl
+    from rba_tpu_torch.config import swin_b_1dl, swin_l_1dl
     from rba_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -2495,10 +2933,12 @@ def main() -> int:
 
     cfg = swin_b_1dl()
     cfg2 = dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, mlp_impl="fused"))
+    cfg_l = swin_l_1dl()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    wa_rows, wa, wa_err, wa_checked = window_attention_phase(cfg, gen)
+    wa_rows, wa, wa_err, wa_checked, wa_l = window_attention_phase(cfg, gen, cfg_l)
     rba_row = fused_rba_phase(cfg, gen)
     ms_rows, ms, ms_err = masked_softmax_phase(cfg, gen)
+    ms_rows_l, ms_l, ms_err_l = masked_softmax_phase(cfg_l, gen)
     mlp_rows, mlp, mlp_err = fused_mlp_phase(gen)
     lsap_rows = lsap_phase(gen)
 
@@ -2594,6 +3034,18 @@ def main() -> int:
     t0 = time.perf_counter()
     train_backbones = train_backbones_phase(images[1])
     log(f"train_backbones phase: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with window_attention_shapes() as wa_seen_l:
+        t0 = time.perf_counter()
+        swin_l, swin_l_dir = swin_l_phase(images)
+        log(f"swin_l phase: {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        train_datasets = train_datasets_phase(swin_l_dir)
+        log(f"train_datasets phase: {time.perf_counter() - t0:.1f} s")
+    wa_seen |= wa_seen_l
     unchecked = sorted(wa_seen - wa_checked)
     log(f"Kernel A in these phases: {len(wa_seen)} distinct launch shapes (windows, heads, head dim, masked), "
         f"each held against its plain version at bf16 and fp32 in the kernel phase: {not unchecked} "
@@ -2608,7 +3060,11 @@ def main() -> int:
         ("panoptic", panoptic["launches"]), ("train_eval", train_eval["launches"]["train"]),
         ("eval_only", train_eval["launches"]["eval_only"]),
         *((f"backbones_{k}", v["parity"]["launches"]) for k, v in backbones.items()),
-        ("r50_d2_sweep", r50_d2["sweep_launches"]))}
+        ("r50_d2_sweep", r50_d2["sweep_launches"]), ("swin_l_path1", swin_l["path1"]["launches"]),
+        ("swin_l_path2", swin_l["path2"]["launches"]), ("swin_l_street_hazards", swin_l["street_hazards"]["launches"]))}
+    swin_l_launches = {k: v for k, v in variant_launches.items() if k.startswith("launches_swin_l_")}
+    eval_launches_ds = {f"launches_train_datasets_eval_{k}": v["eval_only"]["launches"]["window_attention"]
+                        for k, v in train_datasets.items() if isinstance(v, dict) and "eval_only" in v}
 
     kernels = [
         dict(name="window_attention", route="cuda", source="rba_tpu_torch/csrc/window_attention.cu",
@@ -2617,7 +3073,8 @@ def main() -> int:
              plain_ms=wa["plain_ms"], bound_ms=wa["bound_ms"], bound_by="bytes", library_ms=wa["library_ms"],
              ms_batches=wa["ms_batches"], launches_eval=eval_launches["window_attention"],
              launches_fast=fast["serve"]["launches"]["window_attention"],
-             **{k: v["window_attention"] for k, v in variant_launches.items()}),
+             **{k: v["window_attention"] for k, v in variant_launches.items()}, **eval_launches_ds,
+             **{f"{k}_swin_l": wa_l[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}),
         dict(name="fused_rba_score", route="cuda", source="rba_tpu_torch/csrc/fused_rba.cu",
              replaces="rba_tpu/ops/pallas/fused_rba.py:111",
              launches=serve["path2"]["launches"]["fused_rba_score"], max_abs_err=rba_row["max_abs_err"],
@@ -2631,12 +3088,15 @@ def main() -> int:
              replaces="rba_tpu/ops/pallas/masked_softmax.py:77",
              launches=serve["path2"]["launches"]["masked_softmax"], max_abs_err=ms_err, ms=ms["ms"],
              plain_ms=ms["plain_ms"], bound_ms=ms["bound_ms"], bound_by="bytes", library_ms=None,
-             ms_batches=ms["ms_batches"], cast_ms=ms["cast_ms"]),
+             ms_batches=ms["ms_batches"], cast_ms=ms["cast_ms"],
+             **{k: v["masked_softmax"] for k, v in swin_l_launches.items()},
+             **{f"{k}_swin_l": ms_l[k] for k in ("ms", "plain_ms", "bound_ms", "cast_ms")},
+             max_abs_err_swin_l=ms_err_l),
         dict(name="fused_mlp_residual", route="cuda", source="rba_tpu_torch/csrc/fused_mlp.cu",
              replaces="rba_tpu/ops/pallas/fused_mlp.py:166",
              launches=serve["path2"]["launches"]["fused_mlp_residual"], max_abs_err=mlp_err, ms=mlp["ms"],
              plain_ms=mlp["plain_ms"], bound_ms=mlp["bound_ms"], bound_by="operations", library_ms=None,
-             ms_batches=mlp["ms_batches"]),
+             ms_batches=mlp["ms_batches"], **{k: v["fused_mlp_residual"] for k, v in swin_l_launches.items()}),
         dict(name="lsap", route="cuda", source="rba_tpu_torch/csrc/lsap.cu", replaces="rba_tpu/ops/lsap.py:93",
              launches=train["launches"]["lsap"],
              max_abs_err=max(r["max_abs_err"] for r in (*lsap_rows.values(), train["lsap_real"])),
@@ -2646,7 +3106,8 @@ def main() -> int:
              shape=train["lsap_real"]["shape"], launches_per_step=train["launches"]["lsap"] // (
                  TRAIN_WARMUP + TRAIN_TIMED), ms_B8x32x100=lsap_rows["B8x32x100"]["ms"],
              launches_train_eval=train_eval["launches"]["train"]["lsap"],
-             launches_train_backbones=train_backbones["lsap_launches"]),
+             launches_train_backbones=train_backbones["lsap_launches"],
+             launches_train_datasets=train_datasets["lsap_launches"]),
     ]
     if args.out:
         args.out.mkdir(parents=True, exist_ok=True)
@@ -2656,7 +3117,8 @@ def main() -> int:
                  paths_bf16_max_diff_not_gated=cross16, profile=prof, fast=fast, xla=xla, eval=evaluation, d2=d2,
                  tta=tta, sliding=sliding, dense_hybrid=dense_hybrid, sweep_cli=sweep_cli, lsap=lsap_rows,
                  train=train, semseg=semseg, panoptic=panoptic, train_eval=train_eval, backbones=backbones,
-                 r50_d2=r50_d2, train_backbones=train_backbones,
+                 r50_d2=r50_d2, train_backbones=train_backbones, masked_softmax_swin_l=ms_rows_l, swin_l=swin_l,
+                 train_datasets=train_datasets,
                  elapsed_s=time.perf_counter() - T_START, kernels=kernels), indent=1))
     log("(window_attention, masked_softmax and fused_mlp_residual times are per image: each call of one "
         "1024x2048 request, summed; ms is the mean of the first batch of 20 calls, ms_batches the means of "
@@ -2669,10 +3131,14 @@ def main() -> int:
         f"panoptic run_val_eval over {PANOPTIC_FRAMES} COCO frames (PQ, mIoU and AP passes), launches_train_eval "
         "the 4-step run with its two evaluations and launches_eval_only the --eval-only run, launches_backbones_* "
         f"the {N_REQUESTS} requests of each non-Swin config at its precision, launches_r50_d2_sweep the sweep over "
-        "the R50 checkpoint; fused_rba_score's "
+        f"the R50 checkpoint, launches_swin_l_path1 / _path2 the {N_REQUESTS} Swin-L requests of each path, "
+        f"launches_swin_l_street_hazards the StreetHazards evaluation of {STREET_HAZARDS_FRAMES} frames, "
+        "launches_train_datasets_eval_* each --eval-only of the train_datasets phase; *_swin_l times per Swin-L "
+        "1024x2048 image; fused_rba_score's "
         "*_coco at Q=100, K=117, 200x272; lsap's launches count the train phase's "
         f"{TRAIN_WARMUP + TRAIN_TIMED} steps, launches_train_backbones the train_backbones phase's "
-        f"{TRAIN_BB_WARMUP + TRAIN_BB_TIMED} steps of each config, its ms, "
+        f"{TRAIN_BB_WARMUP + TRAIN_BB_TIMED} steps of each config, launches_train_datasets the train_datasets "
+        f"phase's {TRAIN_DS_WARMUP + TRAIN_DS_TIMED} steps of each recipe, its ms, "
         "plain_ms and bound are per launch on one step's real costs, scipy_ms scipy's host time on them with the "
         f"copy; {time.perf_counter() - T_START:.1f} s in all)")
     print(json.dumps({"kernels": kernels}), flush=True)

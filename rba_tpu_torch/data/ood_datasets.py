@@ -5,11 +5,14 @@ as its ``support.get_datasets`` builds them: RoadAnomaly (label 2 → 1),
 Fishyscapes LAF and Static v1/v2, the SegmentMeIfYouCan tracks (AnomalyTrack
 resized to 720×1280; ObstacleTrack with webp images), LostAndFound (labels
 1 → 0, 2 → 1), Cityscapes val (trainIds) and BDD100K, plus the procedural
-``SyntheticAnomaly`` and ``SyntheticStructured``; and the COCO-format panoptic ground
-truth of the closed-set evaluation (``PanopticDataset``) with its instance and semantic
-views (``InstanceFromPanoptic``, ``SemSegFromPanoptic``).
+``SyntheticAnomaly`` and ``SyntheticStructured``; StreetHazards, Small Obstacles,
+Cityscapes-C and incremental-class Cityscapes; the COCO-format panoptic ground truth of
+the closed-set evaluation (``PanopticDataset``) with its instance and semantic views
+(``InstanceFromPanoptic``, ``SemSegFromPanoptic``); and the training readers:
+Mapillary Vistas (``MapillarySemSeg``, in its own or the Cityscapes taxonomy), a
+label folder (``SemSegFolder``) and the union of several (``ConcatDataset``).
 
-Label convention everywhere: 0 = inlier, 1 = anomaly, 255 = ignore.  The readers
+Label convention of the OOD readers: 0 = inlier, 1 = anomaly, 255 = ignore.  The readers
 return numpy (uint8 RGB image, int32 label); batching and uploads are the
 evaluator's job.  PIL is needed only to read image files.
 """
@@ -81,6 +84,27 @@ class OODDataset:
     def __iter__(self) -> Iterator[Sample]:
         for i in range(len(self)):
             yield self[i]
+
+
+class ConcatDataset(OODDataset):
+    """The union of several readers, indexed part after part: DATASETS.TRAIN may list
+    several names, and the reference trains on the union of their catalog entries (the
+    Mapillary fine-tunes list ``mapillary_cityscapes_sem_seg_train`` and
+    ``cityscapes_fine_sem_seg_train``)."""
+
+    name = "concat"
+
+    def __init__(self, parts):
+        super().__init__()
+        self.parts = list(parts)
+        self._offsets = np.cumsum([0] + [len(p) for p in self.parts])
+
+    def __len__(self) -> int:
+        return int(self._offsets[-1])
+
+    def __getitem__(self, i: int):
+        j = int(np.searchsorted(self._offsets, i, side="right")) - 1
+        return self.parts[j][int(i) - int(self._offsets[j])]
 
 
 class RoadAnomaly(OODDataset):
@@ -296,6 +320,30 @@ class BDD100KSeg(OODDataset):
         self.resize_to = resize_to
 
 
+class StreetHazards(OODDataset):
+    """StreetHazards (the reference's ``datasets/street_hazards.py``): images/<split>/**
+    and annotations/<split>/** PNGs; the anomaly class id 13 (14 on disk, where ids are
+    1-based) → 1, everything else → 0."""
+
+    name = "street_hazards"
+    ANOMALY_ID = 13
+
+    def __init__(self, root: str, split: str = "test"):
+        super().__init__()
+        img_root = os.path.join(root, "images", split)
+        ann_root = os.path.join(root, "annotations", split)
+        for dirpath, _, files in sorted(os.walk(img_root)):
+            for f in sorted(files):
+                if not f.endswith(".png"):
+                    continue
+                rel = os.path.relpath(os.path.join(dirpath, f), img_root)
+                self.images.append(os.path.join(img_root, rel))
+                self.labels.append(os.path.join(ann_root, rel))
+
+    def _remap(self, label):
+        return (label == self.ANOMALY_ID + 1).astype(np.int32)  # ids are 1-based
+
+
 class SyntheticAnomaly(OODDataset):
     """Procedural dataset for tests/benches: inlier background with a bright
     square anomaly.  No file IO."""
@@ -451,6 +499,107 @@ def get_datasets(datasets_folder: str) -> dict:
     return out
 
 
+class SmallObstacles(OODDataset):
+    """Small Obstacles (the reference's ``datasets/small_obstacles.py``):
+    <root>/<mode>/<sequence>/{image,labels}/*.png with RGB colour labels: road
+    (128, 0, 0) → 0, void (0, 0, 0) → 255, every other colour → anomaly 1."""
+
+    name = "small_obstacles"
+
+    def __init__(self, root: str, mode: str = "val"):
+        super().__init__()
+        base = os.path.join(root, mode)
+        for seq in sorted(os.listdir(base)):
+            labels_path = os.path.join(base, seq, "labels")
+            images_path = os.path.join(base, seq, "image")
+            for n in sorted(os.listdir(labels_path)):
+                self.images.append(os.path.join(images_path, n))
+                self.labels.append(os.path.join(labels_path, n))
+
+    def __getitem__(self, i: int) -> Sample:
+        image = _read_image(self.images[i])
+        rgb = np.asarray(Image.open(self.labels[i]).convert("RGB"))
+        r, g, b = rgb[:, :, 0], rgb[:, :, 1], rgb[:, :, 2]
+        label = np.ones(rgb.shape[:2], np.int32)
+        label[(r == 0) & (g == 0) & (b == 0)] = 255
+        label[(r == 128) & (g == 0) & (b == 0)] = 0
+        return Sample(image, label, os.path.basename(self.images[i]))
+
+
+class MapillarySemSeg(OODDataset):
+    """Mapillary Vistas semantic segmentation (the reference's ``datasets/mapillary.py``):
+    <root>/<training|validation>/{images/*.jpg, labels/*.png}.  With
+    ``cityscapes_taxonomy`` the 66 Mapillary ids map to the 19 Cityscapes train ids
+    (``taxonomies.mapillary_to_cityscapes_lut``, 255 elsewhere), the labels the
+    Mapillary fine-tuned checkpoints train and evaluate on; else the raw ids."""
+
+    name = "mapillary"
+
+    def __init__(self, root: str, mode: str = "val", cityscapes_taxonomy: bool = True):
+        super().__init__()
+        folder = {"train": "training", "val": "validation"}[mode]
+        images_path = os.path.join(root, folder, "images")
+        labels_path = os.path.join(root, folder, "labels")
+        for img in sorted(os.listdir(images_path)):
+            self.images.append(os.path.join(images_path, img))
+            self.labels.append(os.path.join(labels_path, img[:-3] + "png"))
+        self._lut = None
+        if cityscapes_taxonomy:
+            from .taxonomies import mapillary_to_cityscapes_lut
+
+            self._lut = mapillary_to_cityscapes_lut()
+
+    def _remap(self, label):
+        if self._lut is None:
+            return label
+        return self._lut[np.clip(label, 0, 255)]
+
+
+class CityscapesC(CityscapesSemSeg):
+    """Corrupted Cityscapes (the reference's ``datasets/cityscapes_c.py``): images under
+    leftImg8bit/<split>/<city>/<distortion>/<severity>/, labels the clean gtFine maps."""
+
+    name = "cityscapes_c"
+
+    def __init__(self, root: str, split: str = "val", distortion: str = "gaussian_noise", severity: str = "1"):
+        OODDataset.__init__(self)
+        img_root = os.path.join(root, "leftImg8bit", split)
+        gt_root = os.path.join(root, "gtFine", split)
+        self._from_train_ids = []
+        for city in sorted(os.listdir(img_root)):
+            img_dir = os.path.join(img_root, city, distortion, str(severity))
+            if not os.path.isdir(img_dir):
+                continue
+            for f in sorted(os.listdir(img_dir)):
+                base = f[: -len("_leftImg8bit.png")]
+                self.images.append(os.path.join(img_dir, f))
+                tid = os.path.join(gt_root, city, base + "_gtFine_labelTrainIds.png")
+                lid = os.path.join(gt_root, city, base + "_gtFine_labelIds.png")
+                use_tid = os.path.exists(tid)
+                self.labels.append(tid if use_tid else lid)
+                self._from_train_ids.append(use_tid)
+
+
+class CityscapesIncremental(CityscapesSemSeg):
+    """Incremental-class Cityscapes (the reference's ``datasets/cityscapes_incremental.py``):
+    the train ids in ``holdout_classes`` become anomaly 1, every other id inlier 0, and
+    255 stays: OOD detection evaluated on held-out known classes."""
+
+    name = "cityscapes_incremental"
+
+    def __init__(self, root: str, split: str = "val", holdout_classes=(13, 14, 15)):
+        super().__init__(root, split)
+        self.holdout = set(int(c) for c in holdout_classes)
+
+    def __getitem__(self, i: int) -> Sample:
+        s = super().__getitem__(i)
+        label = np.zeros_like(s.label)
+        label[s.label == 255] = 255
+        for c in self.holdout:
+            label[s.label == c] = 1
+        return Sample(s.image, label, s.name)
+
+
 # ---------------------------------------------------------------------------
 # Panoptic ground truth and its instance and semantic views
 # ---------------------------------------------------------------------------
@@ -558,3 +707,29 @@ class SemSegFromPanoptic(OODDataset):
         for seg in segments:
             label[pan == seg["id"]] = int(seg["category_id"])
         return Sample(image, label, str(i))
+
+
+class SemSegFolder(OODDataset):
+    """An (image directory, label directory) pair matched by file stem, Detectron2's
+    ``load_sem_seg`` as the reference registers the Mapillary, COCO-Stuff-10k and
+    StreetHazards splits with it (labels ``*.png``; any image extension).  The labels are
+    the dataset's raw train ids, not binary OOD labels.  A missing directory gives an
+    empty reader."""
+
+    name = "sem_seg_folder"
+
+    def __init__(self, image_root: str, sem_seg_root: str):
+        super().__init__()
+        self.image_root = image_root
+        self.sem_seg_root = sem_seg_root
+        if not os.path.isdir(image_root):
+            return
+        labels = {}
+        for f in os.listdir(sem_seg_root) if os.path.isdir(sem_seg_root) else []:
+            if f.endswith(".png"):
+                labels[os.path.splitext(f)[0]] = os.path.join(sem_seg_root, f)
+        for f in sorted(os.listdir(image_root)):
+            stem = os.path.splitext(f)[0]
+            if stem in labels:
+                self.images.append(os.path.join(image_root, f))
+                self.labels.append(labels[stem])

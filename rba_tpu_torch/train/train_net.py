@@ -30,10 +30,16 @@ where ``TEST.AUG.ENABLED``, and exits.  An evaluation runs under ``torch.inferen
 in eval mode (on the card Kernel A), and leaves the training stream as it was: the
 parameters, the optimizer, the criterion's generator and the mapper threads' draws.
 
-Not ported yet, and refused, never skipped: mappers other than ``mask_former_semantic``
-and ``mask_former_semantic_coco_mix``, training on datasets other than Cityscapes
-semantic segmentation and readers other than Cityscapes and COCO panoptic (ROADMAP.md
-§A.4), per-pixel heads (§A.6), and more than one GPU (§A.8).
+Every mapper of the reference is taken: the semantic ones (plain, COCO-mix, void as
+outlier, StreetHazards plain and COCO-mix), the panoptic and instance ones (plain,
+open-panoptic, and the LSJ ``coco_panoptic_lsj`` and ``coco_instance_lsj``).
+``DATASETS.TRAIN`` may list several names, read as one ``ConcatDataset``; a name whose
+data is missing is skipped with a warning, and only where none resolves does the trainer
+raise.  Panoptic names give (image, ids, segments) to the panoptic mappers, and through
+``InstanceFromPanoptic`` (image, masks, classes) to the instance ones.
+
+Not ported yet, and refused, never skipped: per-pixel heads (ROADMAP.md §A.6) and more
+than one GPU (§A.8).
 """
 from __future__ import annotations
 
@@ -48,9 +54,6 @@ import time
 from typing import Iterator
 
 import numpy as np
-
-SEMANTIC_MAPPERS = ("mask_former_semantic", "mask_former_semantic_coco_mix")
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -85,13 +88,23 @@ def parse_args(argv=None):
 
 
 def build_mapper(cfg, args):
-    """The mapper of INPUT.DATASET_MAPPER_NAME, overridable with --mapper."""
-    from ..data.mappers import COCOProxyDataset, MapperConfig, SemanticCocoMixDatasetMapper, SemanticDatasetMapper
+    """The mapper of INPUT.DATASET_MAPPER_NAME, overridable with --mapper: the geometry of
+    the config's INPUT section, the static target padding capped at the queries."""
+    from ..data.mappers import (
+        COCOProxyDataset,
+        InstanceDatasetMapper,
+        InstanceLSJDatasetMapper,
+        MapperConfig,
+        PanopticDatasetMapper,
+        PanopticLSJDatasetMapper,
+        SemanticCocoMixDatasetMapper,
+        SemanticDatasetMapper,
+        SemanticVoidDatasetMapper,
+        StreetHazardsCocoMixMapper,
+        StreetHazardsMapper,
+    )
 
     mapper_name = args.mapper or cfg.input.dataset_mapper_name
-    if mapper_name not in SEMANTIC_MAPPERS:
-        raise NotImplementedError(f"the {mapper_name!r} mapper is not ported yet (ROADMAP.md §A.4); ported: "
-                                  f"{SEMANTIC_MAPPERS}")
     mcfg = MapperConfig(
         min_sizes=cfg.input.min_size_train,
         max_size=cfg.input.max_size_train,
@@ -105,19 +118,76 @@ def build_mapper(cfg, args):
         max_instances=min(32, cfg.decoder.num_queries),  # each target needs a distinct query
         repeat_instance_masks=cfg.input.repeat_instance_masks,
     )
-    if mapper_name == "mask_former_semantic":
-        return SemanticDatasetMapper(mcfg, seed=args.seed)
-    # --coco-root wins; else INPUT.COCO_ROOT, relative to the datasets dir (the parent of --data-root)
-    root = args.coco_root
-    if not root:
-        root = cfg.input.coco_root
-        if not os.path.isabs(root):
-            root = os.path.join(os.path.dirname(os.path.abspath(args.data_root)), root)
-        if not os.path.isdir(root):
-            raise ValueError(f"--coco-root required for coco_mix mappers (INPUT.COCO_ROOT fallback {root!r} "
-                             "does not exist)")
-    coco = COCOProxyDataset(root, proxy_size=cfg.input.coco_proxy_size)
-    return SemanticCocoMixDatasetMapper(mcfg, coco, ood_prob=cfg.ood.ood_prob, seed=args.seed)
+
+    def coco():
+        # --coco-root wins; else INPUT.COCO_ROOT, relative to the datasets dir (the parent of --data-root)
+        root = args.coco_root
+        if not root:
+            root = cfg.input.coco_root
+            if not os.path.isabs(root):
+                root = os.path.join(os.path.dirname(os.path.abspath(args.data_root)), root)
+            if not os.path.isdir(root):
+                raise ValueError(f"--coco-root required for coco_mix mappers (INPUT.COCO_ROOT fallback {root!r} "
+                                 "does not exist)")
+        return COCOProxyDataset(root, proxy_size=cfg.input.coco_proxy_size)
+
+    if mapper_name == "mask_former_semantic_coco_mix":
+        return SemanticCocoMixDatasetMapper(mcfg, coco(), ood_prob=cfg.ood.ood_prob, seed=args.seed)
+    if mapper_name == "mask_former_semantic_void":
+        return SemanticVoidDatasetMapper(mcfg, seed=args.seed)
+    if mapper_name == "mask_former_semantic_street_hazards":
+        return StreetHazardsMapper(mcfg, seed=args.seed)
+    if mapper_name == "mask_former_semantic_street_hazards_coco_mix":
+        return StreetHazardsCocoMixMapper(mcfg, coco(), ood_prob=cfg.ood.ood_prob, seed=args.seed)
+    if mapper_name in ("mask_former_panoptic", "open_panoptic_coco_mapper"):
+        unseen = _unseen_label_set(cfg, args) if mapper_name == "open_panoptic_coco_mapper" else None
+        return PanopticDatasetMapper(mcfg, seed=args.seed, unseen_label_set=unseen)
+    if mapper_name == "mask_former_instance":
+        return InstanceDatasetMapper(mcfg, seed=args.seed)
+    if mapper_name == "coco_panoptic_lsj":
+        return PanopticLSJDatasetMapper(mcfg, seed=args.seed, image_size=cfg.input.image_size,
+                                        min_scale=cfg.input.min_scale, max_scale=cfg.input.max_scale,
+                                        unseen_label_set=_unseen_label_set(cfg, args))
+    if mapper_name == "coco_instance_lsj":
+        return InstanceLSJDatasetMapper(mcfg, seed=args.seed, image_size=cfg.input.image_size,
+                                        min_scale=cfg.input.min_scale, max_scale=cfg.input.max_scale)
+    return SemanticDatasetMapper(mcfg, seed=args.seed)
+
+
+def _unseen_label_set(cfg, args):
+    """DATASETS.UNSEEN_LABEL_SET (a file of class names, relative to the datasets dir, the
+    parent of --data-root) → contiguous class indices against the ``thing_classes`` of the
+    first DATASETS.TRAIN name that has them.  The reference resolves the path against its
+    working directory, where ``datasets/`` is the datasets dir, so both
+    ``datasets/unknown/unknown_K20.txt`` and ``unknown/unknown_K20.txt`` are read.  None,
+    with a warning, where the config names no file, the file is missing or no train name
+    has class names: then every class is supervised."""
+    from ..data import catalog
+    from ..data.mappers import load_unseen_label_set
+
+    path = cfg.unseen_label_set
+    if not path:
+        return None
+    datasets_dir = os.path.dirname(os.path.abspath(args.data_root))
+    if not os.path.isabs(path):
+        candidates = [os.path.join(datasets_dir, path)]
+        if path.startswith("datasets/"):
+            candidates.append(os.path.join(datasets_dir, path[len("datasets/"):]))
+        path = next((c for c in candidates if os.path.isfile(c)), candidates[0])
+    if not os.path.isfile(path):
+        print(f"WARNING: DATASETS.UNSEEN_LABEL_SET {path!r} not found; training with full supervision")
+        return None
+    catalog.register_standard_datasets(datasets_dir)
+    names: list = []
+    for name in cfg.datasets_train:
+        names = list(catalog.metadata(name).get("thing_classes", []))
+        if names:
+            break
+    if not names:
+        print("WARNING: no thing_classes metadata for DATASETS.TRAIN; unseen-label names cannot be resolved — "
+              "full supervision")
+        return None
+    return load_unseen_label_set(path, names)
 
 
 def prefetching_iterator(ds, mapper, batch_size: int, seed: int, workers: int = 4):
@@ -177,7 +247,8 @@ def prefetching_iterator(ds, mapper, batch_size: int, seed: int, workers: int = 
                 for j, i in enumerate(ib):
                     s = ds[int(i)]
                     wmapper.rng = random.Random(seed * 0x9E3779B1 + pos0 + j)
-                    samples.append(wmapper(s.image, s.label))
+                    # panoptic and instance readers give the tuple of their mapper's arguments
+                    samples.append(wmapper(*s) if isinstance(s, tuple) else wmapper(s.image, s.label))
                 put(out_q, (bseq, collate(samples)))
             except BaseException as e:  # noqa: BLE001 — relayed to the consumer
                 put(out_q, (bseq, _WorkerError(e)))
@@ -204,10 +275,10 @@ def prefetching_iterator(ds, mapper, batch_size: int, seed: int, workers: int = 
 def _resolve_dataset(name: str, data_root: str, semantic_only: bool = True):
     """A DATASETS.TRAIN / TEST name → its reader.  The Cityscapes semantic names read
     --data-root; every other name goes through ``data/catalog.py`` rooted at the parent
-    of --data-root (Detectron2's datasets directory, where coco/ is a sibling of
-    cityscapes/).  With ``semantic_only`` only (image, label) readers are taken, else also
-    panoptic ones.  Raises KeyError, ValueError or OSError where the name or its data is
-    missing, NotImplementedError where its reader is not ported."""
+    of --data-root (Detectron2's datasets directory, where coco/ and mapillary_vistas/
+    are siblings of cityscapes/).  With ``semantic_only`` only (image, label) readers are
+    taken, else also panoptic ones.  Raises KeyError, ValueError or OSError where the name
+    or its data is missing."""
     from ..data import catalog
     from ..data.ood_datasets import CityscapesSemSeg, OODDataset, PanopticDataset
 
@@ -217,8 +288,25 @@ def _resolve_dataset(name: str, data_root: str, semantic_only: bool = True):
     catalog.register_standard_datasets(os.path.dirname(os.path.abspath(data_root)))
     ds = catalog.get(name)
     if not isinstance(ds, (OODDataset,) if semantic_only else (OODDataset, PanopticDataset)):
-        raise ValueError(f"dataset {name!r} is not a {'semantic (image, label)' if semantic_only else 'val'} reader")
+        raise ValueError(f"dataset {name!r} is not a {'semantic (image, label)' if semantic_only else 'training'} "
+                         "reader")
     return ds
+
+
+def _instance_view(ds, name: str):
+    """The instance mappers' reader: panoptic ground truth → (image, masks, classes) of
+    the thing segments, the thing ids from the catalog metadata (the reference loads
+    instances from COCO's annotations; see ``InstanceFromPanoptic``)."""
+    from ..data import catalog
+    from ..data.ood_datasets import InstanceFromPanoptic, PanopticDataset
+
+    if not isinstance(ds, PanopticDataset):
+        raise ValueError(f"dataset {name!r} has no instance annotations (need panoptic ground truth)")
+    thing_ids = None
+    m = catalog.metadata(name).get("thing_dataset_id_to_contiguous_id")
+    if m:  # the open metadata maps the unknown things to 255, which is no class
+        thing_ids = sorted(v for v in set(m.values()) if v != 255)
+    return InstanceFromPanoptic(ds, thing_ids)
 
 
 def run_val_eval(cfg, model, data_root: str, max_images=None, tta: bool = False):
@@ -325,20 +413,38 @@ def _run_panoptic_val_eval(cfg, model, ds, ds_name, max_images=None):
     return out
 
 
+def train_dataset(cfg, args):
+    """The reader of DATASETS.TRAIN: one name's, or a ``ConcatDataset`` over every name
+    that resolves, semantic or panoptic (through ``_instance_view`` for the instance
+    mappers) as the mapper's name asks.  A missing name is skipped with a warning;
+    FileNotFoundError where none resolves."""
+    from ..data.ood_datasets import ConcatDataset
+
+    mapper_name = args.mapper or cfg.input.dataset_mapper_name
+    semantic_only = not ("panoptic" in mapper_name or "instance" in mapper_name)
+    parts, errors = [], []
+    for name in cfg.datasets_train or ("cityscapes_fine_sem_seg_train",):
+        try:
+            d = _resolve_dataset(name, args.data_root, semantic_only)
+            if "instance" in mapper_name:
+                d = _instance_view(d, name)
+            if len(d) == 0:
+                raise FileNotFoundError("no samples found")
+            parts.append(d)
+        except (KeyError, ValueError, OSError) as e:
+            errors.append(f"{name}: {e}")
+    if errors:
+        print(f"WARNING: skipped train dataset(s): {'; '.join(errors)}")
+    if not parts:
+        raise FileNotFoundError(f"none of DATASETS.TRAIN {list(cfg.datasets_train)} found under {args.data_root} "
+                                "(or its parent datasets dir)")
+    return parts[0] if len(parts) == 1 else ConcatDataset(parts)
+
+
 def data_iterator(cfg, args, batch_size: int) -> Iterator[dict]:
-    """Infinite shuffled, mapped and collated batches of DATASETS.TRAIN."""
-    names = cfg.datasets_train or ("cityscapes_fine_sem_seg_train",)
-    if len(names) > 1:
-        raise NotImplementedError(f"training on several datasets {list(names)} (ConcatDataset) is not ported "
-                                  "yet (ROADMAP.md §A.4)")
-    mapper = build_mapper(cfg, args)  # refuses the mappers that are not ported first
-    try:
-        ds = _resolve_dataset(names[0], args.data_root)
-    except OSError as e:
-        raise FileNotFoundError(f"DATASETS.TRAIN {names[0]!r} not found under {args.data_root}: {e}") from e
-    if len(ds) == 0:
-        raise FileNotFoundError(f"DATASETS.TRAIN {names[0]!r} has no samples under {args.data_root}")
-    return prefetching_iterator(ds, mapper, batch_size, args.seed,
+    """Infinite shuffled, mapped and collated batches of DATASETS.TRAIN (``train_dataset``)."""
+    ds = train_dataset(cfg, args)
+    return prefetching_iterator(ds, build_mapper(cfg, args), batch_size, args.seed,
                                 workers=args.workers or cfg.solver.num_workers)
 
 

@@ -77,16 +77,27 @@ def test_coco_panoptic_metadata_equals_rba_tpu(open_panoptic):
 
 
 def test_standard_registrations(tmp_path):
-    """The same names as rba_tpu's, with rba_tpu's metadata where the port has the
-    dataset's tables; a name whose reader is not ported raises, naming its ROADMAP item."""
+    """The same names as rba_tpu's, with rba_tpu's metadata; the Mapillary Vistas
+    65-class reader gives rba_tpu's samples on a small tree."""
+    rs = np.random.RandomState(0)
+    for folder in ("images", "labels"):
+        (tmp_path / "mapillary_vistas" / "validation" / folder).mkdir(parents=True)
+    for i in range(2):
+        Image.fromarray(rs.randint(0, 256, (16, 24, 3)).astype(np.uint8)).save(
+            tmp_path / "mapillary_vistas" / "validation" / "images" / f"v{i}.jpg")
+        Image.fromarray(rs.randint(0, 66, (16, 24)).astype(np.uint8)).save(
+            tmp_path / "mapillary_vistas" / "validation" / "labels" / f"v{i}.png")
     tcatalog.register_standard_datasets(str(tmp_path))
     jcatalog.register_standard_datasets(str(tmp_path))
     assert tcatalog.registered() == jcatalog.registered()
     for name in ("cityscapes_fine_sem_seg_val", "coco_2017_val_panoptic_open", "coco_2017_val_panoptic",
-                 "mapillary_cityscapes_sem_seg_val", "road_anomaly"):
+                 "mapillary_cityscapes_sem_seg_val", "road_anomaly", "mapillary_vistas_sem_seg_val"):
         assert tcatalog.metadata(name) == jcatalog.metadata(name), name
-    with pytest.raises(NotImplementedError, match="§A.4"):
-        tcatalog.get("mapillary_vistas_sem_seg_val")
+    got, want = tcatalog.get("mapillary_vistas_sem_seg_val"), jcatalog.get("mapillary_vistas_sem_seg_val")
+    assert len(got) == len(want) == 2 and tcatalog.metadata("mapillary_vistas_sem_seg_val")["ignore_label"] == 65
+    for i in range(2):
+        assert got[i].name == want[i].name
+        assert np.array_equal(got[i].image, want[i].image) and np.array_equal(got[i].label, want[i].label)
     with pytest.raises(KeyError):
         tcatalog.get("no_such_dataset")
 

@@ -128,11 +128,24 @@ def test_train_cli_on_a_native_non_swin_recipe(tmp_path):
 @pytest.mark.parametrize("extra,item", [(["--mapper", "mask_former_semantic_void"], "§A.4"),
                                         (["--num-gpus", "2"], "§A.8")])
 def test_unported_paths_are_refused(tmp_path, extra, item):
+    """§A.8 (several GPUs) is refused, naming its ROADMAP item; the void mapper, refused
+    until §A.4 ported it, trains a step: the labels read as Cityscapes labelIds, the void
+    ids supervised as outliers."""
     _write_trees(tmp_path, n=2)
     args = ["--config-file", str(_config(tmp_path / "config.yaml")), "--data-root", str(tmp_path / "cityscapes"),
-            "--output-dir", str(tmp_path / "out"), "--device", "cpu", "--max-iter", "1"]
-    with pytest.raises(NotImplementedError, match=item):
-        train_net.main(args + extra)
+            "--output-dir", str(tmp_path / "out"), "--device", "cpu", "--max-iter", "1", "--log-period", "1"]
+    if item == "§A.8":
+        with pytest.raises(NotImplementedError, match=item):
+            train_net.main(args + extra)
+        return
+    for gt in (tmp_path / "cityscapes" / "gtFine" / "train" / "cityA").iterdir():  # → labelIds: 5 classes, void
+        lab = np.asarray(Image.open(gt))
+        Image.fromarray(np.array([7, 8, 11, 13, 4, 5, 0], np.uint8)[lab]).save(gt)
+    state = train_net.main(args + extra)
+    assert state.step == 1
+    (m,) = [json.loads(line) for line in open(tmp_path / "out" / "metrics.jsonl")]
+    assert "outlier_loss" in m and all(np.isfinite(v) for v in m.values())
+    assert "ood_images" in m  # the void mapper emits outlier_masks
 
 
 def test_prefetching_iterator_stops_its_threads_when_closed():

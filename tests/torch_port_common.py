@@ -413,7 +413,8 @@ def port_loss_and_grads(tcfg, model, batch: dict, key):
     from rba_tpu_torch.models import maskformer as tmf
     from rba_tpu_torch.train import criterion as tcrit
 
-    uniform = replay(criterion_draws(key, tcfg.loss, TRAIN_B, TRAIN_T, 1 + tcfg.decoder.dec_layers))
+    b, t = batch["gt_labels"].shape
+    uniform = replay(criterion_draws(key, tcfg.loss, b, t, 1 + tcfg.decoder.dec_layers))
     tb = torch_batch(batch)
     model.zero_grad(set_to_none=True)
     outputs = tmf.maskformer_forward(model, tcfg, tmf.preprocess(tcfg, tb["images"]), need_aux=True,
