@@ -74,6 +74,16 @@ other phases below, the non-Swin backbones last.
   on R50 (then ``--eval-only``), at full width and depth over synthetic Mapillary
   (3072x4096) and COCO panoptic trees: Kernel E's launches, the frozen parameters, the
   unknown classes never targets, the sampling's forward and backward spans.
+- ``heads``: the other heads on swin_b_1dl's backbone at full width and depth, from seeded
+  Detectron2 checkpoints: MaskFormer v1 (``BasePixelDecoder`` + ``StandardTransformerDecoder``,
+  ``v1_cfg``) on path 1 (A 24, B 1) and path 2 (C 24, D 4, B 1), its
+  ``TransformerEncoderPixelDecoder`` variant, ``PerPixelBaselineHead`` and
+  ``PerPixelBaselinePlusHead`` (A 24, B 0), each at fp32 against the plain versions and
+  ``maskformer_infer``; ``train_net.main`` on the v1 model (Kernel E) and the Plus head.
+- ``hf``: a full-width HF-named state dict of the three-level Swin-B Mask2Former
+  (``hf_cityscapes_cfg``, the architecture of facebook/mask2former-swin-base-IN21k-cityscapes-semantic)
+  through ``convert_hf_checkpoint``: parameters and score maps equal to the Detectron2-loaded
+  model's, path 1 (A 24, B 1).
 
 Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
@@ -568,15 +578,18 @@ def _timed(fn, *args, **kw):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def _wrappers():
-    """Every kernel wrapper of the port by name; each counts its launches."""
+def _wrappers(lsap: bool = False):
+    """Every kernel wrapper of the port's Pallas counterparts by name, and with ``lsap``
+    Kernel E's too; each counts its launches."""
     from rba_tpu_torch.kernels.fused_mlp import fused_mlp_residual
     from rba_tpu_torch.kernels.fused_rba import fused_rba_score
+    from rba_tpu_torch.kernels.lsap import batched_linear_sum_assignment
     from rba_tpu_torch.kernels.masked_softmax import masked_softmax
     from rba_tpu_torch.kernels.window_attention import window_attention
 
-    return {"window_attention": window_attention, "fused_rba_score": fused_rba_score,
-            "masked_softmax": masked_softmax, "fused_mlp_residual": fused_mlp_residual}
+    out = {"window_attention": window_attention, "fused_rba_score": fused_rba_score,
+           "masked_softmax": masked_softmax, "fused_mlp_residual": fused_mlp_residual}
+    return {**out, "lsap": batched_linear_sum_assignment} if lsap else out
 
 
 def serve_phase(name, cfg, model, images, attention, per_image):
@@ -586,7 +599,7 @@ def serve_phase(name, cfg, model, images, attention, per_image):
     score maps of the kernels, for the comparison between paths."""
     from rba_tpu_torch.models.maskformer import maskformer_infer_rba
 
-    wrappers = _wrappers()
+    wrappers = _wrappers(lsap=True)
     infer = functools.partial(maskformer_infer_rba, model, attention=attention)
     infer(cfg, images[0])  # warm-up requests, one per path
     infer(cfg, images[0], plain=True)
@@ -1103,8 +1116,8 @@ def window_attention_shapes():
         swin.window_attention = real
 
 
-def _zero_counts():
-    wrappers = _wrappers()
+def _zero_counts(lsap: bool = False):
+    wrappers = _wrappers(lsap)
     for fn in wrappers.values():
         fn.launches = 0
     return lambda: {k: fn.launches for k, fn in wrappers.items()}
@@ -1571,7 +1584,7 @@ def train_phase(pth: Path, image):
         f"{cfg.input.dataset_mapper_name}, OOD_PROB {cfg.ood.ood_prob}, outlier loss {cfg.ood.outlier_loss_func} "
         f"on {cfg.ood.outlier_loss_target}/{cfg.ood.score_norm}, {cfg.decoder.dec_layers} decoder layer(s)")
 
-    counts = {**_wrappers(), "lsap": batched_linear_sum_assignment}
+    counts = _wrappers(lsap=True)
     run = None
     for micro in (8, 4, 2):
         out = root / f"out_micro{micro}"
@@ -1602,7 +1615,7 @@ def train_phase(pth: Path, image):
     ms_step = [TRAIN_BATCH * 1e3 / m["imgs_per_sec"] for m in timed]
     pasted = sum(m.get("ood_images", 0) for m in lines)
     finite = all(math.isfinite(v) for m in lines for k, v in m.items() if k not in ("step",))
-    expected_e = len(lines) * run["grad_accum"] * (1 + cfg.decoder.dec_layers)
+    expected_e = len(lines) * run["grad_accum"] * _supervised_layers(cfg)
     log(f"train: per-step batch {run['micro']} x --grad-accum {run['grad_accum']} = global batch {TRAIN_BATCH}; "
         f"{len(lines)} steps in {run['wall_s']:.1f} s (model load and mapper start included); timed steps "
         f"{statistics.median(ms_step):.1f} ms/step median ({[round(v, 1) for v in ms_step]}), "
@@ -2052,7 +2065,6 @@ def train_eval_phase():
     error), their three evaluations are in metrics.jsonl with finite mIoU, and Kernel A ran
     24 times per evaluated image.  Reports the seconds of each evaluation."""
     from rba_tpu_torch.config import load_d2_config
-    from rba_tpu_torch.kernels.lsap import batched_linear_sum_assignment
     from rba_tpu_torch.train import train_net
 
     root = SCRATCH / "train"
@@ -2062,7 +2074,7 @@ def train_eval_phase():
     out = root / "out_eval"
     shutil.rmtree(out, ignore_errors=True)
     blocks = sum(load_d2_config(str(OOD_CONFIG)).swin.depths)
-    counts = {**_wrappers(), "lsap": batched_linear_sum_assignment}
+    counts = _wrappers(lsap=True)
     real, eval_s = train_net.run_val_eval, []
 
     def timed_eval(*args, **kw):
@@ -2386,15 +2398,13 @@ def _trainer_cli(rel: str, image, micro: int):
     ``maskformer_infer_rba`` (Kernel B once, at mask stride 4)."""
     from rba_tpu_torch.config import load_config
     from rba_tpu_torch.convert import load_checkpoint_params
-    from rba_tpu_torch.kernels.lsap import batched_linear_sum_assignment
     from rba_tpu_torch.models.maskformer import maskformer_infer_rba
     from rba_tpu_torch.train import train_net
 
     root, out = SCRATCH / "train", SCRATCH / "train_backbones_cli"
     shutil.rmtree(out, ignore_errors=True)
     cfg = load_config(str(SEMSEG_CONFIGS / rel))
-    lsap_launches = batched_linear_sum_assignment.launches
-    counts = _zero_counts()
+    counts = _zero_counts(lsap=True)
     argv = ["--config-file", str(SEMSEG_CONFIGS / rel), "--data-root", str(root / "cityscapes"), "--coco-root",
             str(root / "coco"), "--output-dir", str(out), "--max-iter", str(CLI_STEPS), "--batch-size",
             str(TRAIN_BATCH), "--grad-accum", str(TRAIN_BATCH // micro), "--log-period", "1",
@@ -2402,7 +2412,7 @@ def _trainer_cli(rel: str, image, micro: int):
     state, wall_ms = _timed(train_net.main, argv)
     del state
     gc.collect()
-    train_launches = dict(counts(), lsap=batched_linear_sum_assignment.launches - lsap_launches)
+    train_launches = counts()
     lines = [json.loads(line) for line in open(out / "metrics.jsonl")]
     expected_e = CLI_STEPS * (TRAIN_BATCH // micro) * (1 + cfg.decoder.dec_layers)
     finite = all(math.isfinite(v) for m in lines for v in m.values())
@@ -2440,13 +2450,12 @@ def train_backbones_phase(image):
     ``CLI_CONFIG`` also the fp32 step through Kernel E against the plain LSAP and the
     trainer CLI with its checkpoint served (``_trainer_cli``)."""
     from rba_tpu_torch.config import load_config
-    from rba_tpu_torch.kernels.lsap import batched_linear_sum_assignment
     from rba_tpu_torch.models.maskformer import build_model
     from rba_tpu_torch.ops.deform_sampling import BACKWARD_SPAN, SPAN
     from rba_tpu_torch.train import train_net
 
     root = SCRATCH / "train"
-    counts = {**_wrappers(), "lsap": batched_linear_sum_assignment}
+    counts = _wrappers(lsap=True)
     out, lsap_total = {}, 0
     for name, rel in TRAIN_BACKBONE_CONFIGS.items():
         t_cfg = time.perf_counter()
@@ -2727,13 +2736,12 @@ def _train_recipe(name: str, config: Path, weights, micros):
     Gates: finite metrics, the steps all logged, Kernel E launched steps x micro-batches x
     (1 + decoder layers) times and no serving kernel."""
     from rba_tpu_torch.config import load_config
-    from rba_tpu_torch.kernels.lsap import batched_linear_sum_assignment
     from rba_tpu_torch.ops.deform_sampling import BACKWARD_SPAN, SPAN
     from rba_tpu_torch.train import train_net
     from rba_tpu_torch.train.train_step import make_train_step
 
     cfg = load_config(str(config))
-    counts = {**_wrappers(), "lsap": batched_linear_sum_assignment}
+    counts = _wrappers(lsap=True)
     steps = TRAIN_DS_WARMUP + TRAIN_DS_TIMED
     run = None
     for micro in micros:
@@ -2762,7 +2770,7 @@ def _train_recipe(name: str, config: Path, weights, micros):
         raise RuntimeError(f"train_datasets {name}: no per-step batch of {micros} fits on the card")
     lines = [json.loads(line) for line in open(run["out"] / "metrics.jsonl")]
     ms_step = [TRAIN_BATCH * 1e3 / m["imgs_per_sec"] for m in lines[TRAIN_DS_WARMUP:]]
-    expected_e = len(lines) * run["grad_accum"] * (1 + cfg.decoder.dec_layers)
+    expected_e = len(lines) * run["grad_accum"] * _supervised_layers(cfg)
     finite = all(math.isfinite(v) for m in lines for v in m.values())
     serving = {k: v for k, v in run["launches"].items() if k != "lsap" and v}
     bad = []
@@ -2812,10 +2820,9 @@ def _train_recipe(name: str, config: Path, weights, micros):
 def _eval_only(name: str, config: Path, weights, out: Path, blocks: int):
     """``train_net.main --eval-only`` from the recipe's last checkpoint on 2 val frames:
     mIoU finite, Kernel A ``blocks`` times per frame and Kernel E never."""
-    from rba_tpu_torch.kernels.lsap import batched_linear_sum_assignment
     from rba_tpu_torch.train import train_net
 
-    counts = {**_wrappers(), "lsap": batched_linear_sum_assignment}
+    counts = _wrappers(lsap=True)
     for fn in counts.values():
         fn.launches = 0
     argv = _recipe_argv(config, out, TRAIN_BATCH, TRAIN_DS_WARMUP + TRAIN_DS_TIMED, weights)
@@ -2909,6 +2916,262 @@ def train_datasets_phase(swin_l_dir: Path):
         out[name] = row
     out["lsap_launches"] = lsap_total
     return out
+
+
+# ---------------------------------------------------------------------------
+# The other heads (MaskFormer v1, the per-pixel baselines) and HF checkpoints
+# ---------------------------------------------------------------------------
+
+def v1_cfg(encoder_layers: int = 0):
+    """MaskFormer v1 on ``swin_b_1dl()``'s backbone, at the head widths of MaskFormer's
+    ``configs/ade20k-150/swin/maskformer_swin_base_IN21k_384_bs16_160k_res640.yaml``:
+    ``BasePixelDecoder`` (conv_dim 256, mask_dim 256) and ``StandardTransformerDecoder``
+    (hidden 256, 8 heads, FFN 2048, 6 decoder layers, 100 queries, no encoder layers, on
+    res5), 19 classes.  With ``encoder_layers`` the ``TransformerEncoderPixelDecoder``
+    variant: that many DETR encoder layers on res5, the decoder on their output."""
+    from rba_tpu_torch.config import swin_b_1dl
+
+    base = swin_b_1dl()
+    enc = encoder_layers > 0
+    return dataclasses.replace(
+        base,
+        pixel_decoder=dataclasses.replace(base.pixel_decoder, name="TransformerEncoderPixelDecoder" if enc else
+                                          "BasePixelDecoder", conv_dim=256, mask_dim=256,
+                                          transformer_enc_layers=encoder_layers),
+        decoder=dataclasses.replace(base.decoder, name="StandardTransformerDecoder", hidden_dim=256, nheads=8,
+                                    dim_feedforward=2048, dec_layers_total=6, enc_layers=0, num_queries=100,
+                                    transformer_in_feature="transformer_encoder" if enc else "res5"))
+
+
+def per_pixel_cfg(plus: bool):
+    """A per-pixel baseline on ``swin_b_1dl()``'s backbone, at the head widths of MaskFormer's
+    ``configs/ade20k-150/per_pixel_baseline_R50_bs16_160k.yaml`` (``PerPixelBaselineHead``,
+    ``BasePixelDecoder``, conv_dim 256, mask_dim 256) and
+    ``per_pixel_baseline_plus_R50_bs16_160k.yaml`` (``PerPixelBaselinePlusHead`` on the
+    ``TransformerEncoderPixelDecoder``, 6 encoder and 6 decoder layers, hidden 256, FFN 2048,
+    one query per class, on the encoder's output), 19 classes."""
+    from rba_tpu_torch.config import swin_b_1dl
+
+    base = swin_b_1dl()
+    pd = dataclasses.replace(base.pixel_decoder, name="TransformerEncoderPixelDecoder" if plus else "BasePixelDecoder",
+                             conv_dim=256, mask_dim=256, transformer_enc_layers=6)
+    dec = dataclasses.replace(base.decoder, name="StandardTransformerDecoder", hidden_dim=256, nheads=8,
+                              dim_feedforward=2048, dec_layers_total=6, enc_layers=0, num_queries=base.num_classes,
+                              transformer_in_feature="transformer_encoder")
+    return dataclasses.replace(base, sem_seg_head_name="PerPixelBaselinePlusHead" if plus else "PerPixelBaselineHead",
+                               pixel_decoder=pd, decoder=dec)
+
+
+def _supervised_layers(cfg) -> int:
+    """The layers that the criterion matches, each once per micro-batch (Kernel E once per
+    layer): none for a per-pixel head, the last output alone for the simple decoder or
+    without deep supervision, else each of the v1 decoder's layers, or the masked
+    decoder's layers and its queries before the first."""
+    if cfg.sem_seg_head_name != "MaskFormerHead":
+        return 0
+    if cfg.decoder.name in ("SimpleDecoder", "SimpleTransformerDecoder") or not cfg.loss.deep_supervision:
+        return 1
+    if cfg.decoder.name == "StandardTransformerDecoder":
+        return cfg.decoder.dec_layers_total
+    return 1 + cfg.decoder.dec_layers
+
+
+def _head_model(name: str, cfg, seed: int = 0):
+    """A seeded full-width Detectron2 ``model_final.pth`` of ``cfg`` under ``SCRATCH/heads``
+    loaded onto the card with ``load_checkpoint_params``: every parameter bit-equal to the
+    same dict converted on the CPU (which the CPU tests hold against rba_tpu's conversion)."""
+    from rba_tpu_torch.convert import jax_params_to_state, load_checkpoint_params
+    from rba_tpu_torch.convert.d2_mapping import convert_d2_state_dict
+
+    model_dir = SCRATCH / "heads" / name
+    shutil.rmtree(model_dir, ignore_errors=True)
+    model_dir.mkdir(parents=True)
+    sd = write_d2_checkpoint(cfg, model_dir / "model_final.pth", seed=seed)
+    want = {k: torch.from_numpy(v) for k, v in jax_params_to_state(convert_d2_state_dict(sd, cfg)).items()}
+    t0 = time.perf_counter()
+    model = load_checkpoint_params(str(model_dir), cfg)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    params = dict(model.named_parameters())
+    wrong = [n for n, p in params.items() if not (p.is_cuda and torch.equal(p.detach().cpu(), want[n]))]
+    log(f"heads {name}: model_final.pth of {len(sd)} arrays, {sum(v.numel() for v in want.values()) / 1e6:.2f} M "
+        f"parameters, converted onto the card in {load_s:.2f} s; parameters not equal to the CPU conversion: "
+        f"{len(wrong)}")
+    if wrong or sorted(params) != sorted(want):
+        raise RuntimeError(f"heads {name}: parameters differ from the CPU conversion: {wrong[:5]}")
+    return model, model_dir
+
+
+def _fp32_against_infer(name, cfg, model, image, attention):
+    """At fp32 the entry (kernels) against its plain version and against
+    ``maskformer_infer(...)["rba"]``, within E2E_FP32_TOL."""
+    from rba_tpu_torch.models.maskformer import maskformer_infer, maskformer_infer_rba
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    got = maskformer_infer_rba(model, cfg32, image, attention=attention)
+    plain = maskformer_infer_rba(model, cfg32, image, attention=attention, plain=True)
+    full = maskformer_infer(model, cfg32, image, attention=attention, plain=True)["rba"]
+    errs = dict(vs_plain=max_abs(got, plain), vs_maskformer_infer=max_abs(got, full))
+    log(f"heads {name} at fp32: the entry vs its plain version {errs['vs_plain']:.3e}, vs maskformer_infer "
+        f"{errs['vs_maskformer_infer']:.3e} (bound {E2E_FP32_TOL:.0e}, gated)")
+    if not max(errs.values()) <= E2E_FP32_TOL:
+        raise RuntimeError(f"heads {name}: fp32 score maps differ: {errs}")
+    return errs
+
+
+def _train_head(name: str, cfg, model_dir: Path):
+    """``train_net.main`` on ``cfg`` (a native YAML under SCRATCH) from the head's seeded
+    checkpoint over the train phase's Cityscapes trees (``_train_recipe``); every
+    parameter with a learning rate changed."""
+    from rba_tpu_torch.config import save_config
+    from rba_tpu_torch.convert import load_checkpoint_params
+
+    path = SCRATCH / "heads" / f"{name}.yaml"
+    save_config(str(path), cfg)
+    row, state, _, _ = _train_recipe(f"heads_{name}", path, model_dir, micros=(8, 4, 2))
+    start = dict(load_checkpoint_params(str(model_dir), cfg).named_parameters())
+    changed, total = _changed(state.model, {n: p.detach() for n, p in start.items()}, ("",))
+    row.update(parameters_changed=changed, parameters_total=total)
+    finite = all(math.isfinite(v) for v in row["last"].values())
+    log(f"heads {name} training: {changed} of {total} parameters changed; last losses finite: {finite}")
+    if changed != total or not finite:
+        raise RuntimeError(f"heads {name}: {changed} of {total} parameters changed, finite {finite}")
+    del state, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def heads_phase(images):
+    """The other heads on ``swin_b_1dl()``'s backbone at full width and depth, 1024x2048
+    requests: MaskFormer v1 (``v1_cfg``) from a seeded Detectron2 checkpoint on path 1
+    (A 24, B 1 per request) and path 2 (C 24, D 4, B 1), at fp32 against the plain
+    versions, against ``maskformer_infer(...)["rba"]`` and path 2 against path 1; the
+    ``TransformerEncoderPixelDecoder`` variant (6 encoder layers on res5) for one request;
+    ``PerPixelBaselineHead`` and ``PerPixelBaselinePlusHead`` (``per_pixel_cfg``) through
+    ``maskformer_infer_rba`` (A 24, B 0); one profiled request of each.  Then
+    ``train_net.main`` on the v1 model (Kernel E in the matcher) and on the Plus head (no
+    matcher): 512x1024 crops at batch 8, 1 + 3 steps."""
+    from rba_tpu_torch.config import load_d2_config
+
+    n_blocks = 24
+    path1 = {"window_attention_mma_kernel": "window_attention_kernel", "fused_rba_mma_kernel": "fused_rba_kernel"}
+    out = {}
+    cfg = v1_cfg()
+    cfg2 = dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, mlp_impl="fused"))
+    model, v1_dir = _head_model("v1", cfg)
+    scores32 = {}
+    for name, pcfg, attention, per_image, redesigned in (
+            ("path1", cfg, "fused", {"window_attention": n_blocks, "fused_rba_score": 1}, path1),
+            ("path2", cfg2, "fused_softmax", {"masked_softmax": n_blocks, "fused_mlp_residual": 4, "fused_rba_score": 1},
+             {"fused_mlp_mma_kernel": "fused_mlp_kernel", "masked_softmax_walk_kernel": "masked_softmax_kernel",
+              "fused_rba_mma_kernel": "fused_rba_kernel"})):
+        row, _, scores32[name] = serve_phase(f"heads v1 {name}", pcfg, model, images, attention, per_image)
+        row["profile"] = profile_phase(f"heads v1 {name}", pcfg, model, images[1], attention, redesigned)
+        row["fp32"] = _fp32_against_infer(f"v1 {name}", pcfg, model, images[1], attention)
+        out[f"v1_{name}"] = row
+    cross32 = max(max_abs(a, b) for a, b in zip(scores32["path1"], scores32["path2"]))
+    out["v1_paths_fp32_max_diff"] = cross32
+    log(f"heads v1: score map, path 2 vs path 1: fp32 max diff {cross32:.3e} (bound {E2E_FP32_TOL:.0e}, gated)")
+    if not cross32 <= E2E_FP32_TOL:
+        raise RuntimeError(f"heads v1: fp32 score maps of path 2 and path 1 differ by {cross32}")
+    del model, scores32
+    gc.collect()
+
+    # the encoder variant: one request, its launches, fp32 against the plain version
+    from rba_tpu_torch.models.maskformer import build_model, maskformer_infer_rba
+
+    ecfg = v1_cfg(encoder_layers=6)
+    model = build_model(ecfg, seed=0)
+    maskformer_infer_rba(model, ecfg, images[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = _zero_counts(lsap=True)
+    rba, ms = _timed(maskformer_infer_rba, model, ecfg, images[1])
+    launches = counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ok = bool(torch.isfinite(rba).all()) and tuple(rba.shape) == (1, *IMAGE_HW)
+    row = dict(launches=launches, ms=ms, peak_gib=peak_gib, ok=ok, profile=profile_phase("heads v1 encoder", ecfg, model, images[1],
+                                                                       "fused", path1))
+    row["fp32"] = _fp32_against_infer("v1 encoder", ecfg, model, images[1], "fused")
+    log(f"heads v1 with the TransformerEncoderPixelDecoder (6 encoder layers): one request {ms:.2f} ms, launches "
+        f"{launches}, peak memory {peak_gib:.2f} GiB, finite and of the frame's shape: {ok}")
+    if not ok or launches != dict(dict.fromkeys(launches, 0), window_attention=n_blocks, fused_rba_score=1):
+        raise RuntimeError(f"heads v1 encoder: {row}")
+    out["v1_encoder"] = row
+    del model
+    gc.collect()
+
+    pp_dirs = {}
+    for name, plus in (("per_pixel", False), ("per_pixel_plus", True)):
+        pcfg = per_pixel_cfg(plus)
+        model, pp_dirs[name] = _head_model(name, pcfg)
+        row, _, _ = serve_phase(f"heads {name}", pcfg, model, images, "fused", {"window_attention": n_blocks})
+        row["profile"] = profile_phase(f"heads {name}", pcfg, model, images[1], "fused",
+                                       {"window_attention_mma_kernel": "window_attention_kernel"})
+        row["fp32"] = _fp32_against_infer(name, pcfg, model, images[1], "fused")
+        out[name] = row
+        del model
+        gc.collect()
+    torch.cuda.empty_cache()
+
+    # training: the train phase's Cityscapes trees, the released config's solver and mapper
+    base = load_d2_config(str(D2_CONFIG))
+    for name, hcfg, model_dir in (("v1", cfg, v1_dir), ("per_pixel_plus", per_pixel_cfg(True), pp_dirs["per_pixel_plus"])):
+        tcfg = dataclasses.replace(base, sem_seg_head_name=hcfg.sem_seg_head_name, pixel_decoder=hcfg.pixel_decoder,
+                                   decoder=hcfg.decoder)
+        out[f"train_{name}"] = _train_head(name, tcfg, model_dir)
+    if not out["train_v1"]["launches"]["lsap"] or out["train_per_pixel_plus"]["launches"]["lsap"]:
+        raise RuntimeError("heads: Kernel E must run in the v1 step and not in the Plus step")
+    return out
+
+
+def hf_phase(images):
+    """A full-width HF-named state dict of ``facebook/mask2former-swin-base-IN21k-cityscapes-semantic``'s
+    architecture (``tests/d2_synthetic.py``'s ``hf_cityscapes_cfg``: Swin-B, three
+    deformable levels, 9 decoder layers, 19 classes): a seeded Detectron2 dict renamed to
+    HF's names (its ``d2_to_hf_names``, held on the CPU against HF's own model),
+    converted by ``convert_hf_checkpoint(sd, cfg)`` onto the card: every parameter equal
+    to the same dict loaded under Detectron2 names; 4 + 1 requests on path 1 (A 24, B 1),
+    fp32 against the plain versions, and every score map equal to the Detectron2-loaded
+    model's."""
+    from rba_tpu_torch.convert import jax_params_to_state, load_jax_params
+    from rba_tpu_torch.convert.d2_mapping import convert_d2_state_dict
+    from rba_tpu_torch.convert.hf_mapping import convert_hf_checkpoint
+    from rba_tpu_torch.config import swin_b_1dl
+    from rba_tpu_torch.models.maskformer import build_model, maskformer_infer_rba
+    from tests.d2_synthetic import d2_state_dict, d2_to_hf_names, hf_cityscapes_cfg
+
+    cfg = hf_cityscapes_cfg(swin_b_1dl())
+    sd = d2_state_dict(cfg, 5, pre_rename=False)
+    hf_sd = {k: torch.from_numpy(v) for k, v in d2_to_hf_names(sd).items()}
+    t0 = time.perf_counter()
+    params, _ = convert_hf_checkpoint(hf_sd, cfg)
+    model = load_jax_params(build_model(cfg, seed=1), params)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    via_d2 = load_jax_params(build_model(cfg, seed=2), convert_d2_state_dict(sd, cfg))
+    want = jax_params_to_state(convert_d2_state_dict(sd, cfg))
+    d2_params = dict(via_d2.named_parameters())
+    wrong = [n for n, p in model.named_parameters() if not torch.equal(p, d2_params[n])]
+    log(f"hf: {len(hf_sd)} HF-named arrays ({sum(v.numel() for v in hf_sd.values()) / 1e6:.2f} M values) converted "
+        f"by convert_hf_checkpoint onto the card in {convert_s:.2f} s; parameters not equal to the same weights "
+        f"loaded under Detectron2 names: {len(wrong)} of {len(d2_params)}")
+    if wrong or sorted(d2_params) != sorted(want):
+        raise RuntimeError(f"hf: parameters differ from the Detectron2-loaded model's: {wrong[:5]}")
+    row, scores, _ = serve_phase("hf path1", cfg, model, images, "fused", {"window_attention": 24, "fused_rba_score": 1})
+    row["profile"] = profile_phase("hf path1", cfg, model, images[1], "fused",
+                                   {"window_attention_mma_kernel": "window_attention_kernel",
+                                    "fused_rba_mma_kernel": "fused_rba_kernel"})
+    same = [torch.equal(s, maskformer_infer_rba(via_d2, cfg, images[i + 1])) for i, s in enumerate(scores)]
+    row.update(hf_arrays=len(hf_sd), convert_s=convert_s, equal_to_d2_model=same)
+    log(f"hf: score maps equal to the Detectron2-loaded model's: {same}")
+    if not all(same):
+        raise RuntimeError("hf: the HF-ingested model's score maps differ from the Detectron2-loaded model's")
+    del model, via_d2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 def main() -> int:
@@ -3046,6 +3309,16 @@ def main() -> int:
         train_datasets = train_datasets_phase(swin_l_dir)
         log(f"train_datasets phase: {time.perf_counter() - t0:.1f} s")
     wa_seen |= wa_seen_l
+    gc.collect()
+    torch.cuda.empty_cache()
+    with window_attention_shapes() as wa_seen_heads:
+        t0 = time.perf_counter()
+        heads = heads_phase(images)
+        log(f"heads phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        hf = hf_phase(images)
+        log(f"hf phase: {time.perf_counter() - t0:.1f} s")
+    wa_seen |= wa_seen_heads
     unchecked = sorted(wa_seen - wa_checked)
     log(f"Kernel A in these phases: {len(wa_seen)} distinct launch shapes (windows, heads, head dim, masked), "
         f"each held against its plain version at bf16 and fp32 in the kernel phase: {not unchecked} "
@@ -3061,7 +3334,11 @@ def main() -> int:
         ("eval_only", train_eval["launches"]["eval_only"]),
         *((f"backbones_{k}", v["parity"]["launches"]) for k, v in backbones.items()),
         ("r50_d2_sweep", r50_d2["sweep_launches"]), ("swin_l_path1", swin_l["path1"]["launches"]),
-        ("swin_l_path2", swin_l["path2"]["launches"]), ("swin_l_street_hazards", swin_l["street_hazards"]["launches"]))}
+        ("swin_l_path2", swin_l["path2"]["launches"]), ("swin_l_street_hazards", swin_l["street_hazards"]["launches"]),
+        *((f"heads_{k}", heads[k]["launches"]) for k in ("v1_path1", "v1_path2", "v1_encoder", "per_pixel",
+                                                         "per_pixel_plus")),
+        *((f"heads_train_{k}", {w: v for w, v in heads[f"train_{k}"]["launches"].items() if w != "lsap"})
+          for k in ("v1", "per_pixel_plus")), ("hf", hf["launches"]))}
     swin_l_launches = {k: v for k, v in variant_launches.items() if k.startswith("launches_swin_l_")}
     eval_launches_ds = {f"launches_train_datasets_eval_{k}": v["eval_only"]["launches"]["window_attention"]
                         for k, v in train_datasets.items() if isinstance(v, dict) and "eval_only" in v}
@@ -3091,12 +3368,15 @@ def main() -> int:
              ms_batches=ms["ms_batches"], cast_ms=ms["cast_ms"],
              **{k: v["masked_softmax"] for k, v in swin_l_launches.items()},
              **{f"{k}_swin_l": ms_l[k] for k in ("ms", "plain_ms", "bound_ms", "cast_ms")},
-             max_abs_err_swin_l=ms_err_l),
+             max_abs_err_swin_l=ms_err_l, **{k: v["masked_softmax"] for k, v in variant_launches.items()
+                                             if k.startswith(("launches_heads", "launches_hf"))}),
         dict(name="fused_mlp_residual", route="cuda", source="rba_tpu_torch/csrc/fused_mlp.cu",
              replaces="rba_tpu/ops/pallas/fused_mlp.py:166",
              launches=serve["path2"]["launches"]["fused_mlp_residual"], max_abs_err=mlp_err, ms=mlp["ms"],
              plain_ms=mlp["plain_ms"], bound_ms=mlp["bound_ms"], bound_by="operations", library_ms=None,
-             ms_batches=mlp["ms_batches"], **{k: v["fused_mlp_residual"] for k, v in swin_l_launches.items()}),
+             ms_batches=mlp["ms_batches"], **{k: v["fused_mlp_residual"] for k, v in swin_l_launches.items()},
+             **{k: v["fused_mlp_residual"] for k, v in variant_launches.items()
+                if k.startswith(("launches_heads", "launches_hf"))}),
         dict(name="lsap", route="cuda", source="rba_tpu_torch/csrc/lsap.cu", replaces="rba_tpu/ops/lsap.py:93",
              launches=train["launches"]["lsap"],
              max_abs_err=max(r["max_abs_err"] for r in (*lsap_rows.values(), train["lsap_real"])),
@@ -3107,7 +3387,11 @@ def main() -> int:
                  TRAIN_WARMUP + TRAIN_TIMED), ms_B8x32x100=lsap_rows["B8x32x100"]["ms"],
              launches_train_eval=train_eval["launches"]["train"]["lsap"],
              launches_train_backbones=train_backbones["lsap_launches"],
-             launches_train_datasets=train_datasets["lsap_launches"]),
+             launches_train_datasets=train_datasets["lsap_launches"],
+             launches_heads_train_v1=heads["train_v1"]["launches"]["lsap"],
+             launches_heads_train_per_pixel_plus=heads["train_per_pixel_plus"]["launches"]["lsap"],
+             **{k: v["lsap"] for k, v in variant_launches.items() if "lsap" in v
+                and k.startswith(("launches_heads", "launches_hf"))}),
     ]
     if args.out:
         args.out.mkdir(parents=True, exist_ok=True)
@@ -3118,7 +3402,7 @@ def main() -> int:
                  tta=tta, sliding=sliding, dense_hybrid=dense_hybrid, sweep_cli=sweep_cli, lsap=lsap_rows,
                  train=train, semseg=semseg, panoptic=panoptic, train_eval=train_eval, backbones=backbones,
                  r50_d2=r50_d2, train_backbones=train_backbones, masked_softmax_swin_l=ms_rows_l, swin_l=swin_l,
-                 train_datasets=train_datasets,
+                 train_datasets=train_datasets, heads=heads, hf=hf,
                  elapsed_s=time.perf_counter() - T_START, kernels=kernels), indent=1))
     log("(window_attention, masked_softmax and fused_mlp_residual times are per image: each call of one "
         "1024x2048 request, summed; ms is the mean of the first batch of 20 calls, ms_batches the means of "
@@ -3133,7 +3417,10 @@ def main() -> int:
         f"the {N_REQUESTS} requests of each non-Swin config at its precision, launches_r50_d2_sweep the sweep over "
         f"the R50 checkpoint, launches_swin_l_path1 / _path2 the {N_REQUESTS} Swin-L requests of each path, "
         f"launches_swin_l_street_hazards the StreetHazards evaluation of {STREET_HAZARDS_FRAMES} frames, "
-        "launches_train_datasets_eval_* each --eval-only of the train_datasets phase; *_swin_l times per Swin-L "
+        "launches_train_datasets_eval_* each --eval-only of the train_datasets phase, launches_heads_v1_path1 / "
+        f"_v1_path2 / _per_pixel / _per_pixel_plus the {N_REQUESTS} requests of each head, launches_heads_v1_encoder "
+        "one request of the encoder variant, launches_heads_train_* each head's training run, launches_hf the "
+        f"{N_REQUESTS} requests of the HF-ingested model; *_swin_l times per Swin-L "
         "1024x2048 image; fused_rba_score's "
         "*_coco at Q=100, K=117, 200x272; lsap's launches count the train phase's "
         f"{TRAIN_WARMUP + TRAIN_TIMED} steps, launches_train_backbones the train_backbones phase's "

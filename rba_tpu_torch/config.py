@@ -258,14 +258,21 @@ BACKBONES = ("swin", "resnet", "mix_transformer", "mit_b0", "mit_b1", "mit_b2", 
              "vit", "vit_sfp", "mvit", "wideresnet38")
 
 
+# the registries' names (SEM_SEG_HEAD.NAME, PIXEL_DECODER_NAME, TRANSFORMER_DECODER_NAME)
+HEADS = ("MaskFormerHead", "PerPixelBaselineHead", "PerPixelBaselinePlusHead")
+PIXEL_DECODERS = ("MSDeformAttnPixelDecoder", "BasePixelDecoder", "TransformerEncoderPixelDecoder")
+DECODERS = ("MultiScaleMaskedTransformerDecoder", "MultiScalePerPixelDecoder", "SimpleDecoder",
+            "SimpleTransformerDecoder", "StandardTransformerDecoder")
+
+
 def check_supported(cfg: RbAConfig) -> None:
-    """Raise ``NotImplementedError`` for an option that no slice of the port runs yet."""
+    """Raise ``NotImplementedError`` for an option that the port does not run: a name no
+    registry holds, as ``rba_tpu`` raises, or an option refused by ROADMAP.md §A.8."""
     later = {
         f"backbone {cfg.backbone_name!r}": cfg.backbone_name not in BACKBONES,
-        "per-pixel baseline heads": cfg.sem_seg_head_name != "MaskFormerHead",
-        "pixel decoders other than MSDeformAttn": cfg.pixel_decoder.name != "MSDeformAttnPixelDecoder",
-        "decoders other than the masked-attention one": cfg.decoder.name != "MultiScaleMaskedTransformerDecoder",
-        "pre-norm decoder layers": cfg.decoder.pre_norm,
+        f"SEM_SEG_HEAD.NAME {cfg.sem_seg_head_name!r}": cfg.sem_seg_head_name not in HEADS,
+        f"PIXEL_DECODER_NAME {cfg.pixel_decoder.name!r}": cfg.pixel_decoder.name not in PIXEL_DECODERS,
+        f"TRANSFORMER_DECODER_NAME {cfg.decoder.name!r}": cfg.decoder.name not in DECODERS,
         "Swin attention layouts other than partition": cfg.swin.attn_layout != "partition",
         f"Swin mlp_impl={cfg.swin.mlp_impl!r}": cfg.swin.mlp_impl not in ("xla", "fused"),
         "weight_quant": cfg.weight_quant != "none",
@@ -276,9 +283,7 @@ def check_supported(cfg: RbAConfig) -> None:
     }
     missing = [name for name, hit in later.items() if hit]
     if missing:
-        raise NotImplementedError(
-            "not ported yet (a later slice of the PyTorch port): " + ", ".join(missing)
-        )
+        raise NotImplementedError("not run by the PyTorch port: " + ", ".join(missing))
     for name in ("compute_dtype", "pixel_decoder_dtype"):
         if getattr(cfg, name) not in ("float32", "bfloat16"):
             raise ValueError(f"{name} {getattr(cfg, name)!r}")

@@ -1,6 +1,5 @@
-"""Detectron2 checkpoint → parameter-pytree conversion (a copy of ``rba_tpu/convert/d2_mapping.py``
-for the families the port runs: every backbone, the MSDeformAttn pixel decoder and the
-masked-attention decoder).
+"""Detectron2 checkpoint → parameter-pytree conversion (a copy of ``rba_tpu/convert/d2_mapping.py``:
+every backbone, pixel decoder, decoder and head).
 
 Takes a released ``model_final.pth`` state dict (numpy arrays under Detectron2's
 names) to the JAX package's pytree, leaf for leaf the tree ``rba_tpu`` produces;
@@ -15,8 +14,10 @@ names) to the JAX package's pytree, leaf for leaf the tree ``rba_tpu`` produces;
   * ``relative_position_index`` and other buffers are dropped: the model
     regenerates them
 
-Families the port has no model for (the FPN pixel decoders, the standard and per-pixel
-heads) raise ``NotImplementedError``.
+``rba_tpu`` sends the per-pixel and simple decoders to the masked decoder's converter,
+which needs leaves they do not have (ROADMAP.md §C.18); here the class head is read
+where the dict has one, and the simple decoder reads the masked decoder's names of its
+one cross-attention layer.
 """
 from __future__ import annotations
 
@@ -26,8 +27,6 @@ from typing import Dict, List
 import numpy as np
 
 from ..config import RbAConfig
-
-_LATER = "is not ported yet (ROADMAP.md §A.6, other heads)"
 
 
 def _t(w):  # linear transpose
@@ -446,20 +445,112 @@ def convert_pixel_decoder(sd: Dict[str, np.ndarray], cfg: RbAConfig) -> Dict:
     return p
 
 
+def convert_fpn_pixel_decoder(sd: Dict[str, np.ndarray], cfg: RbAConfig) -> Dict:
+    """``sem_seg_head.pixel_decoder.*`` of ``BasePixelDecoder`` / ``TransformerEncoderPixelDecoder``
+    → their tree: ``adapter_k`` laterals and ``layer_k`` output convs numbered from 1 at
+    the finest feature, stored top-down; the top feature has no adapter; the encoder
+    variant adds ``input_proj``, the DETR encoder and, under pre-norm, its final norm."""
+    pre = "sem_seg_head.pixel_decoder"
+    n = len(cfg.pixel_decoder.in_features)
+    stages = []
+    for k in range(n, 0, -1):
+        stage: Dict = {}
+        if k < n:
+            stage["lateral"] = {"conv": {"kernel": _conv(sd[f"{pre}.adapter_{k}.weight"])},
+                                "gn": _ln(sd, f"{pre}.adapter_{k}.norm")}
+        stage["output"] = {"conv": {"kernel": _conv(sd[f"{pre}.layer_{k}.weight"])},
+                           "gn": _ln(sd, f"{pre}.layer_{k}.norm")}
+        stages.append(stage)
+    p: Dict = {"stages": stages, "mask_features": _conv2d(sd, f"{pre}.mask_features")}
+    if f"{pre}.input_proj.weight" in sd:
+        p["input_proj"] = _conv2d(sd, f"{pre}.input_proj")
+        p["encoder"] = _detr_layers(sd, f"{pre}.transformer.encoder", _detr_encoder_layer)
+        if f"{pre}.transformer.encoder.norm.weight" in sd:
+            p["encoder_norm"] = _ln(sd, f"{pre}.transformer.encoder.norm")
+    return p
+
+
+def _detr_encoder_layer(sd, lp):
+    return {"attn": _mha(sd, lp + ".self_attn"), "norm1": _ln(sd, lp + ".norm1"),
+            "linear1": _linear(sd, lp + ".linear1"), "linear2": _linear(sd, lp + ".linear2"),
+            "norm2": _ln(sd, lp + ".norm2")}
+
+
+def _detr_decoder_layer(sd, lp):
+    return {"self_attn": _mha(sd, lp + ".self_attn"), "norm1": _ln(sd, lp + ".norm1"),
+            "cross_attn": _mha(sd, lp + ".multihead_attn"), "norm2": _ln(sd, lp + ".norm2"),
+            "linear1": _linear(sd, lp + ".linear1"), "linear2": _linear(sd, lp + ".linear2"),
+            "norm3": _ln(sd, lp + ".norm3")}
+
+
+def _detr_layers(sd, prefix, convert) -> List[Dict]:
+    out, i = [], 0
+    while f"{prefix}.layers.{i}.norm1.weight" in sd:
+        out.append(convert(sd, f"{prefix}.layers.{i}"))
+        i += 1
+    return out
+
+
+def convert_standard_decoder(sd: Dict[str, np.ndarray], cfg: RbAConfig, mask_classification: bool = True) -> Dict:
+    """``sem_seg_head.predictor.*`` of MaskFormer v1's ``StandardTransformerDecoder`` (DETR's
+    ``transformer.encoder/decoder.layers.{i}``, cross-attention ``multihead_attn``) → its
+    tree.  An identity ``input_proj`` (the input already at the hidden width) has no
+    leaves: it becomes a 1x1 eye conv."""
+    pre = "sem_seg_head.predictor"
+    hd = cfg.decoder.hidden_dim
+    p: Dict = {
+        "query_embed": np.asarray(sd[f"{pre}.query_embed.weight"]),
+        "decoder_norm": _ln(sd, f"{pre}.transformer.decoder.norm"),
+        "mask_embed": {"layers": [_linear(sd, f"{pre}.mask_embed.layers.{j}") for j in range(3)]},
+    }
+    if f"{pre}.input_proj.weight" in sd:
+        p["input_proj"] = _conv2d(sd, f"{pre}.input_proj")
+    else:
+        p["input_proj"] = {"kernel": np.eye(hd, dtype=np.float32).reshape(1, 1, hd, hd),
+                           "bias": np.zeros((hd,), np.float32)}
+    if mask_classification and f"{pre}.class_embed.weight" in sd:
+        p["class_embed"] = _linear(sd, f"{pre}.class_embed")
+    p["enc_layers"] = _detr_layers(sd, f"{pre}.transformer.encoder", _detr_encoder_layer)
+    p["dec_layers"] = _detr_layers(sd, f"{pre}.transformer.decoder", _detr_decoder_layer)
+    if f"{pre}.transformer.encoder.norm.weight" in sd:
+        p["encoder_norm"] = _ln(sd, f"{pre}.transformer.encoder.norm")
+    return p
+
+
+def convert_simple_decoder(sd: Dict[str, np.ndarray], cfg: RbAConfig) -> Dict:
+    """``sem_seg_head.predictor.*`` of ``SimpleTransformerDecoder`` under the masked
+    decoder's names (``rba_tpu``'s dispatch sends it to that converter): the queries, the
+    first cross-attention layer, the norm and both heads."""
+    pre = "sem_seg_head.predictor"
+    return {
+        "query_feat": np.asarray(sd[f"{pre}.query_feat.weight"]),
+        "query_embed": np.asarray(sd[f"{pre}.query_embed.weight"]),
+        "cross_attention": {
+            "attn": _mha(sd, f"{pre}.transformer_cross_attention_layers.0.multihead_attn"),
+            "norm": _ln(sd, f"{pre}.transformer_cross_attention_layers.0.norm"),
+        },
+        "decoder_norm": _ln(sd, f"{pre}.decoder_norm"),
+        "class_embed": _linear(sd, f"{pre}.class_embed"),
+        "mask_embed": {"layers": [_linear(sd, f"{pre}.mask_embed.layers.{j}") for j in range(3)]},
+    }
+
+
 def convert_predictor(sd: Dict[str, np.ndarray], cfg: RbAConfig) -> Dict:
-    """``sem_seg_head.predictor.*`` (MultiScaleMaskedTransformerDecoder) → decoder tree."""
+    """``sem_seg_head.predictor.*`` (MultiScaleMaskedTransformerDecoder, and
+    MultiScalePerPixelDecoder, which has no ``class_embed``) → decoder tree."""
     pre = "sem_seg_head.predictor"
     p: Dict = {
         "query_feat": np.asarray(sd[f"{pre}.query_feat.weight"]),
         "query_embed": np.asarray(sd[f"{pre}.query_embed.weight"]),
         "level_embed": np.asarray(sd[f"{pre}.level_embed.weight"]),
         "decoder_norm": _ln(sd, f"{pre}.decoder_norm"),
-        "class_embed": _linear(sd, f"{pre}.class_embed"),
         "mask_embed": {"layers": [_linear(sd, f"{pre}.mask_embed.layers.{j}") for j in range(3)]},
         "cross_layers": [],
         "self_layers": [],
         "ffn_layers": [],
     }
+    if f"{pre}.class_embed.weight" in sd or cfg.decoder.name != "MultiScalePerPixelDecoder":
+        p["class_embed"] = _linear(sd, f"{pre}.class_embed")
     i = 0
     while f"{pre}.transformer_cross_attention_layers.{i}.norm.weight" in sd:
         p["cross_layers"].append(
@@ -526,16 +617,23 @@ def convert_backbone(sd: Dict[str, np.ndarray], cfg: RbAConfig) -> Dict:
 
 
 def convert_d2_state_dict(sd: Dict[str, np.ndarray], cfg: RbAConfig) -> Dict:
-    """Full D2 state dict → parameter pytree of a model with an MSDeformAttn pixel decoder
-    and the masked-attention decoder (``MaskFormerHead``), with the historical renames
-    applied first."""
-    later = [name for name, hit in (
-        (f"pixel decoder {cfg.pixel_decoder.name!r}", cfg.pixel_decoder.name != "MSDeformAttnPixelDecoder"),
-        (f"head {cfg.sem_seg_head_name!r}", cfg.sem_seg_head_name != "MaskFormerHead"),
-        (f"decoder {cfg.decoder.name!r}", cfg.decoder.name != "MultiScaleMaskedTransformerDecoder"),
-    ) if hit]
-    if later:
-        raise NotImplementedError(f"the converter for {', '.join(later)} {_LATER}")
+    """Full D2 state dict → parameter pytree, by ``SEM_SEG_HEAD.NAME``,
+    ``PIXEL_DECODER_NAME`` and ``TRANSFORMER_DECODER_NAME`` as the reference's registries
+    dispatch, with the historical renames applied first."""
     sd = apply_historical_renames(sd)
-    head = {"pixel_decoder": convert_pixel_decoder(sd, cfg), "predictor": convert_predictor(sd, cfg)}
-    return {"backbone": convert_backbone(sd, cfg), "sem_seg_head": head}
+    if cfg.pixel_decoder.name == "MSDeformAttnPixelDecoder":
+        pd = convert_pixel_decoder(sd, cfg)
+    else:
+        pd = convert_fpn_pixel_decoder(sd, cfg)
+    head_name = cfg.sem_seg_head_name
+    if head_name == "PerPixelBaselineHead":
+        pred = _conv2d(sd, "sem_seg_head.predictor")
+    elif head_name == "PerPixelBaselinePlusHead":
+        pred = convert_standard_decoder(sd, cfg, mask_classification=False)
+    elif cfg.decoder.name == "StandardTransformerDecoder":
+        pred = convert_standard_decoder(sd, cfg)
+    elif cfg.decoder.name in ("SimpleDecoder", "SimpleTransformerDecoder"):
+        pred = convert_simple_decoder(sd, cfg)
+    else:
+        pred = convert_predictor(sd, cfg)
+    return {"backbone": convert_backbone(sd, cfg), "sem_seg_head": {"pixel_decoder": pd, "predictor": pred}}

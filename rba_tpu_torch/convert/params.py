@@ -58,9 +58,15 @@ def jax_params_to_state(params: Any) -> Dict[str, np.ndarray]:
     return state
 
 
+# relative-position tables, which the models resample to any size: a checkpoint's may
+# have another length than the config's (ViTDet stores them at its input grid)
+_RESIZABLE = ("rel_pos_h", "rel_pos_w")
+
+
 def load_jax_params(model: nn.Module, params: Any) -> nn.Module:
     """Copy the JAX pytree into ``model``'s parameters; raise on any missing or
-    unexpected name and on any shape that differs."""
+    unexpected name and on any shape that differs, but for a relative-position table of
+    another length, which takes the pytree's."""
     state = jax_params_to_state(params)
     own = dict(model.named_parameters())
     missing = sorted(own.keys() - state.keys())
@@ -70,6 +76,10 @@ def load_jax_params(model: nn.Module, params: Any) -> nn.Module:
     with torch.no_grad():
         for name, p in own.items():
             arr = state[name]
+            if name.endswith(_RESIZABLE) and arr.shape[1:] == tuple(p.shape[1:]) and arr.shape[0] != p.shape[0]:
+                mod_name, _, leaf = name.rpartition(".")
+                p = nn.Parameter(torch.empty(arr.shape, dtype=p.dtype, device=p.device))
+                setattr(model.get_submodule(mod_name), leaf, p)
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: pytree shape {tuple(arr.shape)}, model shape {tuple(p.shape)}")
             p.copy_(torch.tensor(arr, dtype=torch.float32))

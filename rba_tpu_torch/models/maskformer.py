@@ -2,7 +2,11 @@
 
 The serving path: ``preprocess`` → backbone (``models/backbones.py``: Swin, ResNet,
 MiT, ViT, MViT or WiderResNet-38) → MSDeformAttn pixel decoder (fp32, or bf16 inputs
-under ``fast_serving``) → masked-attention decoder (fp32) → RbA tail.
+under ``fast_serving``) → masked-attention decoder (fp32) → RbA tail.  The other heads
+(``models/baseline_heads.py``) plug in by name: the FPN pixel decoders, MaskFormer v1's
+DETR decoder, the per-pixel and simple decoders of ``models/transformer_decoder.py``,
+and the two per-pixel baseline heads, whose class logits ``per_pixel_forward`` returns
+and ``maskformer_infer`` upsamples ×4 (no Kernel B: there is no (logits, masks) pair).
 ``maskformer_infer_rba`` hands the decoder's ``bhwq`` masks to the fused RbA kernel, as
 the JAX package's TPU branch does, where the mask features are at stride 4 of the
 padded input, the kernel's ×4 upsample.  A model whose mask features lie at another
@@ -37,10 +41,11 @@ from torch.profiler import record_function
 from ..config import RbAConfig, check_supported
 from ..kernels.fused_rba import fused_rba_score, fused_rba_score_reference
 from ..ops.resize import resize_bilinear
+from . import baseline_heads as bh
 from .backbones import backbone_apply, build_backbone
-from .pixel_decoder import MSDeformAttn, PixelDecoder, pixel_decoder_apply
+from .pixel_decoder import MSDeformAttn
 from .swin import swin_apply
-from .transformer_decoder import MaskedDecoder, decoder_apply
+from .transformer_decoder import MaskedDecoder, SimpleDecoder, decoder_apply, simple_decoder_apply
 
 # record_function spans of one request, in the order they run
 LAYERS = ("preprocess", "backbone", "pixel_decoder", "transformer_decoder", "rba_tail")
@@ -54,14 +59,34 @@ class RbAModel(nn.Module):
         super().__init__()
         check_supported(cfg)
         self.backbone = build_backbone(cfg)
+        channels = self.backbone.out_channels
         self.sem_seg_head = nn.ModuleDict({
-            "pixel_decoder": PixelDecoder(cfg.pixel_decoder, self.backbone.out_channels),
-            "predictor": MaskedDecoder(cfg.decoder, cfg.num_classes, cfg.pixel_decoder.conv_dim),
-        })
+            "pixel_decoder": bh.build_pixel_decoder(cfg, channels), "predictor": _predictor(cfg, channels)})
 
     def mask_stride(self, cfg: RbAConfig) -> int:
         """The stride of the mask features: that of the pixel decoder's finest input."""
         return self.backbone.out_strides[cfg.pixel_decoder.in_features[0]]
+
+
+def _predictor(cfg: RbAConfig, channels: Dict[str, int]) -> nn.Module:
+    """The predictor of ``SEM_SEG_HEAD.NAME`` and, in ``MaskFormerHead``, of
+    ``TRANSFORMER_DECODER_NAME``."""
+    d = cfg.decoder
+    if cfg.sem_seg_head_name == "PerPixelBaselineHead":
+        return nn.Conv2d(cfg.pixel_decoder.mask_dim, cfg.num_classes, 1)
+    if cfg.sem_seg_head_name == "PerPixelBaselinePlusHead":
+        return bh.StandardDecoder(cfg, bh.plus_predictor_in_channels(cfg, channels), mask_classification=False)
+    if d.name == "StandardTransformerDecoder":
+        return bh.StandardDecoder(cfg, bh.plus_predictor_in_channels(cfg, channels))
+    if d.name in ("SimpleDecoder", "SimpleTransformerDecoder"):
+        return SimpleDecoder(d, cfg.num_classes)
+    return MaskedDecoder(d, cfg.num_classes, cfg.pixel_decoder.conv_dim,
+                         mask_classification=d.name != "MultiScalePerPixelDecoder")
+
+
+def is_per_pixel(cfg: RbAConfig) -> bool:
+    """A per-pixel baseline head: class logits per pixel, no (logits, masks) pair."""
+    return cfg.sem_seg_head_name != "MaskFormerHead"
 
 
 def _trunc_normal(shape, gen, device, std=0.02):
@@ -170,23 +195,56 @@ def maskformer_forward(
 ) -> Dict:
     """pred_logits (B, Q, K+1) and pred_masks at the mask features' stride s (4 but for
     ViT and WiderResNet-38), (B, Q, H/s, W/s) or (B, H/s, W/s, Q), with ``aux_outputs``
-    under ``need_aux``.  ``attention``: Swin's window-attention branch (``swin_apply``)."""
+    under ``need_aux``, by ``TRANSFORMER_DECODER_NAME``: ``MultiScalePerPixelDecoder``
+    has no class head and always returns its full-resolution ``aux_outputs``, as
+    ``rba_tpu`` computes them; the v1 decoder's ``aux_outputs`` follow
+    ``cfg.loss.deep_supervision`` under ``need_aux``.  ``attention``: Swin's
+    window-attention branch (``swin_apply``).  A per-pixel head takes ``per_pixel_forward``."""
+    if is_per_pixel(cfg):
+        raise ValueError(f"{cfg.sem_seg_head_name} has no mask predictions; call per_pixel_forward")
+    features = _backbone_features(model, cfg, images, plain, attention)
+    with record_function("pixel_decoder"):
+        mask_features, enc_feat, ms_feats = bh.pixel_decoder_apply(model.sem_seg_head["pixel_decoder"], cfg,
+                                                                   features, _dtype(cfg.pixel_decoder_dtype))
+    pred, d = model.sem_seg_head["predictor"], cfg.decoder
+    with record_function("transformer_decoder"):
+        if isinstance(pred, bh.StandardDecoder):
+            x = bh.standard_decoder_input(cfg, features, mask_features, enc_feat)
+            return bh.standard_decoder_apply(pred, cfg, x, mask_features, final_mask_layout=final_mask_layout,
+                                             deep_supervision=need_aux and cfg.loss.deep_supervision)
+        if isinstance(pred, SimpleDecoder):
+            return simple_decoder_apply(pred, d, mask_features, final_mask_layout=final_mask_layout)
+        return decoder_apply(pred, d, ms_feats[: d.num_feature_levels], mask_features,
+                             final_mask_layout=final_mask_layout, need_aux=need_aux or pred.class_embed is None)
+
+
+def _backbone_features(model: RbAModel, cfg: RbAConfig, images, plain: bool, attention: str):
     check_supported(cfg)
     with record_function("backbone"):
         if cfg.backbone_name == "swin":
-            features = swin_apply(model.backbone, cfg.swin, images, _dtype(cfg.compute_dtype), plain=plain,
-                                  attention=attention, fast_math=cfg.fast_math)
-        else:
-            features = backbone_apply(model.backbone, cfg, images, _dtype(cfg.compute_dtype))
+            return swin_apply(model.backbone, cfg.swin, images, _dtype(cfg.compute_dtype), plain=plain,
+                              attention=attention, fast_math=cfg.fast_math)
+        return backbone_apply(model.backbone, cfg, images, _dtype(cfg.compute_dtype))
+
+
+def per_pixel_forward(
+    model: RbAModel,
+    cfg: RbAConfig,
+    images: torch.Tensor,  # (B, Hp, Wp, 3) normalized and padded
+    plain: bool = False,
+    attention: str = "fused",
+):
+    """A per-pixel head's ((B, K, Hp/4, Wp/4) class logits, aux list of {"pred_masks"}):
+    the Plus head's earlier decoder layers, none for the plain head."""
+    if not is_per_pixel(cfg):
+        raise ValueError("per_pixel_forward takes a per-pixel baseline head")
+    features = _backbone_features(model, cfg, images, plain, attention)
     head = model.sem_seg_head
     with record_function("pixel_decoder"):
-        mask_features, _, ms_feats = pixel_decoder_apply(head["pixel_decoder"], cfg.pixel_decoder, features,
-                                                         _dtype(cfg.pixel_decoder_dtype))
-    with record_function("transformer_decoder"):
-        return decoder_apply(
-            head["predictor"], cfg.decoder, ms_feats[: cfg.decoder.num_feature_levels], mask_features,
-            final_mask_layout=final_mask_layout, need_aux=need_aux,
-        )
+        mask_features, enc_feat, _ = bh.pixel_decoder_apply(head["pixel_decoder"], cfg, features,
+                                                            _dtype(cfg.pixel_decoder_dtype))
+    with record_function("transformer_decoder"):  # the predictor
+        return bh.per_pixel_predict(head["predictor"], cfg, features, mask_features, enc_feat)
 
 
 def semantic_inference(
@@ -230,13 +288,15 @@ def maskformer_infer_rba(
     returns ``maskformer_infer(...)["rba"]`` itself, without the kernel.  ``attention``:
     ``"fused"`` (Kernel A), ``"fused_softmax"`` (Kernel C) or ``"xla"``, Swin's
     window-attention branch."""
-    if model.mask_stride(cfg) != 4:
+    if model.mask_stride(cfg) != 4 or is_per_pixel(cfg):
         return maskformer_infer(model, cfg, images, attention=attention, plain=plain)["rba"]
     images = _on_model(model, images)
     h_img, w_img = images.shape[1], images.shape[2]
     with record_function("preprocess"):
         x = preprocess(cfg, images)
     out = maskformer_forward(model, cfg, x, final_mask_layout="bhwq", plain=plain, attention=attention)
+    if "pred_logits" not in out:
+        raise ValueError(f"{cfg.decoder.name} has no class head to score with (ROADMAP.md §C.18)")
     score_fn = fused_rba_score_reference if plain else fused_rba_score
     with record_function("rba_tail"):
         rba = score_fn(out["pred_logits"], out["pred_masks"], masks_layout="bhwq")
@@ -264,7 +324,14 @@ def maskformer_infer(
     with record_function("preprocess"):
         x = preprocess(cfg, images)
     hp, wp = x.shape[1], x.shape[2]
+    if is_per_pixel(cfg):  # logits upsampled ×4 to the padded input, cropped, resized
+        logits, _ = per_pixel_forward(model, cfg, x, attention=attention, plain=plain)
+        with record_function("rba_tail"):
+            sem = resize_bilinear(resize_bilinear(logits, (hp, wp))[:, :, :h_img, :w_img], out_hw)
+            return {"sem_seg": sem, "rba": rba_score(sem)}
     out = maskformer_forward(model, cfg, x, attention=attention, plain=plain)
+    if "pred_logits" not in out:
+        raise ValueError(f"{cfg.decoder.name} has no class head to infer with (ROADMAP.md §C.18)")
     with record_function("rba_tail"):
         mask_pred = resize_bilinear(out["pred_masks"], (hp, wp), align_corners=False)
         sem = semantic_inference(out["pred_logits"], mask_pred, include_void=include_void)

@@ -7,6 +7,9 @@ layers before the last only build the next attention mask, at the level's
 resolution; for training (``need_aux=True``) every layer, and the queries before the
 first, predict full-resolution class and mask logits, returned as ``aux_outputs``,
 and the next attention mask is the resized full mask, as ``rba_tpu`` builds it.
+``MaskedDecoder(mask_classification=False)`` is ``MultiScalePerPixelDecoder``, the same
+stack without the class head; ``SimpleDecoder`` is ``SimpleTransformerDecoder``, one
+masked cross-attention over the stride-4 mask features.
 """
 from __future__ import annotations
 
@@ -50,14 +53,18 @@ def _attn_layer(d_model: int) -> nn.ModuleDict:
 
 
 class MaskedDecoder(nn.Module):
-    def __init__(self, cfg: DecoderConfig, num_classes: int, in_channels: int):
+    """``MultiScaleMaskedTransformerDecoder``; with ``mask_classification=False``
+    ``MultiScalePerPixelDecoder``, the same stack without the class head (and without
+    the DenseHybrid head)."""
+
+    def __init__(self, cfg: DecoderConfig, num_classes: int, in_channels: int, mask_classification: bool = True):
         super().__init__()
         c = cfg.hidden_dim
         self.query_feat = nn.Parameter(torch.zeros(cfg.num_queries, c))
         self.query_embed = nn.Parameter(torch.zeros(cfg.num_queries, c))
         self.level_embed = nn.Parameter(torch.zeros(cfg.num_feature_levels, c))
         self.decoder_norm = nn.LayerNorm(c)
-        self.class_embed = nn.Linear(c, num_classes + 1)
+        self.class_embed = nn.Linear(c, num_classes + 1) if mask_classification else None
         self.mask_embed = nn.Module()
         self.mask_embed.layers = nn.ModuleList([nn.Linear(c, c), nn.Linear(c, c), nn.Linear(c, cfg.mask_dim)])
         if in_channels != c or cfg.enforce_input_project:
@@ -73,7 +80,7 @@ class MaskedDecoder(nn.Module):
         )
         # DenseHybrid's BN -> ReLU -> 1x1 conv head on the mask features: (inlier, outlier) logits
         self.ood_pred = (nn.ModuleDict({"bn": BatchNormStats(c), "conv": nn.Conv2d(c, 2, 1)})
-                         if cfg.ood_prediction else None)
+                         if cfg.ood_prediction and mask_classification else None)
 
 
 def mha_apply(
@@ -126,9 +133,10 @@ def _prediction_heads(
     mask_features: torch.Tensor,  # (B, H, W, C_mask)
     final_mask_layout: str,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Class logits (B, Q, K+1) and fp32 mask logits in ``final_mask_layout``."""
+    """Class logits (B, Q, K+1), None without a class head, and fp32 mask logits in
+    ``final_mask_layout``."""
     dec_out = apply_norm(dec.decoder_norm, output)
-    outputs_class = apply_linear(dec.class_embed, dec_out)
+    outputs_class = None if dec.class_embed is None else apply_linear(dec.class_embed, dec_out)
     mask_embed = mlp_apply(dec.mask_embed.layers, dec_out)
     spec = "bqc,bhwc->bhwq" if final_mask_layout == "bhwq" else "bqc,bhwc->bqhw"
     return outputs_class, torch.einsum(spec, mask_embed.float(), mask_features.float())
@@ -162,9 +170,10 @@ def decoder_apply(
     final_mask_layout: str = "bqhw",  # "bhwq" feeds the fused RbA kernel
     need_aux: bool = False,
 ) -> Dict:
-    """Final class logits (B, Q, K+1) and mask logits, (B, Q, H, W) or (B, H, W, Q), and
-    with the DenseHybrid head its (B, 2, H, W) ``ood_pred`` logits; with ``need_aux`` the
-    earlier layers' {"pred_logits", "pred_masks"} as ``aux_outputs``, first layer first.
+    """Final class logits (B, Q, K+1) (none without a class head) and mask logits,
+    (B, Q, H, W) or (B, H, W, Q), and with the DenseHybrid head its (B, 2, H, W)
+    ``ood_pred`` logits; with ``need_aux`` the earlier layers' {"pred_logits",
+    "pred_masks"} as ``aux_outputs``, first layer first.
     Runs in fp32, as the JAX package's MaskFormer forward runs it."""
     if len(x) != cfg.num_feature_levels:
         raise ValueError(f"{len(x)} feature maps for {cfg.num_feature_levels} levels")
@@ -192,10 +201,14 @@ def decoder_apply(
             mf_small[hw] = resize_bilinear_nhwc(mask_features.float(), hw)
         return mf_small[hw]
 
+    def pred(outputs_class, outputs_mask):
+        return {"pred_masks": outputs_mask} if outputs_class is None else {
+            "pred_logits": outputs_class, "pred_masks": outputs_mask}
+
     aux = []
     if need_aux:
         outputs_class, outputs_mask, attn_mask = _aux_heads(dec, output, mask_features, sizes[0])
-        aux.append({"pred_logits": outputs_class, "pred_masks": outputs_mask})
+        aux.append(pred(outputs_class, outputs_mask))
     else:
         attn_mask = _attn_mask_only(dec, output, small_mf(sizes[0]))
     for i in range(cfg.dec_layers):
@@ -217,13 +230,54 @@ def decoder_apply(
             next_hw = sizes[(i + 1) % cfg.num_feature_levels]
             if need_aux:
                 outputs_class, outputs_mask, attn_mask = _aux_heads(dec, output, mask_features, next_hw)
-                aux.append({"pred_logits": outputs_class, "pred_masks": outputs_mask})
+                aux.append(pred(outputs_class, outputs_mask))
             else:
                 attn_mask = _attn_mask_only(dec, output, small_mf(next_hw))
-    outputs_class, outputs_mask = _prediction_heads(dec, output, mask_features, final_mask_layout)
-    out = {"pred_logits": outputs_class, "pred_masks": outputs_mask}
+    out = pred(*_prediction_heads(dec, output, mask_features, final_mask_layout))
     if need_aux:
         out["aux_outputs"] = aux
     if dec.ood_pred is not None:
         out["ood_pred"] = ood_pred_apply(dec.ood_pred, mask_features)
     return out
+
+
+class SimpleDecoder(nn.Module):
+    """``SimpleTransformerDecoder``: one masked cross-attention of the queries over the
+    stride-4 mask features (whose width must be the hidden width)."""
+
+    def __init__(self, cfg: DecoderConfig, num_classes: int):
+        super().__init__()
+        c = cfg.hidden_dim
+        self.query_feat = nn.Parameter(torch.zeros(cfg.num_queries, c))
+        self.query_embed = nn.Parameter(torch.zeros(cfg.num_queries, c))
+        self.cross_attention = _attn_layer(c)
+        self.decoder_norm = nn.LayerNorm(c)
+        self.class_embed = nn.Linear(c, num_classes + 1)
+        self.mask_embed = nn.Module()
+        self.mask_embed.layers = nn.ModuleList([nn.Linear(c, c), nn.Linear(c, c), nn.Linear(c, cfg.mask_dim)])
+
+
+def simple_decoder_apply(
+    dec: SimpleDecoder,
+    cfg: DecoderConfig,
+    mask_features: torch.Tensor,  # (B, H/4, W/4, C_mask), C_mask = hidden_dim
+    final_mask_layout: str = "bqhw",
+) -> Dict:
+    """The prediction heads after one masked cross-attention; no aux outputs.  As in the
+    reference, a row whose mask blocks every key is not unmasked: with the additive mask
+    it attends uniformly."""
+    b, h, w, cm = mask_features.shape
+    mf = mask_features.float()
+    query_embed = dec.query_embed.float()[None].expand(b, -1, -1)
+    output = dec.query_feat.float()[None].expand(b, -1, -1)
+    mask_embed = mlp_apply(dec.mask_embed.layers, apply_norm(dec.decoder_norm, output))
+    blocked = (torch.sigmoid(torch.einsum("bqc,bhwc->bqhw", mask_embed.float(), mf)) < 0.5).reshape(b, -1, h * w)
+    zero = torch.zeros((), dtype=torch.float32, device=mf.device)
+    attn_mask = torch.where(blocked, torch.full_like(zero, NEG_INF), zero)[:, None].detach()
+    mf_vec = mf.reshape(b, h * w, cm)
+    mf_pos = sine_pos_embed(h, w, cfg.hidden_dim, device=mf.device).reshape(1, h * w, -1)
+    layer = dec.cross_attention
+    y = mha_apply(layer["attn"], output + query_embed, mf_vec + mf_pos, mf_vec, cfg.nheads, attn_mask=attn_mask)
+    output = apply_norm(layer["norm"], output + y)
+    outputs_class, outputs_mask = _prediction_heads(dec, output, mask_features, final_mask_layout)
+    return {"pred_logits": outputs_class, "pred_masks": outputs_mask, "aux_outputs": []}

@@ -1,11 +1,12 @@
-"""Bilinear and bicubic resizes with ``F.interpolate`` semantics (counterpart of
+"""Bilinear, bicubic and nearest resizes with ``F.interpolate`` semantics (counterpart of
 ``rba_tpu/ops/resize.py``).
 
 The JAX package writes the resize as gathers plus a lerp to match
 ``F.interpolate(mode="bilinear", antialias=False)``; here that call is the op
 itself.  Inputs below fp32 are resized in fp32 and cast back, as there.  An exact
 2× upsample of ``resize_bilinear_nhwc`` takes ``upsample2x_bilinear_nhwc``, whose
-two passes round to ``compute_dtype``.  The bicubic resize (the position tables of
+two passes round to ``compute_dtype``.  ``resize_nearest_nhwc`` is torch's
+``mode="nearest"``.  The bicubic resize (the position tables of
 ViT, MViT and Swin's ``ape``) keeps the JAX package's form, four gathered taps per
 axis summed in its order with its numpy weights, so that it rounds as there.
 """
@@ -47,6 +48,19 @@ def upsample2x_bilinear_nhwc(x: torch.Tensor, compute_dtype=None) -> torch.Tenso
     for size in ((2 * h, w), (2 * h, 2 * w)):
         y = F.interpolate(y.float(), size=size, mode="bilinear", align_corners=False).to(dt)
     return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def resize_nearest_nhwc(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbour resize of (N, H, W, C) with torch ``mode="nearest"`` indices,
+    src = floor(dst · in / out) clamped to the input: the FPN pixel decoder's top-down
+    upsample, at any ratio."""
+    h_in, w_in = x.shape[1], x.shape[2]
+    h_out, w_out = (int(s) for s in out_hw)
+    if (h_in, w_in) == (h_out, w_out):
+        return x
+    iy = torch.as_tensor(np.minimum(np.arange(h_out) * h_in // h_out, h_in - 1), device=x.device)
+    ix = torch.as_tensor(np.minimum(np.arange(w_out) * w_in // w_out, w_in - 1), device=x.device)
+    return x.index_select(1, iy).index_select(2, ix)
 
 
 def resize_bilinear_nhwc(x: torch.Tensor, out_hw: Tuple[int, int], compute_dtype=None) -> torch.Tensor:

@@ -38,8 +38,9 @@ data is missing is skipped with a warning, and only where none resolves does the
 raise.  Panoptic names give (image, ids, segments) to the panoptic mappers, and through
 ``InstanceFromPanoptic`` (image, masks, classes) to the instance ones.
 
-Not ported yet, and refused, never skipped: per-pixel heads (ROADMAP.md §A.6) and more
-than one GPU (§A.8).
+Every head trains: the masked decoder, MaskFormer v1's decoder and the simple decoder
+through the criterion, the per-pixel baseline heads on their cross-entropy.  Not ported
+yet, and refused, never skipped: more than one GPU (ROADMAP.md §A.8).
 """
 from __future__ import annotations
 

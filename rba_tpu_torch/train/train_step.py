@@ -3,7 +3,9 @@
 One step: ``preprocess``, ``maskformer_forward`` with deep supervision on ``rba_tpu``'s
 training chain (``need_aux=True``, ``attention="xla"``), ``criterion`` with the
 Hungarian matching on the card (Kernel E), backward, the global-norm clip and the
-AdamW update with the poly schedule.  ``grad_accum > 1`` splits the batch into that
+AdamW update with the poly schedule.  A per-pixel baseline head takes
+``per_pixel_forward`` and its cross-entropy over ``sem_seg`` instead of the criterion
+(no matching), each of the Plus head's decoder layers supervised.  ``grad_accum > 1`` splits the batch into that
 many micro-batches and averages their gradients and losses before one update.  The
 train state is the model, the optimizer, the step count and the ``torch.Generator``
 that every random draw of the criterion comes from.
@@ -18,7 +20,9 @@ import torch
 from torch.profiler import record_function
 
 from ..config import RbAConfig
-from ..models.maskformer import RbAModel, build_model, maskformer_forward, preprocess, resolve_device
+from ..models.baseline_heads import per_pixel_losses
+from ..models.maskformer import (RbAModel, build_model, is_per_pixel, maskformer_forward, per_pixel_forward,
+                                 preprocess, resolve_device)
 from ..ops.point_sample import uniform_from
 from .criterion import criterion
 from .optimizer import build_optimizer, clip_grads_, poly_lr_schedule, set_lr
@@ -34,17 +38,10 @@ class TrainState:
     gen: torch.Generator
 
 
-def _check_trainable(cfg: RbAConfig) -> None:
-    if cfg.sem_seg_head_name != "MaskFormerHead":
-        raise NotImplementedError(
-            f"training the per-pixel baseline head {cfg.sem_seg_head_name!r} is not ported yet (ROADMAP.md §A.6)")
-
-
 def make_train_state(cfg: RbAConfig, device=None, seed: int = 0, model: Optional[RbAModel] = None) -> TrainState:
     """The model (seeded random weights unless one is given), its optimizer, step 0 and a
     generator seeded with ``seed``, on ``device``: by default the given model's device,
     else the card."""
-    _check_trainable(cfg)
     if model is None:
         model = build_model(cfg, device=resolve_device(device, "make_train_state"), seed=seed)
     device = next(model.parameters()).device
@@ -63,11 +60,20 @@ def make_train_step(cfg: RbAConfig, grad_accum: int = 1, plain: bool = False):
     images (B, H, W, 3) raw RGB; gt_labels (B, T); gt_masks (B, T, H, W); gt_valid (B, T);
     optional outlier_masks and sem_seg (B, H, W); numpy or tensors.  The metrics are the
     weighted losses, ``total`` and ``grad_norm`` (the unclipped gradients' global norm),
-    as 0-dim tensors on the card.  ``plain`` runs the plain LSAP instead of Kernel E."""
-    _check_trainable(cfg)
+    as 0-dim tensors on the card.  ``plain`` runs the plain LSAP instead of Kernel E.  A
+    per-pixel head reads only images and sem_seg."""
+    if not is_per_pixel(cfg) and cfg.decoder.name == "MultiScalePerPixelDecoder":
+        raise ValueError("MultiScalePerPixelDecoder has no class head for the matcher (ROADMAP.md §C.18)")
     schedule = poly_lr_schedule(cfg.solver)
 
     def losses_of(model, batch, uniform):
+        if is_per_pixel(cfg):
+            with record_function("forward"):
+                logits, aux = per_pixel_forward(model, cfg, preprocess(cfg, batch["images"]), attention="xla")
+            with record_function("criterion"):
+                losses = per_pixel_losses(cfg, uniform, logits, aux, batch["sem_seg"])
+                losses["total"] = sum(losses.values())
+                return losses
         with record_function("forward"):
             outputs = maskformer_forward(model, cfg, preprocess(cfg, batch["images"]), need_aux=True,
                                          attention="xla")

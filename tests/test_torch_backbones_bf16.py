@@ -27,7 +27,9 @@ import torch
 
 from rba_tpu.ops import nn as jnn
 from tests.test_torch_backbones import _image, family_pair
-from tests.torch_port_common import equal_share, record, t, ulp_share
+from tests.torch_port_common import default_threads, equal_share, record, t, ulp_share  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("default_threads")  # the shares' recorded floors
 
 # the least share within one bf16 ulp over each family's outputs, as recorded
 ULP_RECORDED = {"resnet": 0.657, "resnet_stride_in_1x1": 0.647, "wideresnet38": 0.657, "swin_ape": 1.0,

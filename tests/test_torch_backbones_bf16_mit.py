@@ -5,6 +5,9 @@ rba_tpu bit for bit at every output."""
 import pytest
 
 from tests.test_torch_backbones_bf16 import bf16_shares_case
+from tests.torch_port_common import default_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("default_threads")  # the shares' recorded floors
 
 
 @pytest.mark.parametrize("family", ["mit_b0", "vit_sfp"])

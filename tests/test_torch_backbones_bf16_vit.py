@@ -24,7 +24,9 @@ from rba_tpu_torch.models.swin import gelu
 from rba_tpu_torch.ops.nn import apply_conv, apply_linear, centered_layer_norm
 from tests.test_torch_backbones import VIT_SMALL, _image, family_pair
 from tests.test_torch_backbones_bf16 import _t16, bf16_shares_case
-from tests.torch_port_common import equal_share, record, ulp_share
+from tests.torch_port_common import default_threads, equal_share, record, ulp_share  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("default_threads")  # the shares' recorded floors
 
 
 @pytest.mark.parametrize("family", ["vit", "mvit"])

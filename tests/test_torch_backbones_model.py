@@ -166,11 +166,26 @@ def test_mask_stride_of_each_family(path, stride):
 
 
 def test_training_refuses_per_pixel_heads():
-    from rba_tpu_torch.train.train_step import make_train_state
+    """Refused until ROADMAP.md §A.6 ported it: the per-pixel head over ResNet-50 trains.
+    One step of ``make_train_step`` from one seeded Detectron2 dict: its cross-entropy
+    within 1e-5 of rba_tpu's ``per_pixel_losses`` on the same logits, finite metrics."""
+    from rba_tpu.models import baseline_heads as jbh
+    from rba_tpu_torch.train.train_step import make_train_state, make_train_step
 
-    cfg = dataclasses.replace(small_head(tconfig, "resnet", ("res5",)), sem_seg_head_name="PerPixelBaselineHead")
-    with pytest.raises(NotImplementedError, match="§A.6"):
-        make_train_state(cfg, device="cpu")
+    tcfg = dataclasses.replace(small_head(tconfig, "resnet", ("res5",)), sem_seg_head_name="PerPixelBaselineHead")
+    jcfg = dataclasses.replace(small_head(jconfig, "resnet", ("res5",)), sem_seg_head_name="PerPixelBaselineHead")
+    params = jd2.convert_d2_state_dict(d2_full_state_dict(tcfg, 0), jcfg)
+    model = load_jax_params(tmf.build_model(tcfg, device="cpu"), params)
+    rs = np.random.RandomState(0)
+    batch = dict(images=(rs.rand(1, 64, 64, 3) * 255).astype(np.float32),
+                 sem_seg=rs.choice([0, 1, 2, 255], (1, 64, 64)).astype(np.int32))
+    with torch.no_grad():
+        logits, _ = tmf.per_pixel_forward(model, tcfg, tmf.preprocess(tcfg, t(batch["images"])))
+    want = float(jbh.per_pixel_losses(jcfg, jax.random.PRNGKey(0), jnp.asarray(logits.numpy()), [],
+                                      jnp.asarray(batch["sem_seg"]))["loss_sem_seg"])
+    metrics = make_train_step(tcfg)(make_train_state(tcfg, model=model), batch)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert abs(float(metrics["loss_sem_seg"]) - want) <= 1e-5 * max(1.0, abs(want))
 
 
 @pytest.mark.parametrize("ood_threshold", [-1e9, -2.5])

@@ -27,7 +27,7 @@ from rba_tpu_torch.convert import d2_mapping as td2
 from rba_tpu_torch.convert import jax_params_to_state, load_jax_params, load_params
 from rba_tpu_torch.models import maskformer as tmf
 from rba_tpu_torch.tools import convert_checkpoint as tcli
-from tests.torch_port_common import D2_TINY, assert_trees_equal, d2_state_dict, max_abs, t
+from tests.torch_port_common import D2_TINY, assert_trees_equal, d2_state_dict, jax_config, max_abs, t
 
 # fp32 RbA score of the converted tiny model: rba_tpu's selfcheck bound is 1e-3; the
 # port's fp32 forward agrees with rba_tpu's far inside it (tests/test_torch_maskformer.py)
@@ -187,12 +187,28 @@ def test_d2_cli_writes_rba_tpus_npz(tmp_path, tiny_sd, capsys):
             assert np.array_equal(a[k], b[k]), k
 
 
+_TINY = tconfig.tiny_test_config()
+
+
 @pytest.mark.parametrize("change", [
-    dict(decoder=dataclasses.replace(tconfig.DecoderConfig(), name="MultiScalePerPixelDecoder")),
+    dict(decoder=dataclasses.replace(_TINY.decoder, name="MultiScalePerPixelDecoder")),
     dict(sem_seg_head_name="PerPixelBaselineHead"),
-    dict(pixel_decoder=dataclasses.replace(tconfig.PixelDecoderConfig(), name="BasePixelDecoder")),
-    dict(decoder=dataclasses.replace(tconfig.DecoderConfig(), name="StandardTransformerDecoder")),
+    dict(pixel_decoder=dataclasses.replace(_TINY.pixel_decoder, name="BasePixelDecoder")),
+    dict(decoder=dataclasses.replace(_TINY.decoder, name="StandardTransformerDecoder", transformer_in_feature="res3")),
 ])
 def test_unported_families_raise(tiny_sd, change):
-    with pytest.raises(NotImplementedError, match="A.6"):
-        td2.convert_d2_state_dict(tiny_sd, dataclasses.replace(tconfig.tiny_test_config(), **change))
+    """The families refused until ROADMAP.md §A.6 ported them: a seeded Detectron2 dict of
+    each converts bit for bit as rba_tpu's, and the tree loads into the port's model.
+    rba_tpu's converter cannot read the per-pixel decoder's dict (no class head,
+    §C.18); on the masked decoder's dict, which holds its leaves, the two agree."""
+    tcfg = dataclasses.replace(tconfig.tiny_test_config(), **change)
+    jcfg = jax_config(tcfg)
+    sd = d2_state_dict(tcfg, seed=0)
+    params = td2.convert_d2_state_dict(sd, tcfg)
+    if tcfg.decoder.name == "MultiScalePerPixelDecoder":
+        with pytest.raises(KeyError, match="class_embed"):
+            jd2.convert_d2_state_dict(sd, jcfg)
+        assert_trees_equal(td2.convert_d2_state_dict(tiny_sd, tcfg), jd2.convert_d2_state_dict(tiny_sd, jcfg))
+    else:
+        assert_trees_equal(params, jd2.convert_d2_state_dict(sd, jcfg))
+    load_jax_params(tmf.build_model(tcfg, device="cpu"), params)

@@ -6,6 +6,7 @@ in tests/test_torch_swin_b_full_width.py, so that it runs beside this file.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,14 +20,20 @@ from rba_tpu_torch import config as tconfig
 from rba_tpu_torch.models import maskformer as tmf
 from rba_tpu_torch.models import pixel_decoder as tpd
 from rba_tpu_torch.models import transformer_decoder as ttd
-from tests.torch_port_common import max_abs, model_pair, t
+from tests.torch_port_common import d2_model_pair, jax_config, max_abs, t
 
 SCORE_TOL = 1e-3
 
 
+def _jit(fn, cfg, **kw):
+    """rba_tpu's fp32 ``fn(params, cfg, images, **kw)``, jitted: the same function,
+    compiled once instead of op by op for each image shape."""
+    return jax.jit(lambda p, x: fn(p, cfg, x, **kw))
+
+
 @pytest.fixture(scope="module")
 def tiny():
-    return model_pair(jconfig.tiny_test_config(), tconfig.tiny_test_config(), seed=0)
+    return d2_model_pair(jconfig.tiny_test_config(), tconfig.tiny_test_config(), seed=0)
 
 
 def test_config_presets_agree():
@@ -91,7 +98,7 @@ def test_decoder_matches(tiny, rng, layout):
 def test_tiny_infer_rba_matches(tiny, rng):
     params, model = tiny
     img = (rng.rand(2, 50, 70, 3) * 255).astype(np.float32)
-    want = jmf.maskformer_infer_rba(params, jconfig.tiny_test_config(), jnp.asarray(img))
+    want = _jit(jmf.maskformer_infer_rba, jconfig.tiny_test_config())(params, jnp.asarray(img))
     got = tmf.maskformer_infer_rba(model, tconfig.tiny_test_config(), t(img))
     assert got.shape == (2, 50, 70)
     assert max_abs(got, want) < SCORE_TOL
@@ -100,7 +107,7 @@ def test_tiny_infer_rba_matches(tiny, rng):
 def test_tiny_infer_matches(tiny, rng):
     params, model = tiny
     img = (rng.rand(1, 48, 64, 3) * 255).astype(np.float32)
-    want = jmf.maskformer_infer(params, jconfig.tiny_test_config(), jnp.asarray(img), out_hw=(97, 130))
+    want = _jit(jmf.maskformer_infer, jconfig.tiny_test_config(), out_hw=(97, 130))(params, jnp.asarray(img))
     got = tmf.maskformer_infer(model, tconfig.tiny_test_config(), t(img), out_hw=(97, 130))
     assert got["sem_seg"].shape == (1, 7, 97, 130)
     assert max_abs(got["sem_seg"], want["sem_seg"]) < 1e-4
@@ -115,9 +122,22 @@ def test_tiny_infer_matches(tiny, rng):
     dict(decoder=dataclasses.replace(tconfig.tiny_test_config().decoder, pre_norm=True)),
     dict(weight_quant="int8"), dict(sem_seg_head_name="PerPixelBaselineHead"),
 ])
-def test_unported_options_raise(change):
-    with pytest.raises(NotImplementedError):
-        tmf.build_model(dataclasses.replace(tconfig.tiny_test_config(), **change), device="cpu")
+def test_unported_options_raise(change, rng):
+    """An unknown backbone, bf16 parameters and int8 weights (ROADMAP.md §A.8) are
+    refused.  Pre-norm and the per-pixel head, refused until §A.6 ported them, build and
+    serve: from one seeded Detectron2 dict the score map equals rba_tpu's within 1e-5
+    (the masked decoder has no pre-norm form: both packages run it post-norm)."""
+    tcfg = dataclasses.replace(tconfig.tiny_test_config(), **change)
+    if not (tcfg.decoder.pre_norm or tcfg.sem_seg_head_name == "PerPixelBaselineHead"):
+        with pytest.raises(NotImplementedError):
+            tmf.build_model(tcfg, device="cpu")
+        return
+    jcfg = jax_config(tcfg)
+    params, model = d2_model_pair(jcfg, tcfg, seed=1)
+    img = (rng.rand(1, 48, 64, 3) * 255).astype(np.float32)
+    want = _jit(jmf.maskformer_infer_rba, jcfg)(params, jnp.asarray(img))
+    got = tmf.maskformer_infer_rba(model, tcfg, t(img))
+    assert got.shape == (1, 48, 64) and max_abs(got, want) < 1e-5
 
 
 def test_need_aux_raises(tiny):

@@ -32,6 +32,12 @@ PATH2_SWIN = dict(embed_dim=128, depths=(2, 2), num_heads=(4, 8), window_size=4,
                   mlp_impl="fused")
 
 
+def _jit_swin_fp32(scfg):
+    """rba_tpu's fp32 ``swin_apply``, jitted: the same function, compiled once instead of
+    op by op for each image shape."""
+    return jax.jit(lambda p, x: jswin.swin_apply(p, scfg, x, compute_dtype=jnp.float32))
+
+
 @pytest.fixture(scope="module")
 def tiny_swin():
     params = perturbed(jswin.swin_init(jax.random.PRNGKey(0), j_tiny().swin), seed=1)
@@ -47,7 +53,7 @@ def test_swin_apply_matches(tiny_swin, rng, bhw):
     params, model = tiny_swin
     cfg = tiny_test_config().swin
     images = rng.randn(*bhw, 3).astype(np.float32)
-    want = jswin.swin_apply(to_jax(params), j_tiny().swin, jnp.asarray(images), compute_dtype=jnp.float32)
+    want = _jit_swin_fp32(j_tiny().swin)(to_jax(params), jnp.asarray(images))
     with torch.no_grad():
         got = tswin.swin_apply(model, cfg, t(images), compute_dtype=torch.float32)
     assert sorted(got) == sorted(want) == ["res2", "res3"]
@@ -117,7 +123,7 @@ def test_path2_swin_apply_matches(path2_swin, rng, request):
     """swin_apply through Kernel C's branch and Kernel D on a 32x32 image, fp32."""
     jcfg, tcfg, params, model = path2_swin
     images = rng.randn(1, 32, 32, 3).astype(np.float32)
-    want = jswin.swin_apply(to_jax(params), jcfg, jnp.asarray(images), compute_dtype=jnp.float32)
+    want = _jit_swin_fp32(jcfg)(to_jax(params), jnp.asarray(images))
     before = fused_mlp.fused_mlp_residual.launches, masked_softmax.masked_softmax.launches
     with torch.no_grad():
         got = tswin.swin_apply(model, tcfg, t(images), compute_dtype=torch.float32, attention="fused_softmax")

@@ -10,6 +10,7 @@ within 1e-4 on the score map.  Also: Kernel D's dispatch, ``supports`` and
 ``beneficial``, equals rba_tpu's at Swin-L's widths, where it takes no block."""
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,7 +38,8 @@ def swin_l_fp32():
     assert (tcfg.swin.embed_dim, tcfg.swin.num_heads) == (192, (6, 12, 24, 48))
     params, model = d2_model_pair(jcfg, tcfg, seed=5)
     img = (np.random.RandomState(1).rand(1, 64, 128, 3) * 255).astype(np.float32)
-    want = np.asarray(jmf.maskformer_infer_rba(params, jcfg, jnp.asarray(img)))
+    # jitted: the fp32 function, compiled once instead of op by op
+    want = np.asarray(jax.jit(lambda p, x: jmf.maskformer_infer_rba(p, jcfg, x))(params, jnp.asarray(img)))
     return tcfg, model, img, want
 
 

@@ -8,7 +8,7 @@ replayed into the port:
   within 1e-4 relative to each leaf's largest magnitude;
 - (the optimizer: tests/test_torch_optimizer.py);
 - ``grad_accum=2`` equal to one step over the whole batch (within 1e-5);
-- a per-pixel head refused, naming its ROADMAP item."""
+- a per-pixel head's step (tests/test_torch_train_heads.py holds the other heads' gradients)."""
 import dataclasses
 
 import jax
@@ -136,6 +136,25 @@ def test_grad_accum_equals_one_full_batch_step(pair, monkeypatch):
 
 
 def test_per_pixel_head_is_refused():
-    cfg = dataclasses.replace(tconfig.tiny_test_config(), sem_seg_head_name="PerPixelBaselineHead")
-    with pytest.raises(NotImplementedError, match="§A.6"):
-        tts.make_train_step(cfg)
+    """Refused until ROADMAP.md §A.6 ported it, the per-pixel head now trains: one step of
+    ``make_train_step`` on the tiny config, its loss (the cross-entropy of the ×4 upsampled
+    logits over sem_seg) within 1e-5 of rba_tpu's ``per_pixel_losses`` on the same logits
+    (tests/test_torch_heads.py holds the logits against rba_tpu's), and every parameter
+    updated."""
+    from rba_tpu.models import baseline_heads as jbh
+    from tests.torch_port_common import d2_model_pair, jax_config
+
+    tcfg = dataclasses.replace(_cfgs()[1], sem_seg_head_name="PerPixelBaselineHead")
+    jcfg = jax_config(tcfg)
+    _, model = d2_model_pair(jcfg, tcfg, seed=3)
+    batch = _batch(2)
+    with torch.no_grad():
+        logits, _ = tmf.per_pixel_forward(model, tcfg, tmf.preprocess(tcfg, t(batch["images"])), attention="xla")
+    want = float(jbh.per_pixel_losses(jcfg, jax.random.PRNGKey(0), jnp.asarray(logits.numpy()), [],
+                                      jnp.asarray(batch["sem_seg"]))["loss_sem_seg"])
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state = tts.make_train_state(tcfg, model=model, seed=0)
+    metrics = tts.make_train_step(tcfg)(state, batch)
+    assert sorted(metrics) == ["grad_norm", "loss_sem_seg", "total"]
+    assert abs(float(metrics["loss_sem_seg"]) - want) <= 1e-5 * max(1.0, abs(want))
+    assert all(not torch.equal(p, before[n]) for n, p in model.named_parameters())

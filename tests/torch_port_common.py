@@ -3,13 +3,34 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from tests.d2_synthetic import d2_state_dict  # noqa: F401  (re-exported for the tests)
+
+# Under pytest-xdist every worker collects every module, and each would run torch's CPU
+# ops on all the cores: the workers' threads then oversubscribe the machine, and torch's
+# waiting threads slow every worker several times over.  Each worker takes its share.
+_DEFAULT_THREADS = torch.get_num_threads()
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // _WORKERS))
+
+
+@pytest.fixture(scope="module")
+def default_threads():
+    """torch's default CPU threads for a module whose bf16 shares were recorded with them:
+    oneDNN splits a bf16 conv's fp32 sums by the thread count, and so moves which
+    elements flip by one ulp (ROADMAP.md §C.1)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(_DEFAULT_THREADS)
+    yield
+    torch.set_num_threads(threads)
 
 # the dict of tests/test_evaluator.py::test_sweep_cli_on_synthetic: tiny_test_config in D2 keys
 D2_TINY = {
@@ -61,6 +82,18 @@ def d2_model_pair(jcfg, tcfg, seed: int):
     model = build_model(tcfg, device="cpu", seed=seed)
     load_jax_params(model, params)
     return to_jax(params), model
+
+
+def jax_config(cfg):
+    """The port's config as rba_tpu's, field for field."""
+    from rba_tpu import config as jconfig
+
+    def conv(v):
+        if dataclasses.is_dataclass(v):
+            return getattr(jconfig, type(v).__name__)(**{f.name: conv(getattr(v, f.name)) for f in dataclasses.fields(v)})
+        return v
+
+    return conv(cfg)
 
 
 def to_jax(tree):
@@ -262,7 +295,8 @@ def d2_full_state_dict(cfg, seed: int):
     swin = types.SimpleNamespace(embed_dim=8, patch_size=4, window_size=1, num_layers=0, out_features=(),
                                  out_channels=channels, depths=(), num_heads=(), mlp_ratio=4.0)
     heads = d2_state_dict(types.SimpleNamespace(swin=swin, pixel_decoder=cfg.pixel_decoder, decoder=cfg.decoder,
-                                                num_classes=cfg.num_classes), seed)
+                                                num_classes=cfg.num_classes, sem_seg_head_name=cfg.sem_seg_head_name),
+                          seed)
     sd = {k: v for k, v in heads.items() if not k.startswith("backbone.")}
     sd.update(d2_backbone_state_dict(cfg, seed + 1))
     return sd
