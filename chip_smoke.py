@@ -85,6 +85,21 @@ other phases below, the non-Swin backbones last.
   through ``convert_hf_checkpoint``: parameters and score maps equal to the Detectron2-loaded
   model's, path 1 (A 24, B 1).
 
+- ``parallel``: data parallelism on an NCCL group that the script forms through
+  ``parallel/mesh.py`` (world size: the card count): ``train_net.main`` on the train
+  phase's recipe, trees and checkpoint (1 + 3 steps, global batch 8), the port's counts
+  of its loss and gradient all-reduces, Kernel E 2 per micro-batch, the first step's
+  losses against the single-process train phase's within 1e-6; then
+  ``evaluate_dataset_sharded`` over the eval phase's scenes, its histograms equal to the
+  evaluator's (A 24, B 1 per image).
+- ``int8``: ``swin_b_1dl()`` with int8 weights on path 1 (A 24, B 1) and path 2 (C 24,
+  D 4 on the fp fc1 / fc2, B 1), kernels against plain versions and path 2 against path
+  1 at fp32; ``count_quantized``, the weights' bytes, the score maps' distance from the
+  fp weights'.
+- ``tools``: ``analyze_model`` (its parameter count equal to the d2 phase's model's),
+  ``selfcheck`` at the swin_b_1dl architecture with the port on the card (<= 1e-3),
+  ``ablation`` (parity, fast, fast_int8) and ``device_trace`` of one request.
+
 Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
     python3 chip_smoke.py [--out DIR]
@@ -131,6 +146,11 @@ BIG_FRAME_HW = (3072, 4096)  # a Mapillary Vistas-sized frame, the sliding windo
 COCO_HW = (800, 1067)  # a 640x480 COCO image at MIN_SIZE_TEST 800: the panoptic phase's frames
 MAPILLARY_EVAL_HW = (1536, 2048)  # a 3072x4096 Mapillary frame at MIN_SIZE_TEST 2048, MAX_SIZE_TEST 2048
 STREET_HAZARDS_HW = (720, 1280)  # StreetHazards' frame size, 736x1280 once padded to 32
+SELFCHECK_HW = (128, 256)  # the tools phase's selfcheck images
+ABLATION_HW = (256, 512)  # the tools phase's ablation images
+# the ablation's score maps against the fp32 torch model's, per mode (max, mean): the bf16
+# backbone moves RbA scores (-sum of 19 tanh) by about 0.02 at most, a kernel fault by O(1)
+ABLATION_SCORE_TOL = (0.05, 5e-3)
 N_REQUESTS = 4  # distinct images served after one warm-up request
 E2E_FP32_TOL = 1e-3  # score-map bound of rba_tpu's selfcheck
 BF16_ULP = 2.0**-7  # one bf16 ulp, relative to the value, at most
@@ -209,7 +229,7 @@ def served_sizes(cfg):
     divisibility, in first-use order: the 1024x2048 request and the sweep's synthetic
     images, each whole, in its TTA variants and in its sliding-window tiles, the
     3072x4096 frame's tiles, the panoptic phase's COCO frames, the Mapillary evaluation's
-    frames and StreetHazards' frames."""
+    frames, StreetHazards' frames, and the tools phase's selfcheck and ablation images."""
     from rba_tpu_torch.data.ood_datasets import SyntheticAnomaly
     from rba_tpu_torch.models.sliding_window import tile_grid
     from rba_tpu_torch.models.tta import tta_variants
@@ -217,7 +237,7 @@ def served_sizes(cfg):
     sizes = []
     for hw in (IMAGE_HW, SyntheticAnomaly().hw):
         sizes += [hw, *((h, w) for h, w, _ in tta_variants(cfg, *hw)), tile_grid(*hw)[:2]]
-    sizes += [tile_grid(*BIG_FRAME_HW)[:2], COCO_HW, MAPILLARY_EVAL_HW, STREET_HAZARDS_HW]
+    sizes += [tile_grid(*BIG_FRAME_HW)[:2], COCO_HW, MAPILLARY_EVAL_HW, STREET_HAZARDS_HW, SELFCHECK_HW, ABLATION_HW]
     return _padded(cfg, sizes)
 
 
@@ -322,7 +342,8 @@ def window_attention_phase(cfg, gen, cfg_l):
     worst = max(worst, worst_l)
     # correctness alone at every other window-attention shape that the driven phases
     # give the kernel (served_sizes: TTA variants up to 1792x3584, 1024x1024 tiles, the
-    # sweep's synthetic images, the Mapillary and StreetHazards frames; swin_l_sizes at
+    # sweep's synthetic images, the Mapillary and StreetHazards frames, the selfcheck's
+    # and the ablation's images; swin_l_sizes at
     # Swin-L's head counts), at bf16 and fp32; main() gates that these cover every shape
     # the kernel was launched at
     from rba_tpu_torch.kernels.window_attention import window_attention, window_attention_reference
@@ -402,16 +423,18 @@ def fused_rba_phase(cfg, gen):
     if not err <= tol:
         raise RuntimeError(f"fused_rba_score disagrees with its plain version: {row}")
     # correctness alone: two batch elements with different cls, and a K that needs a
-    # second pass of 24 classes, on masks whose width is not a whole tile of patches
-    # and at StreetHazards' stride-4 logits of a 736x1280 padded frame
+    # second pass of 24 classes, on masks whose width is not a whole tile of patches,
+    # at StreetHazards' stride-4 logits of a 736x1280 padded frame and at those of the
+    # tools phase's selfcheck and ablation images
     sh = [-(-d // 32) * 8 for d in STREET_HAZARDS_HW]
-    for b, k2, h2, w2 in ((2, k, 64, 200), (2, 40, 64, 200), (1, k, *sh)):
+    tools = [(1, k, *(d // 4 for d in hw)) for hw in (SELFCHECK_HW, ABLATION_HW)]
+    for b, k2, h2, w2 in ((2, k, 64, 200), (2, 40, 64, 200), (1, k, *sh), *tools):
         cls2 = torch.randn(b, q, k2 + 1, generator=gen, device="cuda")
         masks2 = torch.randn(b, h2, w2, q, generator=gen, device="cuda") * 2
         got2 = fused_rba_score(cls2, masks2, masks_layout="bhwq")
         torch.cuda.synchronize()
         err2 = max_abs(got2, fused_rba_score_reference(cls2, masks2, masks_layout="bhwq"))
-        row[f"max_abs_err_B{b}_K{k2}"] = err2
+        row[f"max_abs_err_B{b}_K{k2}_{h2}x{w2}"] = err2
         log(f"fused_rba_score B={b} Q={q} K={k2} {h2}x{w2}: err {err2:.3e} (tol {tol:.0e})")
         if not err2 <= tol:
             raise RuntimeError(f"fused_rba_score disagrees with its plain version at B={b}, K={k2}: {err2}")
@@ -798,7 +821,8 @@ def _profile(name, fn, top: int = 8, spans=()):
     kernels = _device_kernels(prof)
     busy_ms = sum(r[1] for r in kernels)
     out = dict(wall_ms=wall_ms, busy_ms=busy_ms or None, idle_share=1 - busy_ms / wall_ms if busy_ms else None,
-               top=[dict(kernel=k[:120], ms=t, calls=c) for k, t, c in kernels[:top]])
+               top=[dict(kernel=k[:120], ms=t, calls=c) for k, t, c in kernels[:top]],
+               nccl_ms=sum(t for k, t, _ in kernels if "nccl" in k.lower()))
     if spans:
         host = [e for e in prof.events() if e.device_type == DeviceType.CPU and e.name in spans]
         out["spans"] = {sp: dict(count=sum(e.name == sp for e in host),
@@ -3174,6 +3198,261 @@ def hf_phase(images):
     return row
 
 
+# ---------------------------------------------------------------------------
+# The last slice: several GPUs (data parallelism on an NCCL group, the sharded
+# evaluation), int8 weights, and the tools
+# ---------------------------------------------------------------------------
+
+PARALLEL_WARMUP, PARALLEL_TIMED = 1, 3  # steps of the data-parallel fine-tune
+LOSS_EQ_TOL = 1e-6  # the 1-rank step's losses against the single-process step's, relative
+
+
+def _loss_reductions(cfg, micro: int) -> int:
+    """The criterion's batch all-reduces of one step: per micro-batch one for num_masks
+    and one per loss term of each supervised layer (labels, masks, and each OOD term that
+    the config turns on), and one per extra whole-output loss."""
+    terms = 2 + cfg.ood.outlier_supervision + cfg.ood.smoothness_loss + cfg.ood.sparsity_loss
+    extra = cfg.ood.gambler_loss + cfg.ood.densehybrid_loss * 2
+    return micro * (1 + _supervised_layers(cfg) * terms + extra)
+
+
+def parallel_phase(train: dict):
+    """Data parallelism on an NCCL group that this process forms through
+    ``parallel/mesh.py`` (``init_distributed``: one rank per card, here the card count),
+    then, in that group, ``train_net.main`` on the train phase's recipe and trees (the
+    Swin-B 1dl COCO outlier fine-tune from the seeded Detectron2 checkpoint, global batch
+    8, 1 + 3 steps at the train phase's per-step batch) and ``evaluate_dataset_sharded``
+    over the eval phase's 8 scenes.  Gates: the group is NCCL at the card count; the
+    port's counts of its loss and gradient all-reduces per step; Kernel E 2 per
+    micro-batch; the first step's losses equal the single-process step's (train phase,
+    same batch) within 1e-6; the sharded histograms equal the evaluator's, with A 24 and
+    B 1 per image.  Reported: ms/step, busy, idle share, peak memory, NCCL kernels' time."""
+    import torch.distributed as dist
+
+    from rba_tpu_torch.config import load_d2_config, swin_b_1dl
+    from rba_tpu_torch.evalx.evaluator import make_score_fn
+    from rba_tpu_torch.evalx.metrics import StreamingOODMetrics, metrics_from_histograms
+    from rba_tpu_torch.models.maskformer import build_model
+    from rba_tpu_torch.parallel import mesh as pmesh
+    from rba_tpu_torch.parallel.sharded_eval import sharded_histograms
+    from rba_tpu_torch.train import train_net
+    from rba_tpu_torch.train.train_step import grad_buckets, make_train_step
+
+    root = SCRATCH / "train"
+    weights = root / "weights"
+    cfg = load_d2_config(str(OOD_CONFIG))
+    t0 = time.perf_counter()
+    pmesh.init_distributed("cuda")
+    group = dict(backend=dist.get_backend(), world=dist.get_world_size(), cards=torch.cuda.device_count(),
+                 form_s=time.perf_counter() - t0)
+    log(f"parallel: process group formed in {group['form_s']:.2f} s: backend {group['backend']}, world size "
+        f"{group['world']}, cards {group['cards']}")
+    if group["backend"] != "nccl" or group["world"] != group["cards"]:
+        raise RuntimeError(f"parallel: the group is {group}, not NCCL at the card count")
+    try:
+        micro = train["micro"]
+        accum = TRAIN_BATCH // micro
+        out = root / "out_parallel"
+        shutil.rmtree(out, ignore_errors=True)
+        counts = _wrappers(lsap=True)
+        for fn in counts.values():
+            fn.launches = 0
+        pmesh.reset_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        steps = PARALLEL_WARMUP + PARALLEL_TIMED
+        state, wall_ms = _timed(train_net.main, _train_args(root, weights, out, micro, steps))
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        launches = {k: fn.launches for k, fn in counts.items()}
+        reduces = dict(pmesh.COUNTS)
+        lines = [json.loads(line) for line in open(out / "metrics.jsonl")]
+        buckets = len(grad_buckets(list(state.model.parameters())))
+        want_reduces = {"loss": steps * _loss_reductions(cfg, accum), "grad": steps * buckets, "model": 0}
+        want_e = steps * accum * _supervised_layers(cfg)
+        first, single = lines[0], train["first"]
+        loss_keys = [k for k in single if k not in ("step", "imgs_per_sec", "grad_norm", "ood_images")]
+        loss_err = max(abs(first[k] - single[k]) / max(1.0, abs(single[k])) for k in loss_keys)
+        ms_step = [TRAIN_BATCH * 1e3 / m["imgs_per_sec"] for m in lines[PARALLEL_WARMUP:]]
+        log(f"parallel: train_net on the group: {len(lines)} steps at per-step batch {micro} x --grad-accum {accum} "
+            f"in {wall_ms / 1e3:.1f} s (model load and mapper start included); timed steps "
+            f"{statistics.median(ms_step):.1f} ms/step median ({[round(v, 1) for v in ms_step]}); peak memory "
+            f"{peak_gib:.2f} GiB; all-reduces {reduces} (expected {want_reduces}: {buckets} gradient buckets); "
+            f"launches {launches} (Kernel E expected {want_e}); first step's losses vs the single-process step's: "
+            f"largest relative difference {loss_err:.3e} over {len(loss_keys)} losses (bound {LOSS_EQ_TOL:.0e})")
+        serving = {k: v for k, v in launches.items() if k != "lsap" and v}
+        if (reduces != want_reduces or launches["lsap"] != want_e or serving or not loss_err <= LOSS_EQ_TOL
+                or len(lines) != steps or not all(math.isfinite(v) for m in lines for v in m.values())):
+            raise RuntimeError(f"parallel: all-reduces {reduces} (expected {want_reduces}), launches {launches} "
+                               f"(Kernel E {want_e}), loss difference {loss_err}, {len(lines)} steps")
+
+        # one profiled data-parallel step on a batch mapped in this thread, as the train phase profiles its step
+        mesh = pmesh.make_mesh()
+        args = train_net.parse_args(_train_args(root, weights, out, micro, 1))
+        batch, _ = _mapped_batch(cfg, args)
+        step_fn = make_train_step(cfg, grad_accum=accum, mesh=mesh)
+        step_fn(state, batch)
+        _, step_ms = _timed(step_fn, state, batch)
+        prof = _profile("parallel train step", lambda: step_fn(state, batch), top=10)
+        nccl_ms = prof["nccl_ms"]
+        prof["idle_share_unprofiled"] = 1 - prof["busy_ms"] / step_ms if prof["busy_ms"] else None
+        log(f"parallel: one step with its batch in host memory {step_ms:.1f} ms (profiler off), device busy "
+            f"{prof['busy_ms']} ms, idle share {prof['idle_share_unprofiled']}; NCCL kernels {nccl_ms:.3f} ms")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the sharded evaluation against the evaluator's histograms
+        scfg = swin_b_1dl()
+        model = build_model(scfg, seed=0)
+        samples, _ = make_scenes()
+        score = make_score_fn(scfg, model)
+        ref = StreamingOODMetrics()
+        for s in samples:
+            ref.update(score(s.image[None])[0], s.label.astype(np.uint8))
+        ref_pos, ref_neg = ref._host_counts()
+        zero = _zero_counts()
+        (pos, neg), eval_ms = _timed(sharded_histograms, scfg, model, samples, mesh)
+        eval_launches = zero()
+        equal = bool(np.array_equal(pos, ref_pos) and np.array_equal(neg, ref_neg))
+        m = metrics_from_histograms(pos, neg)
+        want_eval = {"window_attention": EVAL_IMAGES * sum(scfg.swin.depths), "fused_rba_score": EVAL_IMAGES}
+        log(f"parallel: evaluate_dataset_sharded's histograms over {EVAL_IMAGES} scenes on {mesh.data_size} data "
+            f"rank(s) in {eval_ms:.1f} ms: equal to the evaluator's {equal} ({int(pos.sum())} + {int(neg.sum())} "
+            f"pixels); AUROC {m['AUROC']:.6f}, AUPRC {m['AUPRC']:.6f}, FPR95 {m['FPR@95TPR']:.6f}; launches "
+            f"{eval_launches}")
+        if not equal or any(eval_launches[k] != v for k, v in want_eval.items()):
+            raise RuntimeError(f"parallel: sharded histograms equal {equal}, launches {eval_launches} "
+                               f"(expected {want_eval})")
+        del model
+    finally:
+        dist.destroy_process_group()
+    return dict(group=group, micro=micro, grad_accum=accum, steps=len(lines), wall_s=wall_ms / 1e3,
+                ms_per_step=statistics.median(ms_step), ms_per_step_all=ms_step, peak_gib=peak_gib,
+                all_reduces=reduces, all_reduces_expected=want_reduces, grad_buckets=buckets, launches=launches,
+                first=first, first_loss_max_rel_diff=loss_err, step_in_memory_ms=step_ms, profile=prof,
+                nccl_ms=nccl_ms, eval=dict(ms=eval_ms, launches=eval_launches, equal=equal,
+                                           metrics={k: m[k] for k in ("AUROC", "AUPRC", "FPR@95TPR")}))
+
+
+def int8_phase(images):
+    """``swin_b_1dl()`` with int8 weights (``quantize_params_int8`` by each path's
+    config): 4 + 1 requests at 1024x2048 on path 1 (A 24 + B 1) and path 2 (C 24 + D 4 +
+    B 1, D on the fp fc1 / fc2 that the fused MLP's skip rule keeps), each kernel against
+    its plain version at fp32 within 1e-3 (``serve_phase``), and path 2 against path 1 on
+    one int8 model at fp32 within 1e-3.  Reported: ``count_quantized``, busy, peak
+    memory, the weights' bytes against the fp model's, the score map's largest
+    difference from the fp weights' map."""
+    from rba_tpu_torch.config import swin_b_1dl
+    from rba_tpu_torch.models.maskformer import build_model, maskformer_infer_rba
+    from rba_tpu_torch.ops.quant import count_quantized, quantize_params_int8, weight_bytes
+
+    cfg = dataclasses.replace(swin_b_1dl(), weight_quant="int8")
+    cfg2 = dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, mlp_impl="fused"))
+    fp = build_model(cfg, seed=0)
+    n_blocks = sum(cfg.swin.depths)
+    d_blocks = sum(d for i, d in enumerate(cfg.swin.depths) if cfg.swin.stage_dim(i) <= 256)
+    out = dict(fp_bytes=weight_bytes(fp))
+    q = {}
+    for name, pcfg, attention, per_image, redesigned in (
+            ("path1", cfg, "fused", {"window_attention": n_blocks, "fused_rba_score": 1},
+             {"window_attention_mma_kernel": "window_attention_kernel", "fused_rba_mma_kernel": "fused_rba_kernel"}),
+            ("path2", cfg2, "fused_softmax",
+             {"masked_softmax": n_blocks, "fused_mlp_residual": d_blocks, "fused_rba_score": 1},
+             {"fused_mlp_mma_kernel": "fused_mlp_kernel", "masked_softmax_walk_kernel": "masked_softmax_kernel",
+              "fused_rba_mma_kernel": "fused_rba_kernel"})):
+        q[name] = quantize_params_int8(fp, cfg=pcfg)
+        stats = count_quantized(q[name])
+        serve, scores, _ = serve_phase(f"int8 {name}", pcfg, q[name], images, attention, per_image)
+        prof = profile_phase(f"int8 {name}", pcfg, q[name], images[1], attention, redesigned)
+        with torch.inference_mode():
+            fp_map = maskformer_infer_rba(fp, pcfg, images[1], attention=attention)
+        diff = max_abs(scores[0], fp_map)
+        out[name] = dict(count_quantized=stats, weight_bytes=weight_bytes(q[name]), serve=serve, profile=prof,
+                         max_diff_from_fp_weights=diff, launches=serve["launches"])
+        log(f"int8 {name}: count_quantized {stats}; weights {out[name]['weight_bytes'] / 2**20:.1f} MiB against the "
+            f"fp model's {out['fp_bytes'] / 2**20:.1f} MiB; device busy {prof['busy_ms']} ms per request, peak "
+            f"memory {serve['peak_gib']:.2f} GiB; score map vs the fp weights' map: max diff {diff:.4e}")
+    # path 2 against path 1 on one int8 model (path 2's: fc1 and fc2 fp in both) at fp32
+    cfg32, cfg2_32 = (dataclasses.replace(c, compute_dtype="float32") for c in (cfg, cfg2))
+    with torch.inference_mode():
+        cross = max(max_abs(maskformer_infer_rba(q["path2"], cfg32, images[i], attention="fused"),
+                            maskformer_infer_rba(q["path2"], cfg2_32, images[i], attention="fused_softmax"))
+                    for i in range(1, N_REQUESTS + 1))
+    out["paths_fp32_max_diff"] = cross
+    log(f"int8: path 2 vs path 1 on one int8 model at fp32: max diff {cross:.3e} (bound {E2E_FP32_TOL:.0e}, gated)")
+    if not cross <= E2E_FP32_TOL:
+        raise RuntimeError(f"int8: path 2 and path 1 differ by {cross} > {E2E_FP32_TOL}")
+    del fp, q
+    return out
+
+
+def tools_phase(images, pth: Path):
+    """The tools on the card: ``analyze_model`` on swin_b_1dl at 1024x2048 (its parameter
+    count equal to the d2 phase's Detectron2-loaded model's), ``selfcheck`` at the full
+    swin_b_1dl architecture at 128x256 with the port on the card (max score delta <=
+    1e-3), ``ablation`` on 2 images for parity, fast and fast_int8 (the torch reference
+    on the CPU, as the selfcheck's), and ``device_trace`` of one path-1 request."""
+    from rba_tpu_torch.config import load_d2_config
+    from rba_tpu_torch.convert import load_checkpoint_params
+    from rba_tpu_torch.models.maskformer import build_model, maskformer_infer_rba
+    from rba_tpu_torch.tools import ablation, analyze_model, selfcheck
+    from rba_tpu_torch.utils.profiling import device_trace
+
+    work = SCRATCH / "tools"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg_path = pth.parent / "config.yaml"
+    cfg = load_d2_config(str(cfg_path))
+    d2_params = sum(p.numel() for p in load_checkpoint_params(str(pth.parent), cfg).parameters())
+    zero = _zero_counts()
+    analysis, analyze_ms = _timed(analyze_model.main, ["--config-file", str(cfg_path), "--tasks", "parameter", "flop",
+                                                       "activation", "memory", "--height", str(IMAGE_HW[0]),
+                                                       "--width", str(IMAGE_HW[1])])
+    total = analysis["parameter"][""]
+    log(f"tools: analyze_model on {cfg_path.name} at {IMAGE_HW[0]}x{IMAGE_HW[1]} in {analyze_ms / 1e3:.1f} s: "
+        f"{total / 1e6:.2f} M parameters (the d2 phase's model: {d2_params / 1e6:.2f} M), dot + conv FLOPs "
+        f"{ {k: round(v / 1e9, 2) for k, v in analysis['flop'].items()} } G on the \"xla\" branch, activations "
+        f"{analysis['activation']:.1f} M, memory {analysis['memory']} MB; launches {zero()}")
+    if total != d2_params:
+        raise RuntimeError(f"tools: analyze_model counts {total} parameters, the d2 phase's model {d2_params}")
+
+    check, check_ms = _timed(selfcheck.run_selfcheck, str(work / "selfcheck"), "swin_b_1dl", 2, SELFCHECK_HW)
+    log(f"tools: selfcheck at the swin_b_1dl architecture, 2 images of {SELFCHECK_HW[0]}x{SELFCHECK_HW[1]}, the port "
+        f"on {check['device']}: max "
+        f"score delta {check['max_score_delta']:.3e} (bound {check['tolerance']:.0e}) in {check_ms / 1e3:.1f} s")
+    if not (check["pass"] and check["max_score_delta"] <= E2E_FP32_TOL and check["device"].startswith("cuda")):
+        raise RuntimeError(f"tools: selfcheck {check}")
+
+    abl, abl_ms = _timed(ablation.main, ["--images", "2", "--hw", "x".join(map(str, ABLATION_HW)), "--modes",
+                                         "parity,fast,fast_int8", "--workdir", str(work / "ablation")])
+    log(f"tools: ablation (2 images of {ABLATION_HW[0]}x{ABLATION_HW[1]}, parity / fast / fast_int8; the fp32 torch "
+        f"model on the CPU) in {abl_ms / 1e3:.1f} s: " + "; ".join(
+        f"{k} AUROC {v['exact']['auroc']:.4f} score delta max {v['score_map_max_abs_delta']:.4f} mean "
+        f"{v['score_map_mean_abs_delta']:.2e}" for k, v in abl["results"].items() if k != "reference_torch_fp32")
+        + f" (bounds {ABLATION_SCORE_TOL}, gated)")
+    if set(abl["results"]) != {"reference_torch_fp32", "parity", "fast", "fast_int8"}:
+        raise RuntimeError(f"tools: ablation modes {sorted(abl['results'])}")
+    for k, v in abl["results"].items():
+        if k != "reference_torch_fp32" and not (v["score_map_max_abs_delta"] <= ABLATION_SCORE_TOL[0]
+                                                and v["score_map_mean_abs_delta"] <= ABLATION_SCORE_TOL[1]):
+            raise RuntimeError(f"tools: ablation {k}'s scores are off the fp32 torch model's: {v}")
+
+    model = build_model(cfg, seed=0)
+    maskformer_infer_rba(model, cfg, images[1])
+    with device_trace(str(work / "trace")) as prof:
+        maskformer_infer_rba(model, cfg, images[1])
+    trace = work / "trace" / "trace.json"
+    device_ms = sum(r[1] for r in _device_kernels(prof))
+    log(f"tools: device_trace of one path-1 request: {trace.stat().st_size / 2**20:.1f} MiB of trace, device time "
+        f"{device_ms:.2f} ms")
+    if not trace.exists() or not device_ms > 0:
+        raise RuntimeError("tools: device_trace wrote no trace with device time")
+    del model
+    return dict(parameters=total, d2_parameters=d2_params, flops=analysis["flop"],
+                activations_m=analysis["activation"], memory_mb=analysis["memory"], selfcheck=check,
+                ablation=abl["results"], trace_mib=trace.stat().st_size / 2**20, trace_device_ms=device_ms)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, help="directory for chip_smoke.json, the run's measurements")
@@ -3281,6 +3560,13 @@ def main() -> int:
     log(f"train phase: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
+    with window_attention_shapes() as wa_seen_parallel:
+        t0 = time.perf_counter()
+        parallel = parallel_phase(train)
+        log(f"parallel phase: {time.perf_counter() - t0:.1f} s")
+    wa_seen |= wa_seen_parallel
+    gc.collect()
+    torch.cuda.empty_cache()
     with window_attention_shapes() as wa_seen_train_eval:
         t0 = time.perf_counter()
         train_eval = train_eval_phase()
@@ -3318,7 +3604,19 @@ def main() -> int:
         t0 = time.perf_counter()
         hf = hf_phase(images)
         log(f"hf phase: {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        int8 = int8_phase(images)
+        log(f"int8 phase: {time.perf_counter() - t0:.1f} s")
     wa_seen |= wa_seen_heads
+    gc.collect()
+    torch.cuda.empty_cache()
+    with window_attention_shapes() as wa_seen_tools:
+        t0 = time.perf_counter()
+        tools = tools_phase(images, pth)
+        log(f"tools phase: {time.perf_counter() - t0:.1f} s")
+    wa_seen |= wa_seen_tools
     unchecked = sorted(wa_seen - wa_checked)
     log(f"Kernel A in these phases: {len(wa_seen)} distinct launch shapes (windows, heads, head dim, masked), "
         f"each held against its plain version at bf16 and fp32 in the kernel phase: {not unchecked} "
@@ -3338,7 +3636,8 @@ def main() -> int:
         *((f"heads_{k}", heads[k]["launches"]) for k in ("v1_path1", "v1_path2", "v1_encoder", "per_pixel",
                                                          "per_pixel_plus")),
         *((f"heads_train_{k}", {w: v for w, v in heads[f"train_{k}"]["launches"].items() if w != "lsap"})
-          for k in ("v1", "per_pixel_plus")), ("hf", hf["launches"]))}
+          for k in ("v1", "per_pixel_plus")), ("hf", hf["launches"]), ("parallel_eval", parallel["eval"]["launches"]),
+        ("int8_path1", int8["path1"]["launches"]), ("int8_path2", int8["path2"]["launches"]))}
     swin_l_launches = {k: v for k, v in variant_launches.items() if k.startswith("launches_swin_l_")}
     eval_launches_ds = {f"launches_train_datasets_eval_{k}": v["eval_only"]["launches"]["window_attention"]
                         for k, v in train_datasets.items() if isinstance(v, dict) and "eval_only" in v}
@@ -3369,14 +3668,14 @@ def main() -> int:
              **{k: v["masked_softmax"] for k, v in swin_l_launches.items()},
              **{f"{k}_swin_l": ms_l[k] for k in ("ms", "plain_ms", "bound_ms", "cast_ms")},
              max_abs_err_swin_l=ms_err_l, **{k: v["masked_softmax"] for k, v in variant_launches.items()
-                                             if k.startswith(("launches_heads", "launches_hf"))}),
+                                             if k.startswith(("launches_heads", "launches_hf", "launches_int8"))}),
         dict(name="fused_mlp_residual", route="cuda", source="rba_tpu_torch/csrc/fused_mlp.cu",
              replaces="rba_tpu/ops/pallas/fused_mlp.py:166",
              launches=serve["path2"]["launches"]["fused_mlp_residual"], max_abs_err=mlp_err, ms=mlp["ms"],
              plain_ms=mlp["plain_ms"], bound_ms=mlp["bound_ms"], bound_by="operations", library_ms=None,
              ms_batches=mlp["ms_batches"], **{k: v["fused_mlp_residual"] for k, v in swin_l_launches.items()},
              **{k: v["fused_mlp_residual"] for k, v in variant_launches.items()
-                if k.startswith(("launches_heads", "launches_hf"))}),
+                if k.startswith(("launches_heads", "launches_hf", "launches_int8"))}),
         dict(name="lsap", route="cuda", source="rba_tpu_torch/csrc/lsap.cu", replaces="rba_tpu/ops/lsap.py:93",
              launches=train["launches"]["lsap"],
              max_abs_err=max(r["max_abs_err"] for r in (*lsap_rows.values(), train["lsap_real"])),
@@ -3390,6 +3689,7 @@ def main() -> int:
              launches_train_datasets=train_datasets["lsap_launches"],
              launches_heads_train_v1=heads["train_v1"]["launches"]["lsap"],
              launches_heads_train_per_pixel_plus=heads["train_per_pixel_plus"]["launches"]["lsap"],
+             launches_parallel_train=parallel["launches"]["lsap"],
              **{k: v["lsap"] for k, v in variant_launches.items() if "lsap" in v
                 and k.startswith(("launches_heads", "launches_hf"))}),
     ]
@@ -3402,7 +3702,7 @@ def main() -> int:
                  tta=tta, sliding=sliding, dense_hybrid=dense_hybrid, sweep_cli=sweep_cli, lsap=lsap_rows,
                  train=train, semseg=semseg, panoptic=panoptic, train_eval=train_eval, backbones=backbones,
                  r50_d2=r50_d2, train_backbones=train_backbones, masked_softmax_swin_l=ms_rows_l, swin_l=swin_l,
-                 train_datasets=train_datasets, heads=heads, hf=hf,
+                 train_datasets=train_datasets, heads=heads, hf=hf, parallel=parallel, int8=int8, tools=tools,
                  elapsed_s=time.perf_counter() - T_START, kernels=kernels), indent=1))
     log("(window_attention, masked_softmax and fused_mlp_residual times are per image: each call of one "
         "1024x2048 request, summed; ms is the mean of the first batch of 20 calls, ms_batches the means of "
@@ -3420,7 +3720,10 @@ def main() -> int:
         "launches_train_datasets_eval_* each --eval-only of the train_datasets phase, launches_heads_v1_path1 / "
         f"_v1_path2 / _per_pixel / _per_pixel_plus the {N_REQUESTS} requests of each head, launches_heads_v1_encoder "
         "one request of the encoder variant, launches_heads_train_* each head's training run, launches_hf the "
-        f"{N_REQUESTS} requests of the HF-ingested model; *_swin_l times per Swin-L "
+        f"{N_REQUESTS} requests of the HF-ingested model, launches_parallel_eval the sharded evaluation of "
+        f"{EVAL_IMAGES} scenes and launches_parallel_train the data-parallel fine-tune's "
+        f"{PARALLEL_WARMUP + PARALLEL_TIMED} steps, launches_int8_path1 / _path2 the {N_REQUESTS} int8 requests of "
+        "each path; *_swin_l times per Swin-L "
         "1024x2048 image; fused_rba_score's "
         "*_coco at Q=100, K=117, 200x272; lsap's launches count the train phase's "
         f"{TRAIN_WARMUP + TRAIN_TIMED} steps, launches_train_backbones the train_backbones phase's "

@@ -2,8 +2,8 @@
 
 A copy, not an import, of the dataclasses of ``rba_tpu/config.py`` and of its
 presets.  Field names and defaults are the same, so a config of one package can be
-rebuilt field by field in the other.  Options the port does not run yet keep their
-field and are refused by ``check_supported``.  ``load_d2_config`` reads a Detectron2
+rebuilt field by field in the other; ``check_supported`` refuses a name that no registry
+holds.  ``load_d2_config`` reads a Detectron2
 ``config.yaml`` (with its ``_BASE_`` chain) into these fields, with the values
 ``rba_tpu.config.load_d2_config`` gives them; ``load_config`` also reads the native
 format that ``save_config`` writes (``config_to_dict``: the fields that differ from
@@ -32,7 +32,9 @@ class SwinConfig:
     drop_path_rate: float = 0.3  # read, and not applied: rba_tpu's train step runs no stochastic depth
     pretrain_img_size: int = 384
     out_features: Tuple[str, ...] = ("res2", "res3", "res4", "res5")
-    use_checkpoint: bool = False  # rematerialisation in rba_tpu; the port keeps its activations
+    use_checkpoint: bool = False  # rematerialise each block under autograd (torch.utils.checkpoint)
+    # "partition"; rba_tpu's TPU lowerings of its function ("nested", "resident",
+    # "qkv_canvas", "proj_canvas") run the partition layout in the port (models/swin.py)
     attn_layout: str = "partition"
     mlp_impl: str = "xla"
 
@@ -265,25 +267,31 @@ DECODERS = ("MultiScaleMaskedTransformerDecoder", "MultiScalePerPixelDecoder", "
             "SimpleTransformerDecoder", "StandardTransformerDecoder")
 
 
+# rba_tpu's window-attention lowerings, each optionally per stage ("resident:0,1")
+ATTN_LAYOUTS = ("partition", "nested", "resident", "qkv_canvas", "proj_canvas")
+SAMPLING_METHODS = ("auto", "gather", "onehot", "gather_scatter")
+
+
 def check_supported(cfg: RbAConfig) -> None:
-    """Raise ``NotImplementedError`` for an option that the port does not run: a name no
-    registry holds, as ``rba_tpu`` raises, or an option refused by ROADMAP.md §A.8."""
-    later = {
+    """Raise ``NotImplementedError`` for a name that no registry holds, as ``rba_tpu``
+    raises.  Every option ``rba_tpu`` runs is taken: ``pixel_decoder.norm`` is read and
+    GroupNorm runs whatever it says, as in ``rba_tpu``; no model reads ``param_dtype``;
+    ``sampling_method="gather_scatter"`` is the gather's function; every
+    ``attn_layout`` runs the partition layout (``models/swin.py``)."""
+    unknown = {
         f"backbone {cfg.backbone_name!r}": cfg.backbone_name not in BACKBONES,
         f"SEM_SEG_HEAD.NAME {cfg.sem_seg_head_name!r}": cfg.sem_seg_head_name not in HEADS,
         f"PIXEL_DECODER_NAME {cfg.pixel_decoder.name!r}": cfg.pixel_decoder.name not in PIXEL_DECODERS,
         f"TRANSFORMER_DECODER_NAME {cfg.decoder.name!r}": cfg.decoder.name not in DECODERS,
-        "Swin attention layouts other than partition": cfg.swin.attn_layout != "partition",
+        f"Swin attn_layout={cfg.swin.attn_layout!r}": cfg.swin.attn_layout.split(":")[0] not in ATTN_LAYOUTS,
         f"Swin mlp_impl={cfg.swin.mlp_impl!r}": cfg.swin.mlp_impl not in ("xla", "fused"),
-        "weight_quant": cfg.weight_quant != "none",
-        "param_dtype other than float32": cfg.param_dtype != "float32",
-        "GroupNorm-free pixel decoders": cfg.pixel_decoder.norm != "GN",
+        f"weight_quant={cfg.weight_quant!r}": cfg.weight_quant not in ("none", "int8"),
         f"sampling_method={cfg.pixel_decoder.sampling_method!r}":
-            cfg.pixel_decoder.sampling_method not in ("auto", "gather", "onehot"),
+            cfg.pixel_decoder.sampling_method not in SAMPLING_METHODS,
     }
-    missing = [name for name, hit in later.items() if hit]
+    missing = [name for name, hit in unknown.items() if hit]
     if missing:
-        raise NotImplementedError("not run by the PyTorch port: " + ", ".join(missing))
+        raise NotImplementedError("not in the registries: " + ", ".join(missing))
     for name in ("compute_dtype", "pixel_decoder_dtype"):
         if getattr(cfg, name) not in ("float32", "bfloat16"):
             raise ValueError(f"{name} {getattr(cfg, name)!r}")
@@ -411,8 +419,8 @@ _BACKBONES = {
 def load_d2_config(path: str, **overrides) -> RbAConfig:
     """Read a frozen Detectron2 ``config.yaml`` of the reference release into the
     port's config.  Only the keys behind the port's fields are read, each as
-    ``rba_tpu.config.load_d2_config`` reads it; a backbone or head that the port does
-    not run yet loads and is refused by ``check_supported``."""
+    ``rba_tpu.config.load_d2_config`` reads it; a backbone or head that no registry
+    holds loads and is refused by ``check_supported``."""
     raw = load_yaml_with_base(path)
 
     model = raw.get("MODEL", {})

@@ -47,6 +47,8 @@ def jax_params_to_state(params: Any) -> Dict[str, np.ndarray]:
         path = ".".join(parts)
         head, _, leaf_name = path.rpartition(".")
         name = f"{head}.{_LEAF_NAMES[leaf_name]}" if head and leaf_name in _LEAF_NAMES else path
+        if leaf_name == "kernel_q":  # an int8 linear (ops/quant.py): (in, out) -> (out, in)
+            arr = arr.T
         if leaf_name == "kernel":
             if arr.ndim == 2:
                 arr = arr.T
@@ -68,7 +70,17 @@ def load_jax_params(model: nn.Module, params: Any) -> nn.Module:
     unexpected name and on any shape that differs, but for a relative-position table of
     another length, which takes the pytree's."""
     state = jax_params_to_state(params)
+    for name in state:
+        if name.endswith(".kernel_q"):  # a quantized tree: the layer takes int8 buffers first
+            mod = model.get_submodule(name[: -len(".kernel_q")])
+            if not hasattr(mod, "kernel_q"):
+                from ..ops.quant import set_quantized
+
+                shape = state[name].shape
+                set_quantized(mod, torch.zeros(shape, dtype=torch.int8, device=mod.weight.device),
+                              torch.zeros(shape[0], device=mod.weight.device))
     own = dict(model.named_parameters())
+    own.update((n, b) for n, b in model.named_buffers() if n.endswith((".kernel_q", ".kscale")))
     missing = sorted(own.keys() - state.keys())
     unexpected = sorted(state.keys() - own.keys())
     if missing or unexpected:
@@ -82,7 +94,7 @@ def load_jax_params(model: nn.Module, params: Any) -> nn.Module:
                 setattr(model.get_submodule(mod_name), leaf, p)
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: pytree shape {tuple(arr.shape)}, model shape {tuple(p.shape)}")
-            p.copy_(torch.tensor(arr, dtype=torch.float32))
+            p.copy_(torch.tensor(arr, dtype=p.dtype if p.dtype == torch.int8 else torch.float32))
     return model
 
 
@@ -107,6 +119,10 @@ def model_to_jax_params(model: nn.Module):
         elif name.endswith(".weight") and arr.ndim == 4:
             arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
         flat[jax_path(name, arr.ndim).replace("/", _SEP)] = np.ascontiguousarray(arr)
+    for name, b in model.named_buffers():  # int8 linears: kernel_q back to (in, out), kscale
+        if name.endswith((".kernel_q", ".kscale")):
+            arr = b.detach().cpu().numpy()
+            flat[name.replace(".", _SEP)] = np.ascontiguousarray(arr.T if arr.ndim == 2 else arr)
     for name, mod in model.named_modules():
         if hasattr(mod, "jax_constants"):
             for parts, value in _leaves(mod.jax_constants(), tuple(name.split(".")) if name else ()):

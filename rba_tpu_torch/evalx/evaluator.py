@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ..config import RbAConfig, check_supported
 from ..models.maskformer import energy_score, maskformer_infer, maskformer_infer_rba, rba_score
+from ..ops.quant import is_quantized, quantize_params_int8
 from .metrics import StreamingOODMetrics, _histogram_into, _scored_range, exact_ood_metrics, to_device
 
 # score functions that are unbounded and stream into asinh-binned histograms
@@ -111,11 +112,21 @@ def _device(model) -> torch.device:
     return next(model.parameters()).device
 
 
+def serving_model(cfg: RbAConfig, model):
+    """The model that scores under ``cfg``: with ``weight_quant="int8"`` an int8 copy
+    (``ops.quant.quantize_params_int8``; a model already in int8 as it is), as
+    ``rba_tpu``'s score functions quantize their parameters."""
+    if cfg.weight_quant == "int8" and not is_quantized(model):
+        return quantize_params_int8(model, cfg=cfg)
+    return model
+
+
 def make_score_fn(cfg: RbAConfig, model, score: str = "rba", smoothing: bool = False, attention: str = "fused"):
     """(image batch, uint8 numpy or tensor) → (B, H, W) anomaly scores on the model's
     device.  Host images go up as uint8 (4x fewer bytes) and are cast there."""
     check_supported(cfg)
     device = _device(model)
+    model = serving_model(cfg, model)
 
     def score_fn(images) -> torch.Tensor:
         return _score_batch(model, cfg, to_device(images, device).float(), score, smoothing, attention)
@@ -131,6 +142,7 @@ def make_cohort_fn(cfg: RbAConfig, model, score: str, smoothing: bool,
     nothing full-resolution returns to the host."""
     check_supported(cfg)
     device = _device(model)
+    model = serving_model(cfg, model)
 
     def cohort_fn(packed):
         packed = to_device(packed, device)
@@ -164,7 +176,7 @@ class OODEvaluator:
     def __init__(self, cfg: RbAConfig, model, score="rba", use_gaussian_smoothing: bool = False,
                  attention: str = "fused"):
         self.cfg = cfg
-        self.model = model
+        self.model = model = serving_model(cfg, model)
         self.attention = attention
         self.device = _device(model)
         self.score_name = score if isinstance(score, str) else None

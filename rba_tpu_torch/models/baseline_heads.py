@@ -27,6 +27,7 @@ from ..config import RbAConfig
 from ..ops.nn import apply_conv, apply_group_norm, apply_linear, apply_norm, mlp_apply
 from ..ops.point_sample import point_sample, top_k_indices
 from ..ops.resize import resize_bilinear, resize_nearest_nhwc
+from ..parallel.mesh import global_sums
 from .position_encoding import sine_pos_embed
 from .transformer_decoder import MultiheadAttention, mha_apply
 
@@ -310,17 +311,20 @@ def sem_seg_uncertainty(logits: torch.Tensor) -> torch.Tensor:
     return top2[..., 1] - top2[..., 0]
 
 
-def _masked_ce(logp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def _masked_ce(logp: torch.Tensor, labels: torch.Tensor, group=None) -> torch.Tensor:
     """Mean of −log p(label) over the labels below K; labels >= K (255, the outlier label
-    254) are dropped."""
+    254) are dropped.  ``group``: the data-parallel group whose ranks hold the rest of the
+    batch, over which the sum and the count are completed."""
     k = logp.shape[1]
     keep = labels < k
     picked = torch.gather(logp, 1, torch.where(keep, labels, torch.zeros_like(labels))[:, None])[:, 0]
     keep = keep.float()
-    return -(picked * keep).sum() / keep.sum().clamp_min(1.0)
+    total, count = global_sums(group, (picked * keep).sum(), keep.sum())
+    return -total / count.clamp_min(1.0)
 
 
-def per_pixel_loss(cfg: RbAConfig, uniform: Callable, logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def per_pixel_loss(cfg: RbAConfig, uniform: Callable, logits: torch.Tensor, targets: torch.Tensor,
+                   group=None) -> torch.Tensor:
     """Cross-entropy of (B, K, H/4, W/4) logits against (B, H, W) labels: of the logits
     upsampled ×4, or with ``cfg.loss.use_point_rend`` at PointRend's points, drawn from
     ``uniform`` (candidates, then the random points)."""
@@ -339,15 +343,15 @@ def per_pixel_loss(cfg: RbAConfig, uniform: Callable, logits: torch.Tensor, targ
         if n_rand > 0:
             coords = torch.cat([coords, uniform((b, n_rand, 2)).to(logits.device)], dim=1)
         labels = nearest_point_sample_labels(targets, coords)
-        return _masked_ce(torch.log_softmax(point_sample(logits, coords), dim=1), labels)
+        return _masked_ce(torch.log_softmax(point_sample(logits, coords), dim=1), labels, group)
     full = resize_bilinear(logits, targets.shape[-2:], align_corners=False)
-    return _masked_ce(torch.log_softmax(full, dim=1), targets)
+    return _masked_ce(torch.log_softmax(full, dim=1), targets, group)
 
 
 def per_pixel_losses(cfg: RbAConfig, uniform: Callable, logits: torch.Tensor, aux: Sequence[Dict],
-                     targets: torch.Tensor) -> Dict[str, torch.Tensor]:
+                     targets: torch.Tensor, group=None) -> Dict[str, torch.Tensor]:
     """{"loss_sem_seg", "loss_sem_seg_0", ...}: the final logits' loss and each aux layer's."""
-    out = {"loss_sem_seg": per_pixel_loss(cfg, uniform, logits, targets)}
+    out = {"loss_sem_seg": per_pixel_loss(cfg, uniform, logits, targets, group)}
     for i, a in enumerate(aux):
-        out[f"loss_sem_seg_{i}"] = per_pixel_loss(cfg, uniform, a["pred_masks"], targets)
+        out[f"loss_sem_seg_{i}"] = per_pixel_loss(cfg, uniform, a["pred_masks"], targets, group)
     return out

@@ -24,7 +24,14 @@ does not read):
 With ``SwinConfig.mlp_impl == "fused"``, no gradient tracked and C where
 ``kernels.fused_mlp.beneficial`` holds, a block's MLP tail goes through
 ``kernels.fused_mlp`` (Kernel D), as ``rba_tpu/models/swin.py:488-501`` decides.
-``plain=True`` runs every kernel's plain version instead.
+``plain=True`` runs every kernel's plain version instead.  Under tensor parallelism
+(``parallel/tp.py``) Kernel D reads the whole fc1 and fc2, gathered from their shards.
+
+``SwinConfig.attn_layout`` "nested", "resident" and "qkv_canvas" are ``rba_tpu``'s TPU
+lowerings of the partition layout's function ("identical math", ``rba_tpu/config.py:44-56``),
+so every layout runs the partition layout here.  ``SwinConfig.use_checkpoint``
+rematerialises each block under autograd (``torch.utils.checkpoint``), as ``rba_tpu``
+wraps each block in ``jax.checkpoint`` (the reference in ``torch.utils.checkpoint``).
 """
 from __future__ import annotations
 
@@ -36,12 +43,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from ..config import SwinConfig
 from ..kernels.fused_mlp import beneficial, fused_mlp_residual, fused_mlp_residual_reference
 from ..kernels.masked_softmax import masked_softmax, masked_softmax_reference
 from ..kernels.window_attention import window_attention, window_attention_reference
 from ..ops.nn import apply_linear, apply_norm
 from ..ops.resize import resize_bicubic_nhwc
+from ..parallel.tp import full_linear
 
 ATTENTION = ("fused", "fused_softmax", "xla")  # the window-attention branches
 
@@ -236,8 +246,8 @@ def _mlp_tail(blk: SwinBlock, x: torch.Tensor, mlp_impl: str, plain: bool) -> to
     b, h, w, c = x.shape
     if mlp_impl == "fused" and not torch.is_grad_enabled() and beneficial(b * h * w, c):
         fused = fused_mlp_residual_reference if plain else fused_mlp_residual
-        fc1, fc2 = blk.mlp["fc1"], blk.mlp["fc2"]
-        return fused(x.contiguous(), blk.norm2.weight, blk.norm2.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+        (w1, b1), (w2, b2) = full_linear(blk.mlp["fc1"]), full_linear(blk.mlp["fc2"])
+        return fused(x.contiguous(), blk.norm2.weight, blk.norm2.bias, w1, b1, w2, b2)
     y = apply_norm(blk.norm2, x)
     y = apply_linear(blk.mlp["fc2"], gelu(apply_linear(blk.mlp["fc1"], y)))
     return x + y
@@ -331,8 +341,12 @@ def swin_apply(
     for i, layer in enumerate(model.layers):
         for j, blk in enumerate(layer.blocks):
             shift = 0 if j % 2 == 0 else cfg.window_size // 2
-            x = swin_block_apply(blk, x, cfg.num_heads[i], cfg.window_size, shift, cfg.qk_scale, plain,
-                                 attention, cfg.mlp_impl, fast_math)
+            args = (blk, x, cfg.num_heads[i], cfg.window_size, shift, cfg.qk_scale, plain, attention, cfg.mlp_impl,
+                    fast_math)
+            if cfg.use_checkpoint and torch.is_grad_enabled():
+                x = checkpoint(swin_block_apply, *args, use_reentrant=False)
+            else:
+                x = swin_block_apply(*args)
         if f"res{i + 2}" in cfg.out_features:
             outs[f"res{i + 2}"] = apply_norm(getattr(model, f"norm{i}"), x)
         if layer.downsample is not None:

@@ -181,6 +181,8 @@ def sampling_methods(
     form where N·M·Lq·H·W <= ``onehot_cap`` (``rba_tpu``'s per-level dispatch)."""
     if method == "auto":
         return tuple("onehot" if n * m * lq * h * w <= onehot_cap else "gather" for h, w in spatial_shapes)
+    if method == "gather_scatter":  # rba_tpu's plain-autodiff gather: the gather's function and gradient
+        method = "gather"
     if method not in ("onehot", "gather"):
         raise ValueError(f"sampling method {method!r}")
     return (method,) * len(spatial_shapes)

@@ -29,8 +29,22 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
     return _add_bias(F.linear(x, weight.to(x.dtype)), bias)
 
 
+def linear_weight(layer: nn.Module, dtype) -> torch.Tensor:
+    """The layer's (out, in) weight in ``dtype``: of an int8 layer (``ops/quant.py``) the
+    dequantized ``kernel_q.to(dtype) * kscale.to(dtype)``, rounded in ``dtype`` as
+    ``rba_tpu``'s ``linear`` rounds it."""
+    if hasattr(layer, "kernel_q"):
+        return layer.kernel_q.to(dtype) * layer.kscale.to(dtype)[:, None]
+    return layer.weight.to(dtype)
+
+
 def apply_linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    return linear(x, layer.weight, layer.bias)
+    """The layer on ``x``: int8 weights dequantized (``linear_weight``), a tensor-parallel
+    shard through its collectives (``parallel/tp.py``)."""
+    tp = getattr(layer, "tp", None)
+    if tp is not None:
+        return tp.apply(layer, x)
+    return linear(x, linear_weight(layer, x.dtype), layer.bias)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -22,9 +22,22 @@ import torch
 Uniform = Callable[[Tuple[int, ...]], torch.Tensor]
 
 
-def uniform_from(gen: torch.Generator) -> Uniform:
-    """U[0, 1) fp32 draws of a given shape from ``gen``, on ``gen``'s device."""
-    return lambda shape: torch.rand(shape, generator=gen, device=gen.device)
+def uniform_from(gen: torch.Generator, shard: Tuple[int, int] = (0, 1)) -> Uniform:
+    """U[0, 1) fp32 draws of a given shape from ``gen``, on ``gen``'s device.
+
+    ``shard`` = (data rank, data ranks): every draw's dim 0 runs over this rank's rows of
+    the batch, so the draw is made at the global batch's shape (dim 0 times the ranks),
+    from a generator that every rank seeds alike, and the rank takes its rows.  The
+    points then do not depend on the number of ranks."""
+    rank, size = shard
+    if size == 1:
+        return lambda shape: torch.rand(shape, generator=gen, device=gen.device)
+
+    def draw(shape):
+        n = shape[0]
+        return torch.rand((n * size, *shape[1:]), generator=gen, device=gen.device)[rank * n : (rank + 1) * n]
+
+    return draw
 
 
 def point_sample(masks: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,7 @@ each parameter's name.  ``freeze_transformer_decoder_except_mlp`` and
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -79,10 +79,12 @@ def global_norm(grads) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_grads_(grads, max_norm: float) -> torch.Tensor:
+def clip_grads_(grads, max_norm: float, norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """optax's ``clip_by_global_norm`` in place: g ← g / ‖g‖ · max_norm where ‖g‖ >= max_norm.
-    Returns the unclipped norm."""
-    norm = global_norm(grads)
+    Returns the unclipped norm; ``norm`` gives it where the gradients are sharded
+    (``parallel.tp.grad_norm_tp``)."""
+    if norm is None:
+        norm = global_norm(grads)
     for g in grads:
         g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
     return norm

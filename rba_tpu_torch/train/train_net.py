@@ -4,11 +4,13 @@ Usage:
     python -m rba_tpu_torch.train.train_net --config-file configs/cityscapes/swin_b_1dl_ood_coco.yaml \
         --data-root datasets/cityscapes [--coco-root datasets/coco] [--weights MODEL_DIR] \
         [--max-iter N] [--batch-size B] [--grad-accum K] [--resume] [--device cpu] \
-        [--eval-only] [--eval-period N] [--eval-max-images N]
+        [--eval-only] [--eval-period N] [--eval-max-images N] [--num-gpus N]
+    torchrun --nproc_per_node=N -m rba_tpu_torch.train.train_net --config-file ... (as above)
 
 ``--config-file`` is a Detectron2 YAML or a native one (``config.load_config``), such as
 the non-Swin recipes under ``configs/cityscapes/semantic-segmentation/`` (ResNet, MiT,
-MViT, ViT, WiderResNet-38: every backbone family trains).  A config-driven loop on one GPU (``--device`` asks for another device, e.g. the CPU): the
+MViT, ViT, WiderResNet-38: every backbone family trains).  A config-driven loop on one GPU or
+several (``--device`` asks for another device, e.g. the CPU): the
 mapper named by ``INPUT.DATASET_MAPPER_NAME`` fed by mapper threads, the train step of
 ``train/train_step.py`` (the batch goes to the card), ``metrics.jsonl`` every
 ``--log-period`` steps (the losses, ``grad_norm``, images/s and, with the COCO-mix
@@ -39,8 +41,20 @@ raise.  Panoptic names give (image, ids, segments) to the panoptic mappers, and 
 ``InstanceFromPanoptic`` (image, masks, classes) to the instance ones.
 
 Every head trains: the masked decoder, MaskFormer v1's decoder and the simple decoder
-through the criterion, the per-pixel baseline heads on their cross-entropy.  Not ported
-yet, and refused, never skipped: more than one GPU (ROADMAP.md §A.8).
+through the criterion, the per-pixel baseline heads on their cross-entropy.
+
+Several GPUs (data parallelism, ``parallel/mesh.py``): ``--num-gpus N`` > 1 starts N
+worker processes, one per GPU, that rendezvous through a file under ``--output-dir``, as
+Detectron2's ``launch`` does; under torchrun's environment (``RANK``, ``WORLD_SIZE``, ...),
+or inside a process group that the caller has formed, the trainer joins that group
+whatever ``--num-gpus`` says.  NCCL on the card, gloo with ``--device cpu``.  The global
+batch must divide by the ranks × ``--grad-accum``; each rank reads and maps only its
+rows of each global batch (the samples' draws are seeded by stream position, so the
+ranks' rows together are the 1-process batch), and the train step completes its sums
+and gradients over the ranks (``train/train_step.py``), so N ranks train the 1-process
+run's function.  Rank 0 logs the global metrics and writes ``metrics.jsonl``, the
+checkpoints and the evaluations; every rank restores.  ``--num-gpus 1`` outside torchrun
+is the 1-process loop.
 """
 from __future__ import annotations
 
@@ -50,6 +64,7 @@ import json
 import os
 import queue
 import random
+import sys
 import threading
 import time
 from typing import Iterator
@@ -84,7 +99,8 @@ def parse_args(argv=None):
     p.add_argument("--weights", default=None,
                    help="model directory to start from (params.npz or model_final.pth), as MODEL.WEIGHTS")
     p.add_argument("--device", default=None, help="torch device (default: the GPU; 'cpu' asks for the CPU)")
-    p.add_argument("--num-gpus", type=int, default=1, help="GPUs to train on (one is ported)")
+    p.add_argument("--num-gpus", type=int, default=1,
+                   help="worker processes to start, one per GPU (under torchrun: its group, whatever this says)")
     return p.parse_args(argv)
 
 
@@ -191,8 +207,10 @@ def _unseen_label_set(cfg, args):
     return load_unseen_label_set(path, names)
 
 
-def prefetching_iterator(ds, mapper, batch_size: int, seed: int, workers: int = 4):
-    """Infinite shuffled batch iterator with ``workers`` mapper threads.
+def prefetching_iterator(ds, mapper, batch_size: int, seed: int, workers: int = 4, rows=None):
+    """Infinite shuffled batch iterator with ``workers`` mapper threads.  ``rows``: the
+    rows of each global batch of ``batch_size`` to read, map and collate (a data rank's,
+    ``parallel.mesh.data_rows``); default all.
 
     A coordinator thread feeds seeded per-epoch permutations, batch by batch, to an index
     queue; worker threads read, map and collate.  Each sample's augmentation draws come
@@ -203,6 +221,7 @@ def prefetching_iterator(ds, mapper, batch_size: int, seed: int, workers: int = 
     each has finished the batch in its hands."""
     from ..data.mappers import collate
 
+    rows = list(range(batch_size)) if rows is None else list(rows)
     if len(ds) < batch_size:
         raise ValueError(f"dataset has {len(ds)} samples < batch size {batch_size} "
                          "(the loader drops partial batches)")
@@ -245,8 +264,8 @@ def prefetching_iterator(ds, mapper, batch_size: int, seed: int, workers: int = 
             # a raising worker still delivers its sequence number, or the consumer waits forever
             try:
                 samples = []
-                for j, i in enumerate(ib):
-                    s = ds[int(i)]
+                for j in rows:
+                    s = ds[int(ib[j])]
                     wmapper.rng = random.Random(seed * 0x9E3779B1 + pos0 + j)
                     # panoptic and instance readers give the tuple of their mapper's arguments
                     samples.append(wmapper(*s) if isinstance(s, tuple) else wmapper(s.image, s.label))
@@ -442,11 +461,24 @@ def train_dataset(cfg, args):
     return parts[0] if len(parts) == 1 else ConcatDataset(parts)
 
 
-def data_iterator(cfg, args, batch_size: int) -> Iterator[dict]:
-    """Infinite shuffled, mapped and collated batches of DATASETS.TRAIN (``train_dataset``)."""
+def data_iterator(cfg, args, batch_size: int, rows=None) -> Iterator[dict]:
+    """Infinite shuffled, mapped and collated batches of DATASETS.TRAIN (``train_dataset``);
+    ``rows`` of each (``prefetching_iterator``)."""
     ds = train_dataset(cfg, args)
     return prefetching_iterator(ds, build_mapper(cfg, args), batch_size, args.seed,
-                                workers=args.workers or cfg.solver.num_workers)
+                                workers=args.workers or cfg.solver.num_workers, rows=rows)
+
+
+def _global_count(n: int, mesh, device) -> int:
+    """``n`` summed over the data ranks (a logged count of each rank's rows)."""
+    if mesh is None:
+        return n
+    import torch
+    import torch.distributed as dist
+
+    t = torch.tensor(n, dtype=torch.int64, device=device)
+    dist.all_reduce(t, group=mesh.data_group)
+    return int(t)
 
 
 def _log(log_path: str, m: dict) -> None:
@@ -455,25 +487,131 @@ def _log(log_path: str, m: dict) -> None:
         f.write(json.dumps(m) + "\n")
 
 
-def main(argv=None):
+def _joins_group(args) -> bool:
+    import torch.distributed as dist
+
+    return args.num_gpus > 1 or "RANK" in os.environ or dist.is_initialized()
+
+
+def _die_with_launcher() -> None:
+    """On Linux, have the kernel stop this rank when its launcher dies (prctl
+    PR_SET_PDEATHSIG), so no rank outlives a launcher that was killed."""
+    import signal
+
+    if sys.platform.startswith("linux"):
+        import ctypes
+
+        ctypes.CDLL(None).prctl(1, int(signal.SIGTERM))  # 1: PR_SET_PDEATHSIG
+
+
+def _worker(rank: int, world: int, init_method: str, argv):
+    """One spawned rank of ``--num-gpus``: join the group, train, leave the group."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import init_distributed
+
     args = parse_args(argv)
+    _die_with_launcher()
+    init_distributed("cpu" if args.device == "cpu" else "cuda", rank=rank, world_size=world,
+                     init_method=init_method)
+    try:
+        _train(args)
+    finally:
+        dist.destroy_process_group()
+
+
+def launch(args, argv):
+    """Start ``--num-gpus`` ranks (Detectron2's ``launch``) and wait for them; raise, and
+    stop the others, where one fails."""
+    import multiprocessing
+    import tempfile
+
+    from ..config import load_config
+    from ..parallel.mesh import data_rows
+
+    cfg = load_config(args.config_file)
+    data_rows(args.batch_size or cfg.solver.ims_per_batch, 0, args.num_gpus, max(1, args.grad_accum))  # splits?
+    os.makedirs(args.output_dir, exist_ok=True)
+    rendezvous = tempfile.mkdtemp(prefix=".rendezvous_", dir=args.output_dir)
+    init_method = "file://" + os.path.join(os.path.abspath(rendezvous), "store")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_worker, args=(r, args.num_gpus, init_method, argv)) for r in range(args.num_gpus)]
+    for p in procs:
+        p.start()
+    try:
+        while any(p.is_alive() for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+            if failed:
+                raise RuntimeError(f"train_net: rank(s) {failed} failed (exit codes "
+                                   f"{[procs[r].exitcode for r in failed]})")
+            time.sleep(0.2)
+        failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+        if failed:
+            raise RuntimeError(f"train_net: rank(s) {failed} failed (exit codes {[procs[r].exitcode for r in failed]})")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+        import shutil
+
+        shutil.rmtree(rendezvous, ignore_errors=True)
+
+
+def main(argv=None):
+    """Train (or evaluate) as the arguments say; returns the train state, or the
+    evaluation's metrics with ``--eval-only`` (None on the ranks other than 0 and in the
+    launcher of ``--num-gpus``)."""
+    args = parse_args(argv)
+    if not _joins_group(args):
+        return _train(args)
+    import torch.distributed as dist
+
+    from ..parallel.mesh import init_distributed
+
+    if not dist.is_initialized() and "RANK" not in os.environ:  # --num-gpus N > 1: start the ranks
+        return launch(args, sys.argv[1:] if argv is None else list(argv))
+    formed = not dist.is_initialized()
+    init_distributed("cpu" if args.device == "cpu" else "cuda")
+    try:
+        return _train(args)
+    finally:
+        if formed:
+            dist.destroy_process_group()
+
+
+def _train(args):
+    import torch.distributed as dist
+
     from ..config import load_config
     from ..convert.checkpoint import latest_step, load_checkpoint_params, restore_train_state, save_train_state
     from ..models.maskformer import resolve_device
     from .train_step import make_train_state, make_train_step
 
     cfg = load_config(args.config_file)
-    if args.num_gpus != 1:
-        raise NotImplementedError(f"--num-gpus {args.num_gpus}: training on several GPUs is not ported yet "
-                                  "(ROADMAP.md §A.8)")
-    device = resolve_device(args.device, "train_net")
+    mesh = None
+    if _joins_group(args):
+        from ..parallel.mesh import local_device, make_mesh
+
+        device = "cpu" if args.device == "cpu" else "cuda"
+        mesh = make_mesh(device=device)
+        device = local_device(device)
+    else:
+        device = resolve_device(args.device, "train_net")
+    lead = mesh is None or mesh.data_rank == 0  # the rank that logs, checkpoints and evaluates
     os.makedirs(args.output_dir, exist_ok=True)
     ckpt_dir = os.path.join(args.output_dir, "checkpoints")
     batch_size = args.batch_size or cfg.solver.ims_per_batch
     max_iter = args.max_iter or cfg.solver.max_iter
+    grad_accum = max(1, args.grad_accum)
+    rows = None
+    if mesh is not None:
+        from ..parallel.mesh import data_rows
+
+        rows = data_rows(batch_size, mesh.data_rank, mesh.data_size, grad_accum)  # ValueError where it does not split
 
     model = load_checkpoint_params(args.weights, cfg, device=device) if args.weights else None
-    state = make_train_state(cfg, device=device, seed=args.seed, model=model)
+    state = make_train_state(cfg, device=device, seed=args.seed, model=model, mesh=mesh)
     start = 0
     if args.resume or args.eval_only:
         step0 = latest_step(ckpt_dir)
@@ -486,6 +624,9 @@ def main(argv=None):
     log_path = os.path.join(args.output_dir, "metrics.jsonl")
 
     if args.eval_only:
+        if not lead:
+            dist.barrier()
+            return None
         res = run_val_eval(cfg, state.model, args.data_root, args.eval_max_images)
         if res is None:
             raise FileNotFoundError(f"no val data for DATASETS.TEST {list(cfg.datasets_test)} under {args.data_root}")
@@ -495,11 +636,13 @@ def main(argv=None):
                 res.update({f"{k}_TTA": v for k, v in res_tta.items() if k != "eval_images"})
         res["step"] = start
         _log(log_path, res)
+        if mesh is not None:
+            dist.barrier()
         return res
 
     eval_period = cfg.test.eval_period if args.eval_period is None else args.eval_period
-    step_fn = make_train_step(cfg, grad_accum=max(1, args.grad_accum))
-    it = data_iterator(cfg, args, batch_size)
+    step_fn = make_train_step(cfg, grad_accum=grad_accum, mesh=mesh)
+    it = data_iterator(cfg, args, batch_size, rows)
     t0 = time.time()
     for i in range(start, max_iter):
         batch = next(it)
@@ -508,17 +651,24 @@ def main(argv=None):
             m = {k: float(v) for k, v in metrics.items()}
             m.update(step=i + 1, imgs_per_sec=batch_size * args.log_period / (time.time() - t0))
             if "outlier_masks" in batch:  # images of this step with a pasted object
-                m["ood_images"] = int((batch["outlier_masks"] == 1).any(axis=(1, 2)).sum())
+                m["ood_images"] = _global_count(int((batch["outlier_masks"] == 1).any(axis=(1, 2)).sum()), mesh,
+                                                device)
             t0 = time.time()
-            _log(log_path, m)
+            if lead:
+                _log(log_path, m)
         if (args.checkpoint_period > 0 and (i + 1) % args.checkpoint_period == 0) or (i + 1) == max_iter:
-            save_train_state(ckpt_dir, state, i + 1)
-            print(f"saved checkpoint at step {i + 1}", flush=True)
+            if lead:
+                save_train_state(ckpt_dir, state, i + 1)
+                print(f"saved checkpoint at step {i + 1}", flush=True)
+            if mesh is not None:
+                dist.barrier()
         if eval_period > 0 and (i + 1) % eval_period == 0:
-            res = run_val_eval(cfg, state.model, args.data_root, args.eval_max_images)
+            res = run_val_eval(cfg, state.model, args.data_root, args.eval_max_images) if lead else None
             if res is not None:
                 res["step"] = i + 1
                 _log(log_path, res)
+            if mesh is not None:
+                dist.barrier()
     it.close()  # stops the mapper threads
     return state
 

@@ -6,6 +6,7 @@ equal inputs within ``BLUR_TOL``; metrics within ``METRIC_TOL``.  Inside the por
 cohorts and the model-fused sweep must give exactly the metrics of the plain
 streaming loop.
 """
+import dataclasses
 import warnings
 
 import numpy as np
@@ -22,6 +23,7 @@ from rba_tpu_torch.data.ood_datasets import SyntheticAnomaly
 from rba_tpu_torch.evalx import evaluator as tev
 from rba_tpu_torch.evalx.metrics import StreamingOODMetrics
 from rba_tpu_torch.models import maskformer as tmf
+from rba_tpu_torch.ops.quant import is_quantized
 from tests.torch_port_common import max_abs, model_pair, t
 
 SCORE_TOL = 1e-4
@@ -138,13 +140,19 @@ def test_evaluate_dataset_multi_equals_one_model_at_a_time(pair):
 
 
 def test_unported_scores_and_options_raise(pair):
-    _, port_ev = pair
+    """A score the model cannot give raises; int8 weights, refused until §A.8 ported them,
+    score an int8 copy of the model as rba_tpu's evaluator scores its int8 tree."""
+    jax_ev, port_ev = pair
     # a model without the DenseHybrid head has no ood_pred to score
     with pytest.raises(ValueError, match="ood_pred"):
         port_ev(score="dense_hybrid").compute_anomaly_scores(SyntheticAnomaly(n=1, hw=HW))
     model = port_ev().model
-    with pytest.raises(NotImplementedError, match="weight_quant"):
-        tev.OODEvaluator(tconfig.RbAConfig(weight_quant="int8"), model)
+    ev = tev.OODEvaluator(dataclasses.replace(tconfig.tiny_test_config(), weight_quant="int8"), model)
+    assert is_quantized(ev.model) and not is_quantized(model)
+    want, _ = jev.OODEvaluator(dataclasses.replace(jconfig.tiny_test_config(), weight_quant="int8"),
+                               jax_ev().params).compute_anomaly_scores(JSynthetic(n=1, hw=HW))
+    got, _ = ev.compute_anomaly_scores(SyntheticAnomaly(n=1, hw=HW))
+    assert max_abs(got, want) <= SCORE_TOL
 
 
 def test_miou_matches(rng):

@@ -14,8 +14,11 @@ FORBIDDEN = ("jax", "jaxlib", "rba_tpu")
 
 
 def _port_files():
-    # chip_smoke.py also runs tests/d2_synthetic.py on the card
-    return sorted((ROOT / "rba_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "d2_synthetic.py"]
+    # chip_smoke.py also runs tests/d2_synthetic.py on the card; the ranks of the parallel
+    # tests run tests/torch_parallel_ranks.py; the selfcheck builds tests/torch_refs.py
+    return sorted((ROOT / "rba_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "d2_synthetic.py", ROOT / "tests" / "torch_parallel_ranks.py",
+        ROOT / "tests" / "torch_refs.py"]
 
 
 def _imported_modules(path: Path):
@@ -43,6 +46,15 @@ BACKBONE_MODULES = ("rba_tpu_torch/models/backbones.py", "rba_tpu_torch/models/r
                     "rba_tpu_torch/models/vit.py", "rba_tpu_torch/models/mvit.py")
 
 
+# the last slice (ROADMAP.md §A.8): several GPUs, int8 weights, the utilities and tools
+A8_MODULES = ("rba_tpu_torch/parallel/mesh.py", "rba_tpu_torch/parallel/sharded_eval.py",
+              "rba_tpu_torch/parallel/tp.py", "rba_tpu_torch/ops/quant.py", "rba_tpu_torch/utils/profiling.py",
+              "rba_tpu_torch/utils/debug.py", "rba_tpu_torch/tools/analyze_model.py",
+              "rba_tpu_torch/tools/ablation.py", "rba_tpu_torch/tools/selfcheck.py",
+              "rba_tpu_torch/tools/boundary_ap.py", "rba_tpu_torch/tools/prepare_coco_semseg.py",
+              "rba_tpu_torch/tools/vis_utils.py")
+
+
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert "chip_smoke.py" in names and "rba_tpu_torch/models/maskformer.py" in names
@@ -51,6 +63,7 @@ def test_port_files_exist():
     assert set(TRAINING_MODULES) <= names
     assert set(EVALUATION_MODULES) <= names  # and the closed-set evaluation slice's
     assert set(BACKBONE_MODULES) <= names  # and the backbones'
+    assert set(A8_MODULES) <= names  # and the last slice's
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -125,3 +138,27 @@ def test_trainer_evaluation_defaults_to_the_gpu(tmp_path):
         pytest.skip("a card is present: the default device is taken")
     with pytest.raises(RuntimeError, match="GPU"):
         train_net.main(args)
+
+
+def test_last_slice_entry_points_default_to_the_gpu(tmp_path):
+    """The model analysis, the selfcheck, the ablation and the process group run on the
+    card unless the caller asks for the CPU: without one they raise."""
+    import torch.distributed as dist
+
+    from rba_tpu_torch.parallel.mesh import backend_for, make_mesh
+    from rba_tpu_torch.tools import ablation, analyze_model, selfcheck
+    from tests.test_torch_train_cli import _config
+
+    assert backend_for("cuda") == "nccl" and backend_for("cpu") == "gloo"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is taken")
+    with pytest.raises(RuntimeError, match="GPU"):
+        analyze_model.main(["--config-file", str(_config(tmp_path / "config.yaml"))])
+    with pytest.raises(RuntimeError, match="GPU"):
+        selfcheck.run_selfcheck(str(tmp_path), "tiny", n_images=1, hw=(32, 48))
+    with pytest.raises(RuntimeError, match="GPU"):
+        ablation.main(["--tiny", "--images", "1", "--hw", "32x48", "--workdir", str(tmp_path)])
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="GPU"):
+        make_mesh()
+    assert not dist.is_initialized()

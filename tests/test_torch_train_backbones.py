@@ -131,7 +131,7 @@ def test_frozen_update_equals_rba_tpu(resnet, monkeypatch):
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     state = tts.make_train_state(tcfg, device="cpu", model=model)
     draws = criterion_draws(resnet.key, tcfg.loss, TRAIN_B, TRAIN_T, 1 + tcfg.decoder.dec_layers)
-    monkeypatch.setattr(tts, "uniform_from", lambda gen: replay(draws))
+    monkeypatch.setattr(tts, "uniform_from", lambda gen, *a: replay(draws))
     metrics = tts.make_train_step(tcfg)(state, resnet.batch)
 
     assert abs(float(metrics["total"]) - resnet.want["total"]) <= 1e-4 * resnet.want["total"]

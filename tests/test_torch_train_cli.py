@@ -2,8 +2,9 @@
 asked for explicitly) at the tiny config: a synthetic on-disk Cityscapes tree and a
 COCO-proxy tree, the COCO-mix mapper, 2 steps, then ``--resume`` for a third;
 ``metrics.jsonl`` with finite losses, the checkpoints, and the last one's ``params.npz``
-read by both packages.  What is not ported is refused, naming its ROADMAP item (the
-trainer's evaluation is held in tests/test_torch_train_eval.py)."""
+read by both packages.  A global batch that does not split over ``--num-gpus`` ranks is
+refused (the trainer's evaluation is held in tests/test_torch_train_eval.py, several
+GPUs in tests/test_torch_parallel.py)."""
 import json
 import os
 
@@ -128,15 +129,18 @@ def test_train_cli_on_a_native_non_swin_recipe(tmp_path):
 @pytest.mark.parametrize("extra,item", [(["--mapper", "mask_former_semantic_void"], "§A.4"),
                                         (["--num-gpus", "2"], "§A.8")])
 def test_unported_paths_are_refused(tmp_path, extra, item):
-    """§A.8 (several GPUs) is refused, naming its ROADMAP item; the void mapper, refused
-    until §A.4 ported it, trains a step: the labels read as Cityscapes labelIds, the void
-    ids supervised as outliers."""
+    """Several GPUs (refused until §A.8 ported them) refuse a global batch that does not
+    split over the ranks and micro-batches, before any rank starts
+    (tests/test_torch_parallel.py trains on two); the void mapper, refused until §A.4
+    ported it, trains a step: the labels read as Cityscapes labelIds, the void ids
+    supervised as outliers."""
     _write_trees(tmp_path, n=2)
     args = ["--config-file", str(_config(tmp_path / "config.yaml")), "--data-root", str(tmp_path / "cityscapes"),
             "--output-dir", str(tmp_path / "out"), "--device", "cpu", "--max-iter", "1", "--log-period", "1"]
-    if item == "§A.8":
-        with pytest.raises(NotImplementedError, match=item):
-            train_net.main(args + extra)
+    if item == "§A.8":  # IMS_PER_BATCH 2 over 2 ranks x 2 micro-batches
+        with pytest.raises(ValueError, match="does not split"):
+            train_net.main(args + extra + ["--grad-accum", "2"])
+        assert not (tmp_path / "out" / "metrics.jsonl").exists()
         return
     for gt in (tmp_path / "cityscapes" / "gtFine" / "train" / "cityA").iterdir():  # → labelIds: 5 classes, void
         lab = np.asarray(Image.open(gt))

@@ -124,7 +124,7 @@ def test_grad_accum_equals_one_full_batch_step(pair, monkeypatch):
         model = tmf.build_model(tcfg, device="cpu")
         load_jax_params(model, params)
         state = tts.make_train_state(tcfg, device="cpu", model=model)
-        monkeypatch.setattr(tts, "uniform_from", lambda gen, seq=seq: replay(seq))
+        monkeypatch.setattr(tts, "uniform_from", lambda gen, *a, seq=seq: replay(seq))
         metrics = tts.make_train_step(tcfg, grad_accum=accum)(state, batch)
         results.append((metrics, dict(model.named_parameters())))
     (m2, p2), (m1, p1) = results
