@@ -679,14 +679,12 @@ def serve_phase(name, cfg, model, images, attention, per_image):
 
 
 def _annotations():
-    """The names of the port's record_function spans: the layers of a request
-    (``maskformer.LAYERS``), each deformable-sampling call and its backward and the parts
-    of a train step (``train_step.SPANS``)."""
-    from rba_tpu_torch.models.maskformer import LAYERS
-    from rba_tpu_torch.ops.deform_sampling import BACKWARD_SPAN, SPAN
-    from rba_tpu_torch.train.train_step import SPANS
+    """The names of the port's spans (``utils/profiling.py`` ``ALL_SPANS``): a request, its
+    upload and layers, each Kernel A call, each deformable-sampling call and its backward
+    and the parts of a train step."""
+    from rba_tpu_torch.utils.profiling import ALL_SPANS
 
-    return (*LAYERS, SPAN, BACKWARD_SPAN, *SPANS)
+    return ALL_SPANS
 
 
 def _device_kernels(prof):

@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import WINDOW_ATTENTION, span
 from . import _build
 
 # (N, hd) the kernel takes: N <= 160 keys per window, head dims 16 and 32
@@ -96,25 +97,27 @@ def window_attention(
     """Window attention of fused qkv.  On a CUDA tensor it launches the hand kernel or
     raises; on a CPU tensor it runs ``window_attention_reference``.  The kernel has no
     gradient: with grad mode on and an input that requires one it raises, on either
-    device, instead of returning a result cut off from the graph."""
-    _build.refuse_grad("window_attention (Kernel A)", qkv, rel_bias, mask)
-    if qkv.device.type == "cpu":
-        return window_attention_reference(qkv, rel_bias, mask, nh, scale)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"window_attention runs on cuda or cpu, not {qkv.device}")
-    bw, n, hd = _check(qkv, rel_bias, mask, nh)
-    lib, fn = _kernel()
-    out = torch.empty(bw, n, nh * hd, dtype=qkv.dtype, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            qkv.data_ptr(), rel_bias.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
-            bw, n, nh, hd, 1 if mask is None else mask.shape[0], float(scale),
-            int(qkv.dtype == torch.bfloat16), stream,
-        )
-    _build.check(lib, err, "window_attention")
-    window_attention.launches += 1
-    return out
+    device, instead of returning a result cut off from the graph.  Each call, on either
+    device, is one ``window_attention`` span."""
+    with span(WINDOW_ATTENTION):
+        _build.refuse_grad("window_attention (Kernel A)", qkv, rel_bias, mask)
+        if qkv.device.type == "cpu":
+            return window_attention_reference(qkv, rel_bias, mask, nh, scale)
+        if qkv.device.type != "cuda":
+            raise ValueError(f"window_attention runs on cuda or cpu, not {qkv.device}")
+        bw, n, hd = _check(qkv, rel_bias, mask, nh)
+        lib, fn = _kernel()
+        out = torch.empty(bw, n, nh * hd, dtype=qkv.dtype, device=qkv.device)
+        with torch.cuda.device(qkv.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(
+                qkv.data_ptr(), rel_bias.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
+                bw, n, nh, hd, 1 if mask is None else mask.shape[0], float(scale),
+                int(qkv.dtype == torch.bfloat16), stream,
+            )
+        _build.check(lib, err, "window_attention")
+        window_attention.launches += 1
+        return out
 
 
 window_attention.launches = 0  # kernel launches since the last reset

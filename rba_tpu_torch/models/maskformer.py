@@ -19,8 +19,9 @@ with ``SwinConfig.mlp_impl="fused"`` also runs Kernel D) or ``"xla"`` (``rba_tpu
 default chain in plain PyTorch); see ``models/swin.py``.
 ``maskformer_infer_rba(..., plain=True)`` runs the plain PyTorch versions of
 the kernels instead, which is how each path is held against them on the card.
-Each layer of a request runs inside a ``torch.profiler.record_function`` span
-named after it (``LAYERS``), so a profile of the entry reads its layers.
+Each call of an entry is one ``request`` span, and inside it the frames' upload and
+each layer run in spans named after them (``UPLOAD``, ``LAYERS``; ``utils/profiling.py``),
+so a profile of the entry reads its layers.
 Training calls ``maskformer_forward`` under autograd with ``need_aux=True`` and
 ``attention="xla"``, ``rba_tpu``'s training chain: Kernels A and C have no gradient and
 refuse one, Kernel D steps aside when grad mode is on, and Swin runs without stochastic
@@ -36,19 +37,17 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ..config import RbAConfig, check_supported
 from ..kernels.fused_rba import fused_rba_score, fused_rba_score_reference
 from ..ops.resize import resize_bilinear
+from ..utils.profiling import LAYERS  # noqa: F401  (the spans of a request's layers, read as maskformer.LAYERS)
+from ..utils.profiling import REQUEST, UPLOAD, span
 from . import baseline_heads as bh
 from .backbones import backbone_apply, build_backbone
 from .pixel_decoder import MSDeformAttn
 from .swin import swin_apply
 from .transformer_decoder import MaskedDecoder, SimpleDecoder, decoder_apply, simple_decoder_apply
-
-# record_function spans of one request, in the order they run
-LAYERS = ("preprocess", "backbone", "pixel_decoder", "transformer_decoder", "rba_tail")
 
 
 class RbAModel(nn.Module):
@@ -203,11 +202,11 @@ def maskformer_forward(
     if is_per_pixel(cfg):
         raise ValueError(f"{cfg.sem_seg_head_name} has no mask predictions; call per_pixel_forward")
     features = _backbone_features(model, cfg, images, plain, attention)
-    with record_function("pixel_decoder"):
+    with span("pixel_decoder"):
         mask_features, enc_feat, ms_feats = bh.pixel_decoder_apply(model.sem_seg_head["pixel_decoder"], cfg,
                                                                    features, _dtype(cfg.pixel_decoder_dtype))
     pred, d = model.sem_seg_head["predictor"], cfg.decoder
-    with record_function("transformer_decoder"):
+    with span("transformer_decoder"):
         if isinstance(pred, bh.StandardDecoder):
             x = bh.standard_decoder_input(cfg, features, mask_features, enc_feat)
             return bh.standard_decoder_apply(pred, cfg, x, mask_features, final_mask_layout=final_mask_layout,
@@ -220,7 +219,7 @@ def maskformer_forward(
 
 def _backbone_features(model: RbAModel, cfg: RbAConfig, images, plain: bool, attention: str):
     check_supported(cfg)
-    with record_function("backbone"):
+    with span("backbone"):
         if cfg.backbone_name == "swin":
             return swin_apply(model.backbone, cfg.swin, images, _dtype(cfg.compute_dtype), plain=plain,
                               attention=attention, fast_math=cfg.fast_math)
@@ -240,10 +239,10 @@ def per_pixel_forward(
         raise ValueError("per_pixel_forward takes a per-pixel baseline head")
     features = _backbone_features(model, cfg, images, plain, attention)
     head = model.sem_seg_head
-    with record_function("pixel_decoder"):
+    with span("pixel_decoder"):
         mask_features, enc_feat, _ = bh.pixel_decoder_apply(head["pixel_decoder"], cfg, features,
                                                             _dtype(cfg.pixel_decoder_dtype))
-    with record_function("transformer_decoder"):  # the predictor
+    with span("transformer_decoder"):  # the predictor
         return bh.per_pixel_predict(head["predictor"], cfg, features, mask_features, enc_feat)
 
 
@@ -270,7 +269,9 @@ def energy_score(sem_seg: torch.Tensor, temperature: float = 1.0) -> torch.Tenso
 
 
 def _on_model(model: nn.Module, images: torch.Tensor) -> torch.Tensor:
-    return images.to(next(model.parameters()).device)
+    """The frames on the model's device: their upload, in the ``upload`` span."""
+    with span(UPLOAD):
+        return images.to(next(model.parameters()).device)
 
 
 @torch.inference_mode()
@@ -287,20 +288,21 @@ def maskformer_infer_rba(
     output size is the input size.  A model whose mask features are not at stride 4
     returns ``maskformer_infer(...)["rba"]`` itself, without the kernel.  ``attention``:
     ``"fused"`` (Kernel A), ``"fused_softmax"`` (Kernel C) or ``"xla"``, Swin's
-    window-attention branch."""
-    if model.mask_stride(cfg) != 4 or is_per_pixel(cfg):
-        return maskformer_infer(model, cfg, images, attention=attention, plain=plain)["rba"]
-    images = _on_model(model, images)
-    h_img, w_img = images.shape[1], images.shape[2]
-    with record_function("preprocess"):
-        x = preprocess(cfg, images)
-    out = maskformer_forward(model, cfg, x, final_mask_layout="bhwq", plain=plain, attention=attention)
-    if "pred_logits" not in out:
-        raise ValueError(f"{cfg.decoder.name} has no class head to score with (ROADMAP.md §C.18)")
-    score_fn = fused_rba_score_reference if plain else fused_rba_score
-    with record_function("rba_tail"):
-        rba = score_fn(out["pred_logits"], out["pred_masks"], masks_layout="bhwq")
-        return rba[:, :h_img, :w_img]
+    window-attention branch.  The call is one ``request`` span."""
+    with span(REQUEST):
+        if model.mask_stride(cfg) != 4 or is_per_pixel(cfg):
+            return _infer(model, cfg, images, None, False, attention, plain)["rba"]
+        images = _on_model(model, images)
+        h_img, w_img = images.shape[1], images.shape[2]
+        with span("preprocess"):
+            x = preprocess(cfg, images)
+        out = maskformer_forward(model, cfg, x, final_mask_layout="bhwq", plain=plain, attention=attention)
+        if "pred_logits" not in out:
+            raise ValueError(f"{cfg.decoder.name} has no class head to score with (ROADMAP.md §C.18)")
+        score_fn = fused_rba_score_reference if plain else fused_rba_score
+        with span("rba_tail"):
+            rba = score_fn(out["pred_logits"], out["pred_masks"], masks_layout="bhwq")
+            return rba[:, :h_img, :w_img]
 
 
 @torch.inference_mode()
@@ -317,22 +319,30 @@ def maskformer_infer(
     and for a model with the DenseHybrid head its (B, 2, H, W) ``ood_pred`` logits at the
     input size (resized with ``align_corners=True``, as the reference does).
     ``attention``: Swin's window-attention branch (``swin_apply``); ``plain`` runs the
-    kernels' plain versions."""
+    kernels' plain versions.  The call is one ``request`` span (so each variant of a TTA
+    and each tile of a sliding window is one)."""
+    with span(REQUEST):
+        return _infer(model, cfg, images, out_hw, include_void, attention, plain)
+
+
+def _infer(model: RbAModel, cfg: RbAConfig, images: torch.Tensor, out_hw: Optional[Tuple[int, int]],
+           include_void: bool, attention: str, plain: bool) -> Dict[str, torch.Tensor]:
+    """``maskformer_infer`` inside its caller's ``request`` span."""
     images = _on_model(model, images)
     h_img, w_img = images.shape[1], images.shape[2]
     out_hw = out_hw or (h_img, w_img)
-    with record_function("preprocess"):
+    with span("preprocess"):
         x = preprocess(cfg, images)
     hp, wp = x.shape[1], x.shape[2]
     if is_per_pixel(cfg):  # logits upsampled ×4 to the padded input, cropped, resized
         logits, _ = per_pixel_forward(model, cfg, x, attention=attention, plain=plain)
-        with record_function("rba_tail"):
+        with span("rba_tail"):
             sem = resize_bilinear(resize_bilinear(logits, (hp, wp))[:, :, :h_img, :w_img], out_hw)
             return {"sem_seg": sem, "rba": rba_score(sem)}
     out = maskformer_forward(model, cfg, x, attention=attention, plain=plain)
     if "pred_logits" not in out:
         raise ValueError(f"{cfg.decoder.name} has no class head to infer with (ROADMAP.md §C.18)")
-    with record_function("rba_tail"):
+    with span("rba_tail"):
         mask_pred = resize_bilinear(out["pred_masks"], (hp, wp), align_corners=False)
         sem = semantic_inference(out["pred_logits"], mask_pred, include_void=include_void)
         sem = resize_bilinear(sem[:, :, :h_img, :w_img], out_hw, align_corners=False)

@@ -15,7 +15,7 @@ Plain PyTorch, in fp32, one of two forms per level:
 Gradients have the semantics of ``rba_tpu``'s custom VJPs: the gather's is autograd of
 the gather (``rba_tpu`` pins its own equal to it); the one-hot form is ``OneHotLevel``,
 whose backward rebuilds the row matrix in fp32 instead of saving it.  Each call runs in
-the ``SPAN`` record_function span; under autograd its backward runs in
+the ``SPAN`` span (``utils/profiling.py``); under autograd its backward runs in
 ``BACKWARD_SPAN``, from the output's gradient to the inputs' (a profile reads what the
 training step's sampling costs from the two).
 
@@ -29,10 +29,11 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
-from torch.profiler import record_function
 
-SPAN = "deform_sampling"  # the record_function span of each ms_deform_attn_core call
-BACKWARD_SPAN = "deform_sampling_backward"  # and of its backward, where autograd runs one
+from ..utils import profiling
+
+SPAN = profiling.DEFORM_SAMPLING  # the span of each ms_deform_attn_core call
+BACKWARD_SPAN = profiling.DEFORM_SAMPLING_BACKWARD  # and of its backward, where autograd runs one
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))  # (dy, dx)
 
 
@@ -144,7 +145,9 @@ class OneHotLevel(torch.autograd.Function):
 
 class _OpenBackwardSpan(torch.autograd.Function):
     """Identity on the sampling's output; its backward, the first of the sampling's
-    backward, opens ``BACKWARD_SPAN`` and leaves it in ``span``."""
+    backward, opens ``BACKWARD_SPAN`` and leaves the entered context in ``span`` (a
+    no-op one when no profiler records), so the close exits what the open entered
+    whether a profiler started or stopped in between."""
 
     @staticmethod
     def forward(ctx, span, out):
@@ -153,7 +156,9 @@ class _OpenBackwardSpan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        ctx.span.append(record_function(BACKWARD_SPAN).__enter__())
+        opened = profiling.span(BACKWARD_SPAN)
+        opened.__enter__()
+        ctx.span.append(opened)
         return None, g
 
 
@@ -208,7 +213,7 @@ def ms_deform_attn_core(
     span = [] if torch.is_grad_enabled() and any(x.requires_grad for x in inputs) else None
     if span is not None:
         value, sampling_locations, attention_weights = _CloseBackwardSpan.apply(span, *inputs)
-    with record_function(SPAN):
+    with profiling.span(SPAN):
         value = value.float()
         sampling_locations = sampling_locations.float()
         attention_weights = attention_weights.float()

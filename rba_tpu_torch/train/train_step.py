@@ -27,7 +27,6 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from ..config import RbAConfig
 from ..models.baseline_heads import per_pixel_losses
@@ -36,10 +35,10 @@ from ..models.maskformer import (RbAModel, build_model, is_per_pixel, maskformer
 from ..ops.point_sample import uniform_from
 from ..parallel.mesh import COUNTS, Mesh
 from ..parallel.tp import grad_norm_tp, shard_params_tp
+from ..utils.profiling import span
 from .criterion import criterion
 from .optimizer import build_optimizer, clip_grads_, poly_lr_schedule, set_lr
 
-SPANS = ("forward", "criterion", "backward", "optimizer")  # record_function spans of one step
 BUCKET_BYTES = 25 * 2**20  # gradient all-reduce bucket, DistributedDataParallel's default size
 
 
@@ -123,16 +122,16 @@ def make_train_step(cfg: RbAConfig, grad_accum: int = 1, plain: bool = False, me
 
     def losses_of(model, batch, uniform):
         if is_per_pixel(cfg):
-            with record_function("forward"):
+            with span("forward"):
                 logits, aux = per_pixel_forward(model, cfg, preprocess(cfg, batch["images"]), attention="xla")
-            with record_function("criterion"):
+            with span("criterion"):
                 losses = per_pixel_losses(cfg, uniform, logits, aux, batch["sem_seg"], group)
                 losses["total"] = sum(losses.values())
                 return losses
-        with record_function("forward"):
+        with span("forward"):
             outputs = maskformer_forward(model, cfg, preprocess(cfg, batch["images"]), need_aux=True,
                                          attention="xla")
-        with record_function("criterion"):
+        with span("criterion"):
             targets = {k: v for k, v in batch.items() if k != "images"}
             return criterion(cfg, uniform, outputs, targets, plain=plain, group=group)
 
@@ -149,11 +148,11 @@ def make_train_step(cfg: RbAConfig, grad_accum: int = 1, plain: bool = False, me
         for m in range(micro):
             mb = {k: v[m * size : (m + 1) * size] for k, v in batch.items()}
             losses = losses_of(model, mb, uniform)
-            with record_function("backward"):
+            with span("backward"):
                 (losses["total"] / micro).backward()
             for k, v in losses.items():
                 metrics[k] = metrics.get(k, 0.0) + v.detach() / micro
-        with record_function("optimizer"), torch.no_grad():
+        with span("optimizer"), torch.no_grad():
             for p in params:  # a parameter outside the graph has a zero gradient, as in jax.grad
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)

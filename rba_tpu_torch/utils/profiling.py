@@ -1,31 +1,46 @@
-"""Tracing and timing utilities (counterpart of ``rba_tpu/utils/profiling.py``).
+"""Tracing (counterpart of ``rba_tpu/utils/profiling.py``): the port's spans and a trace of them.
+
+``span(name)`` is the port's one way to mark work for a profiler: a
+``torch.profiler.record_function`` range while a profiler records, and otherwise one
+shared no-op context, so a span costs a flag check when nothing records (entering
+``record_function`` goes through the dispatcher even then).  A profile that records
+the card (CUPTI) mirrors each span on the device, from the first to the last device
+operation launched inside it.  The names of every span of the port are the constants
+below; profiles are read by these names.
 
 ``device_trace`` records a ``torch.profiler`` trace of the host and, on the card, of its
-kernels (CUPTI), and writes it to ``logdir`` as a Chrome/Perfetto trace, which
-TensorBoard's profiler plugin also reads.  ``StageTimer`` accumulates wall-clock times
-per stage; a stage that names what it computed (``sync``) waits for it first
-(``force_sync``), so the time covers the device's work and not only its launch.
+kernels, and writes it to ``logdir`` as a Chrome/Perfetto trace, which TensorBoard's
+profiler plugin also reads.
 """
 from __future__ import annotations
 
 import contextlib
-import json
 import os
-import time
-from typing import Dict
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import record_function
+
+# one request of an entry (``maskformer_infer_rba``, or ``maskformer_infer`` called
+# directly): the parent of every span below that the request opens
+REQUEST = "request"
+UPLOAD = "upload"  # the frames' copy to the model's device, before ``preprocess``
+LAYERS = ("preprocess", "backbone", "pixel_decoder", "transformer_decoder", "rba_tail")  # a request's layers, in order
+WINDOW_ATTENTION = "window_attention"  # each call of Kernel A's wrapper (``kernels/window_attention.py``)
+DEFORM_SAMPLING = "deform_sampling"  # each call of ``ops/deform_sampling.py`` ``ms_deform_attn_core``
+DEFORM_SAMPLING_BACKWARD = "deform_sampling_backward"  # and its backward, where autograd runs one
+TRAIN_STEP = ("forward", "criterion", "backward", "optimizer")  # the parts of a train step
+ALL_SPANS = (REQUEST, UPLOAD, *LAYERS, WINDOW_ATTENTION, DEFORM_SAMPLING, DEFORM_SAMPLING_BACKWARD, *TRAIN_STEP)
+
+_OFF = contextlib.nullcontext()
 
 
-def _leaves(tree):
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
+def span(name: str):
+    """A context that marks its block as the span ``name`` for a profiler that records,
+    and does nothing otherwise.  ``name`` is one of the constants of this module."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager
@@ -42,37 +57,3 @@ def device_trace(logdir: str = "rba_trace"):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def force_sync(tree) -> float:
-    """Wait for every tensor of a tree (tensors, dicts, lists) and return their sum as a
-    checksum: the device-to-host copy of the sum is the wait."""
-    total = 0.0
-    for leaf in _leaves(tree):
-        if not leaf.is_complex():
-            total += float(leaf.detach().float().sum())
-    return total
-
-
-class StageTimer:
-    """Accumulate per-stage wall-clock times across iterations."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str, sync=None):
-        t0 = time.perf_counter()
-        yield
-        if sync is not None:
-            force_sync(sync)
-        dt = time.perf_counter() - t0
-        self.totals[name] = self.totals.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
-
-    def summary(self) -> Dict[str, float]:
-        return {k: self.totals[k] / self.counts[k] for k in self.totals}
-
-    def report(self) -> str:
-        return json.dumps({k: round(v * 1000, 2) for k, v in self.summary().items()})

@@ -187,13 +187,6 @@ def test_checked_raises_at_the_first_nan(pair):
 
 
 def test_profiling_utilities(tmp_path, capsys):
-    timer = tprof.StageTimer()
-    for _ in range(2):
-        with timer.stage("matmul", sync=torch.ones(3)):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    assert set(timer.summary()) == {"matmul"} and timer.counts["matmul"] == 2
-    assert set(json.loads(timer.report())) == {"matmul"}
-    assert tprof.force_sync({"a": torch.ones(2), "b": [torch.arange(3)]}) == 5.0
     with tprof.device_trace(str(tmp_path / "trace")):
         torch.ones(8).sum()
     assert (tmp_path / "trace" / "trace.json").exists()
