@@ -152,6 +152,8 @@ ABLATION_HW = (256, 512)  # the tools phase's ablation images
 # backbone moves RbA scores (-sum of 19 tanh) by about 0.02 at most, a kernel fault by O(1)
 ABLATION_SCORE_TOL = (0.05, 5e-3)
 N_REQUESTS = 4  # distinct images served after one warm-up request
+# Kernel F, and the plain gather's kernel that a request which runs it must not run
+KERNEL_F = {"ms_deform_attn_kernel": "_scatter_gather_elementwise_kernel"}
 E2E_FP32_TOL = 1e-3  # score-map bound of rba_tpu's selfcheck
 BF16_ULP = 2.0**-7  # one bf16 ulp, relative to the value, at most
 BF16_TINY = 2.0**-133  # spacing of bf16's subnormals
@@ -601,28 +603,56 @@ def _timed(fn, *args, **kw):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def _wrappers(lsap: bool = False):
-    """Every kernel wrapper of the port's Pallas counterparts by name, and with ``lsap``
-    Kernel E's too; each counts its launches."""
+def _wrappers(lsap: bool = False, deform: bool = False):
+    """Every kernel wrapper of the port's Pallas counterparts by name, with ``lsap``
+    Kernel E's too and with ``deform`` Kernel F's (the deformable sampling, counted on
+    the serving paths); each counts its launches."""
     from rba_tpu_torch.kernels.fused_mlp import fused_mlp_residual
     from rba_tpu_torch.kernels.fused_rba import fused_rba_score
     from rba_tpu_torch.kernels.lsap import batched_linear_sum_assignment
     from rba_tpu_torch.kernels.masked_softmax import masked_softmax
+    from rba_tpu_torch.kernels.ms_deform_attn import ms_deform_attn
     from rba_tpu_torch.kernels.window_attention import window_attention
 
     out = {"window_attention": window_attention, "fused_rba_score": fused_rba_score,
            "masked_softmax": masked_softmax, "fused_mlp_residual": fused_mlp_residual}
-    return {**out, "lsap": batched_linear_sum_assignment} if lsap else out
+    if lsap:
+        out["lsap"] = batched_linear_sum_assignment
+    if deform:
+        out["ms_deform_attn"] = ms_deform_attn
+    return out
+
+
+def _deform_per_request(cfg, model, batch: int = 1, hw=IMAGE_HW) -> int:
+    """Kernel F launches of one request of ``batch`` hw frames: one per encoder layer of
+    a deformable pixel decoder whose levels' shapes and sampling forms
+    ``ops/deform_sampling.py`` ``takes_kernel`` takes, else none."""
+    from rba_tpu_torch.models.pixel_decoder import PixelDecoder
+    from rba_tpu_torch.ops.deform_sampling import sampling_methods, takes_kernel
+
+    if not isinstance(model.sem_seg_head["pixel_decoder"], PixelDecoder):
+        return 0
+    pd, div = cfg.pixel_decoder, max(cfg.input.size_divisibility, 1)
+    hp, wp = (-(-x // div) * div for x in hw)
+    strides = [model.backbone.out_strides[f] for f in pd.transformer_in_features]
+    shapes = [(-(-hp // st), -(-wp // st)) for st in strides]
+    lq, m = sum(h * w for h, w in shapes), pd.transformer_nheads
+    methods = sampling_methods(batch, m, lq, shapes, pd.sampling_method, pd.sampling_onehot_cap)
+    value, loc = (batch, lq, m, pd.conv_dim // m), (batch, lq, m, len(shapes), pd.enc_n_points, 2)
+    takes = takes_kernel(torch.device("cuda"), False, methods, pd.sampling_dtype, value, loc)
+    return pd.transformer_enc_layers if takes else 0
 
 
 def serve_phase(name, cfg, model, images, attention, per_image):
     """Serve each image as one request through one path's kernels (the main path,
-    counted: ``per_image`` launches of each kernel per request) and, in turns, through
-    the plain versions; check the score maps.  Returns the measurements and the fp32
-    score maps of the kernels, for the comparison between paths."""
+    counted: ``per_image`` launches of each kernel per request, Kernel F's by default
+    ``_deform_per_request``) and, in turns, through the plain versions, which launch
+    none; check the score maps.  Returns the measurements and the fp32 score maps of the
+    kernels, for the comparison between paths."""
     from rba_tpu_torch.models.maskformer import maskformer_infer_rba
 
-    wrappers = _wrappers(lsap=True)
+    per_image = {"ms_deform_attn": _deform_per_request(cfg, model), **per_image}
+    wrappers = _wrappers(lsap=True, deform=True)
     infer = functools.partial(maskformer_infer_rba, model, attention=attention)
     infer(cfg, images[0])  # warm-up requests, one per path
     infer(cfg, images[0], plain=True)
@@ -1138,8 +1168,8 @@ def window_attention_shapes():
         swin.window_attention = real
 
 
-def _zero_counts(lsap: bool = False):
-    wrappers = _wrappers(lsap)
+def _zero_counts(lsap: bool = False, deform: bool = False):
+    wrappers = _wrappers(lsap, deform)
     for fn in wrappers.values():
         fn.launches = 0
     return lambda: {k: fn.launches for k, fn in wrappers.items()}
@@ -1479,6 +1509,90 @@ def lsap_phase(gen):
             f"{row['ms']:.4f} ms per launch, plain version {row['plain_ms']:.2f} ms (host), scipy with the copy "
             f"{row['scipy_ms']:.3f} ms; bound {row['bound_ms']:.6f} ms ({row['bound_by']}), latency bound "
             f"{row['latency_bound_ms']:.4f} ms ({row['steps_max']} serial steps of the longest matrix)")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Kernel F: the deformable sampling's gather at the encoder shapes of a 1024x2048 frame
+# ---------------------------------------------------------------------------
+
+SAMPLING_LEVELS = {"r50": [(128, 256), (64, 128), (32, 64)], "swin_b": [(32, 64)]}  # (H, W) per level
+SAMPLING_CASES = (("r50", 1), ("swin_b", 1), ("swin_b", 4))  # the benchmark's camera cells and rig4
+
+
+def _device_ops(fn) -> int:
+    """Device operations (kernels, copies, fills) of one call of ``fn``, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(calls for _, _, calls in _device_kernels(prof))
+
+
+L1_BYTES_PER_CLOCK = 128  # an SM's L1 load path per clock
+
+
+def _l1_rate() -> float:
+    """Bytes/s of all SMs' L1 load paths at the card's maximum SM clock: the rate through
+    which every gathered row passes, whether L1 or L2 served it."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * L1_BYTES_PER_CLOCK * float(_smi("clocks.max.sm").split()[0]) * 1e6
+
+
+def ms_deform_attn_phase(gen):
+    """Kernel F against the plain gather at the deformable encoder's shapes of a
+    1024x2048 frame (Lq = S, M = 8, D = 32, P = 4): R50's three levels and Swin-B's one,
+    at batch 1 and at rig4's batch 4.  Locations over [-0.1, 1.1] (zero padding);
+    max |kernel - plain| within 1e-5 of max |plain|; the kernel's ms per call beside the
+    plain gather's, the bound (each input byte read and the output written once, at
+    3.35 TB/s) and the gather floor (four D-float rows per sample through the SMs' L1 load
+    paths, ``_l1_rate``); the device operations of one call of each."""
+    from rba_tpu_torch.kernels.ms_deform_attn import ms_deform_attn
+    from rba_tpu_torch.ops.deform_sampling import ms_deform_attn_core, ms_deform_attn_plain
+
+    l1_rate = _l1_rate()
+    rows = {"l1_bytes_per_s": l1_rate}
+    m, d, p = 8, 32, 4
+    for cfg_name, n in SAMPLING_CASES:
+        levels = SAMPLING_LEVELS[cfg_name]
+        s, nl = sum(h * w for h, w in levels), len(levels)
+        value = torch.randn(n, s, m, d, generator=gen, device="cuda")
+        loc = torch.rand(n, s, m, nl, p, 2, generator=gen, device="cuda") * 1.2 - 0.1
+        attn = torch.softmax(torch.randn(n, s, m, nl * p, generator=gen, device="cuda"), -1).reshape(n, s, m, nl, p)
+        with torch.no_grad():
+            before = ms_deform_attn.launches
+            got = ms_deform_attn_core(value, levels, loc, attn)
+            torch.cuda.synchronize()
+            launched = ms_deform_attn.launches - before
+            want = ms_deform_attn_plain(value, levels, loc, attn)
+            rel = max_abs(got, want) / float(want.abs().max())
+            t_all = cuda_ms_batches(lambda: ms_deform_attn_core(value, levels, loc, attn))
+            t_p = cuda_ms(lambda: ms_deform_attn_plain(value, levels, loc, attn), iters=5)
+            kernel_ops = _device_ops(lambda: ms_deform_attn_core(value, levels, loc, attn))
+        # the plain path as ms_deform_attn_core runs it where the kernel does not (here: under autograd)
+        xs = [x.detach().requires_grad_() for x in (value, loc, attn)]
+        plain_ops = _device_ops(lambda: ms_deform_attn_core(xs[0], levels, xs[1], xs[2]))
+        samples = n * s * m * nl * p
+        nbytes = (value.numel() + loc.numel() + attn.numel() + got.numel()) * 4
+        b_ms, b_by = bound_ms(nbytes, 2.0 * 4 * samples * d, "float32")
+        gather_bytes = 4.0 * samples * d * 4
+        floor_ms = gather_bytes / l1_rate * 1e3
+        name = f"{cfg_name}_B{n}"
+        rows[name] = row = dict(
+            levels=levels, n=n, lq=s, launches=launched, max_rel_err=rel, tol=1e-5, ms=t_all[0], ms_batches=t_all,
+            plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, gather_bytes=gather_bytes,
+            gather_floor_ms=floor_ms, gather_bytes_per_s=gather_bytes / (t_all[0] * 1e-3), kernel_device_ops=kernel_ops,
+            plain_device_ops=plain_ops)
+        log(f"ms_deform_attn {name} (levels {levels}, Lq = S = {s}): rel err {rel:.3e} (tol 1e-5), launches "
+            f"{launched} | kernel {t_all[0]:.4f} ms (3 batches {_fmt(t_all)}), plain gather {t_p:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), gather floor {floor_ms:.4f} ms ({gather_bytes / 1e9:.3f} GB through L1 at "
+            f"{l1_rate / 1e12:.1f} TB/s; the kernel gathers at {row['gather_bytes_per_s'] / 1e12:.2f} TB/s); device "
+            f"operations per call: kernel {kernel_ops}, plain {plain_ops}")
+        if not (rel <= 1e-5 and launched == 1 and kernel_ops == 1):
+            raise RuntimeError(f"ms_deform_attn {name}: {row}")
+        del value, loc, attn, got, want, xs
     return rows
 
 
@@ -2162,7 +2276,9 @@ def backbones_phase(images):
     config's precision and at ``fast_serving`` (median ms/image), peak memory, one
     profiled request (busy, idle share, busy per layer span) and the launches of every
     kernel.  Gates: finite (1, 1024, 2048) maps; Kernel B once per request where the mask
-    features are at stride 4 and never elsewhere, no other kernel; at fp32 the entry
+    features are at stride 4 and never elsewhere, Kernel F once per encoder layer where
+    ``_deform_per_request`` says so (and not the plain gather's kernel), no other
+    kernel; at fp32 the entry
     equals its plain version and ``maskformer_infer(...)["rba"]`` within 1e-3."""
     from rba_tpu_torch.config import fast_serving, load_config
     from rba_tpu_torch.models.maskformer import build_model, maskformer_infer, maskformer_infer_rba
@@ -2181,7 +2297,7 @@ def backbones_phase(images):
             maskformer_infer_rba(model, c, images[0])  # warm-up
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            counts = _zero_counts()
+            counts = _zero_counts(deform=True)
             maps, times = [], []
             for i in range(1, N_REQUESTS + 1):
                 rba, ms = _timed(maskformer_infer_rba, model, c, images[i])
@@ -2189,13 +2305,16 @@ def backbones_phase(images):
                 times.append(ms)
             launches = counts()
             bad = [tuple(r.shape) for r in maps if tuple(r.shape) != (1, *IMAGE_HW) or not bool(torch.isfinite(r).all())]
-            want = {k: per_image.get(k, 0) * N_REQUESTS for k in launches}
+            want = dict(per_image, ms_deform_attn=_deform_per_request(c, model))
+            want = {k: want.get(k, 0) * N_REQUESTS for k in launches}
             if bad or launches != want:
                 raise RuntimeError(f"backbones {name} {label}: maps {bad} not finite (1, 1024, 2048), launches "
                                    f"{launches}, expected {want}")
             row[label] = dict(ms_per_image=statistics.median(times), ms_all=times, launches=launches,
                               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
         redesigned = {"fused_rba_mma_kernel": "fused_rba_kernel"} if per_image else {}
+        if _deform_per_request(cfg, model):
+            redesigned.update(KERNEL_F)
         row["profile"] = profile_phase(f"backbones {name}", cfg, model, images[1], "fused", redesigned, top=6)
         cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
         counts = _zero_counts()
@@ -2624,9 +2743,11 @@ def swin_l_phase(images):
     if any(fused_mlp_beneficial(1024, cfg.swin.stage_dim(i)) for i in range(cfg.swin.num_layers)):
         raise RuntimeError("swin_l: the fused-MLP dispatch would take Kernel D at a Swin-L width")
     paths = [("path1", cfg, "fused", {"window_attention": n_blocks, "fused_rba_score": 1},
-              {"window_attention_mma_kernel": "window_attention_kernel", "fused_rba_mma_kernel": "fused_rba_kernel"}),
+              {"window_attention_mma_kernel": "window_attention_kernel", "fused_rba_mma_kernel": "fused_rba_kernel",
+               **KERNEL_F}),
              ("path2", cfg2, "fused_softmax", {"masked_softmax": n_blocks, "fused_rba_score": 1},
-              {"masked_softmax_walk_kernel": "masked_softmax_kernel", "fused_rba_mma_kernel": "fused_rba_kernel"})]
+              {"masked_softmax_walk_kernel": "masked_softmax_kernel", "fused_rba_mma_kernel": "fused_rba_kernel",
+               **KERNEL_F})]
     out = dict(parameters=n_params, write_s=write_s, load_convert_s=load_s)
     scores32 = {}
     for name, pcfg, attention, per_image, redesigned in paths:
@@ -3351,13 +3472,16 @@ def int8_phase(images):
     d_blocks = sum(d for i, d in enumerate(cfg.swin.depths) if cfg.swin.stage_dim(i) <= 256)
     out = dict(fp_bytes=weight_bytes(fp))
     q = {}
+    enc_layers = cfg.pixel_decoder.transformer_enc_layers
     for name, pcfg, attention, per_image, redesigned in (
-            ("path1", cfg, "fused", {"window_attention": n_blocks, "fused_rba_score": 1},
-             {"window_attention_mma_kernel": "window_attention_kernel", "fused_rba_mma_kernel": "fused_rba_kernel"}),
+            ("path1", cfg, "fused", {"window_attention": n_blocks, "fused_rba_score": 1, "ms_deform_attn": enc_layers},
+             {"window_attention_mma_kernel": "window_attention_kernel", "fused_rba_mma_kernel": "fused_rba_kernel",
+              **KERNEL_F}),
             ("path2", cfg2, "fused_softmax",
-             {"masked_softmax": n_blocks, "fused_mlp_residual": d_blocks, "fused_rba_score": 1},
+             {"masked_softmax": n_blocks, "fused_mlp_residual": d_blocks, "fused_rba_score": 1,
+              "ms_deform_attn": enc_layers},
              {"fused_mlp_mma_kernel": "fused_mlp_kernel", "masked_softmax_walk_kernel": "masked_softmax_kernel",
-              "fused_rba_mma_kernel": "fused_rba_kernel"})):
+              "fused_rba_mma_kernel": "fused_rba_kernel", **KERNEL_F})):
         q[name] = quantize_params_int8(fp, cfg=pcfg)
         stats = count_quantized(q[name])
         serve, scores, _ = serve_phase(f"int8 {name}", pcfg, q[name], images, attention, per_image)
@@ -3481,6 +3605,7 @@ def main() -> int:
     ms_rows_l, ms_l, ms_err_l = masked_softmax_phase(cfg_l, gen)
     mlp_rows, mlp, mlp_err = fused_mlp_phase(gen)
     lsap_rows = lsap_phase(gen)
+    mda_rows = ms_deform_attn_phase(gen)
 
     from rba_tpu_torch.models.maskformer import build_model
 
@@ -3490,13 +3615,16 @@ def main() -> int:
     scores, scores32 = {}, {}
     n_blocks = sum(cfg.swin.depths)
     fused_mlp_blocks = sum(d for i, d in enumerate(cfg.swin.depths) if cfg.swin.stage_dim(i) <= 256)
+    enc_layers = cfg.pixel_decoder.transformer_enc_layers
     paths = [
-        ("path1", cfg, "fused", {"window_attention": n_blocks, "fused_rba_score": 1},
-         {"window_attention_mma_kernel": "window_attention_kernel", "fused_rba_mma_kernel": "fused_rba_kernel"}),
+        ("path1", cfg, "fused", {"window_attention": n_blocks, "fused_rba_score": 1, "ms_deform_attn": enc_layers},
+         {"window_attention_mma_kernel": "window_attention_kernel", "fused_rba_mma_kernel": "fused_rba_kernel",
+          **KERNEL_F}),
         ("path2", cfg2, "fused_softmax",
-         {"masked_softmax": n_blocks, "fused_mlp_residual": fused_mlp_blocks, "fused_rba_score": 1},
+         {"masked_softmax": n_blocks, "fused_mlp_residual": fused_mlp_blocks, "fused_rba_score": 1,
+          "ms_deform_attn": enc_layers},
          {"fused_mlp_mma_kernel": "fused_mlp_kernel", "masked_softmax_walk_kernel": "masked_softmax_kernel",
-          "fused_rba_mma_kernel": "fused_rba_kernel"}),
+          "fused_rba_mma_kernel": "fused_rba_kernel", **KERNEL_F}),
     ]
     for name, pcfg, attention, per_image, redesigned in paths:
         t0 = time.perf_counter()
@@ -3690,6 +3818,17 @@ def main() -> int:
              launches_parallel_train=parallel["launches"]["lsap"],
              **{k: v["lsap"] for k, v in variant_launches.items() if "lsap" in v
                 and k.startswith(("launches_heads", "launches_hf"))}),
+        dict(name="ms_deform_attn", route="cuda", source="rba_tpu_torch/csrc/ms_deform_attn.cu",
+             replaces="none (rba_tpu/ops/deform_sampling.py samples with a jnp gather)",
+             launches=serve["path1"]["launches"]["ms_deform_attn"],
+             max_rel_err=max(r["max_rel_err"] for k, r in mda_rows.items() if k != "l1_bytes_per_s"),
+             launches_per_call_r50_B1=mda_rows["r50_B1"]["launches"],
+             **{k: v["ms_deform_attn"] for k, v in variant_launches.items() if "ms_deform_attn" in v},
+             ms=mda_rows["r50_B1"]["ms"], plain_ms=mda_rows["r50_B1"]["plain_ms"],
+             bound_ms=mda_rows["r50_B1"]["bound_ms"], bound_by=mda_rows["r50_B1"]["bound_by"], library_ms=None,
+             gather_floor_ms=mda_rows["r50_B1"]["gather_floor_ms"], ms_batches=mda_rows["r50_B1"]["ms_batches"],
+             **{f"{k2}_{k}": r[k2] for k, r in mda_rows.items() if k.startswith("swin_b")
+                for k2 in ("ms", "plain_ms", "bound_ms", "gather_floor_ms")}),
     ]
     if args.out:
         args.out.mkdir(parents=True, exist_ok=True)
@@ -3698,6 +3837,7 @@ def main() -> int:
                  masked_softmax=ms_rows, fused_mlp=mlp_rows, serve=serve, paths_fp32_max_diff=cross32,
                  paths_bf16_max_diff_not_gated=cross16, profile=prof, fast=fast, xla=xla, eval=evaluation, d2=d2,
                  tta=tta, sliding=sliding, dense_hybrid=dense_hybrid, sweep_cli=sweep_cli, lsap=lsap_rows,
+                 ms_deform_attn=mda_rows,
                  train=train, semseg=semseg, panoptic=panoptic, train_eval=train_eval, backbones=backbones,
                  r50_d2=r50_d2, train_backbones=train_backbones, masked_softmax_swin_l=ms_rows_l, swin_l=swin_l,
                  train_datasets=train_datasets, heads=heads, hf=hf, parallel=parallel, int8=int8, tools=tools,
@@ -3728,7 +3868,9 @@ def main() -> int:
         f"{TRAIN_BB_WARMUP + TRAIN_BB_TIMED} steps of each config, launches_train_datasets the train_datasets "
         f"phase's {TRAIN_DS_WARMUP + TRAIN_DS_TIMED} steps of each recipe, its ms, "
         "plain_ms and bound are per launch on one step's real costs, scipy_ms scipy's host time on them with the "
-        f"copy; {time.perf_counter() - T_START:.1f} s in all)")
+        f"copy; ms_deform_attn's times are per call at R50's three levels (one encoder layer of one 1024x2048 "
+        "frame), *_swin_b_B1 / _B4 at Swin-B's one level, batch 1 and 4; "
+        f"{time.perf_counter() - T_START:.1f} s in all)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

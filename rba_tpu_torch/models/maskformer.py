@@ -18,7 +18,8 @@ picks Swin's window-attention branch (the other backbones run no kernel):
 with ``SwinConfig.mlp_impl="fused"`` also runs Kernel D) or ``"xla"`` (``rba_tpu``'s
 default chain in plain PyTorch); see ``models/swin.py``.
 ``maskformer_infer_rba(..., plain=True)`` runs the plain PyTorch versions of
-the kernels instead, which is how each path is held against them on the card.
+the kernels instead (the deformable sampling's too, Kernel F's), which is how each path
+is held against them on the card.
 Each call of an entry is one ``request`` span, and inside it the frames' upload and
 each layer run in spans named after them (``UPLOAD``, ``LAYERS``; ``utils/profiling.py``),
 so a profile of the entry reads its layers.
@@ -204,7 +205,7 @@ def maskformer_forward(
     features = _backbone_features(model, cfg, images, plain, attention)
     with span("pixel_decoder"):
         mask_features, enc_feat, ms_feats = bh.pixel_decoder_apply(model.sem_seg_head["pixel_decoder"], cfg,
-                                                                   features, _dtype(cfg.pixel_decoder_dtype))
+                                                                   features, _dtype(cfg.pixel_decoder_dtype), plain)
     pred, d = model.sem_seg_head["predictor"], cfg.decoder
     with span("transformer_decoder"):
         if isinstance(pred, bh.StandardDecoder):
@@ -241,7 +242,7 @@ def per_pixel_forward(
     head = model.sem_seg_head
     with span("pixel_decoder"):
         mask_features, enc_feat, _ = bh.pixel_decoder_apply(head["pixel_decoder"], cfg, features,
-                                                            _dtype(cfg.pixel_decoder_dtype))
+                                                            _dtype(cfg.pixel_decoder_dtype), plain)
     with span("transformer_decoder"):  # the predictor
         return bh.per_pixel_predict(head["predictor"], cfg, features, mask_features, enc_feat)
 

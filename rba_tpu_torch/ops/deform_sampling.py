@@ -21,15 +21,21 @@ training step's sampling costs from the two).
 
 ``method="auto"`` picks the one-hot form for a level where N·M·Lq·H·W <= the cap, as
 ``rba_tpu`` does.  In fp32 the one-hot form computes the gather's sums (``rba_tpu``
-contracts it at HIGHEST precision), so fp32 levels take the gather.  A hand kernel
-for the sampling is queued in ROADMAP.md.
+contracts it at HIGHEST precision), so fp32 levels take the gather.
+
+On the card a call whose every level is a gather, whose gradient autograd does not
+need and whose shapes the kernel is built for runs Kernel F
+(``kernels/ms_deform_attn.py``), the gather of all levels in one launch
+(``takes_kernel``); the plain gather above stays for the CPU, for training, for other
+shapes and under ``plain=True``, and the bf16 one-hot form keeps its own path.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Collection, Sequence, Tuple
 
 import torch
 
+from ..kernels.ms_deform_attn import ms_deform_attn, supports as kernel_supports
 from ..utils import profiling
 
 SPAN = profiling.DEFORM_SAMPLING  # the span of each ms_deform_attn_core call
@@ -193,6 +199,46 @@ def sampling_methods(
     return (method,) * len(spatial_shapes)
 
 
+def takes_kernel(device: torch.device, needs_grad: bool, methods: Sequence[str], sampling_dtype: str,
+                 value_shape: Sequence[int], loc_shape: Sequence[int]) -> bool:
+    """Whether a call runs Kernel F: its tensors are on CUDA, autograd does not need the
+    sampling's gradient, no level takes the one-hot form (``"onehot"`` in ``methods`` at
+    ``sampling_dtype="bfloat16"``), and the kernel is built for its shapes, value (N, S,
+    M, D) and sampling_locations (N, Lq, M, L, P, 2) (``kernels/ms_deform_attn.py``
+    ``supports``: D 16 or 32, 1 to 4 levels)."""
+    onehot = sampling_dtype == "bfloat16" and "onehot" in methods
+    return device.type == "cuda" and not needs_grad and not onehot and kernel_supports(value_shape, loc_shape)
+
+
+def _aligned(x: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """``x`` as fp32 and contiguous, copied where it does not start on ``nbytes`` (a view
+    into the middle of a tensor may start anywhere)."""
+    x = x.float().contiguous()
+    return x if x.data_ptr() % nbytes == 0 else x.clone()
+
+
+def ms_deform_attn_plain(
+    value: torch.Tensor,  # (N, S, M, D) fp32
+    spatial_shapes: Sequence[Tuple[int, int]],  # (H, W) per level
+    sampling_locations: torch.Tensor,  # (N, Lq, M, L, P, 2) fp32
+    attention_weights: torch.Tensor,  # (N, Lq, M, L, P) fp32
+    onehot_levels: Collection[int] = (),
+) -> torch.Tensor:  # (N, Lq, M·D) fp32
+    """The plain version: each level sampled in plain PyTorch, the one-hot form for the
+    levels in ``onehot_levels`` and the gather for the rest, summed over levels.  With no
+    one-hot level it computes what Kernel F does."""
+    n, _, m, d = value.shape
+    lq = sampling_locations.shape[1]
+    out = torch.zeros(n, lq, m, d, dtype=torch.float32, device=value.device)
+    start = 0
+    for lid, (h, w) in enumerate(spatial_shapes):
+        v = value[:, start : start + h * w].reshape(n, h, w, m, d)
+        sample = OneHotLevel.apply if lid in onehot_levels else _sample_level
+        out = out + sample(v, sampling_locations[:, :, :, lid], attention_weights[:, :, :, lid])
+        start += h * w
+    return out.reshape(n, lq, m * d)
+
+
 def ms_deform_attn_core(
     value: torch.Tensor,  # (N, S, M, D) flattened multi-level values
     spatial_shapes: Sequence[Tuple[int, int]],  # (H, W) per level
@@ -201,7 +247,10 @@ def ms_deform_attn_core(
     method: str = "auto",
     sampling_dtype: str = "float32",
     onehot_cap: int = 192 * 1024 * 1024,
+    plain: bool = False,
 ) -> torch.Tensor:  # (N, Lq, M·D) fp32
+    """The sampling of every level, summed: Kernel F where ``takes_kernel`` says so and
+    not ``plain``, else the plain version (``ms_deform_attn_plain``)."""
     n, s, m, d = value.shape
     _, lq, _, nlevels, p, _ = sampling_locations.shape
     if nlevels != len(spatial_shapes):
@@ -210,20 +259,17 @@ def ms_deform_attn_core(
         raise ValueError(f"spatial shapes {spatial_shapes} do not sum to S = {s}")
     methods = sampling_methods(n, m, lq, spatial_shapes, method, onehot_cap)
     inputs = (value, sampling_locations, attention_weights)
-    span = [] if torch.is_grad_enabled() and any(x.requires_grad for x in inputs) else None
+    needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in inputs)
+    if not plain and takes_kernel(value.device, needs_grad, methods, sampling_dtype, value.shape,
+                                  sampling_locations.shape):
+        with profiling.span(SPAN):
+            return ms_deform_attn(_aligned(value, 16), spatial_shapes, _aligned(sampling_locations, 8),
+                                  attention_weights.float().contiguous())
+    span = [] if needs_grad else None
     if span is not None:
         value, sampling_locations, attention_weights = _CloseBackwardSpan.apply(span, *inputs)
     with profiling.span(SPAN):
-        value = value.float()
-        sampling_locations = sampling_locations.float()
-        attention_weights = attention_weights.float()
-        out = torch.zeros(n, lq, m, d, dtype=torch.float32, device=value.device)
-        start = 0
-        for lid, (h, w) in enumerate(spatial_shapes):
-            v = value[:, start : start + h * w].reshape(n, h, w, m, d)
-            onehot = methods[lid] == "onehot" and sampling_dtype == "bfloat16"
-            sample = OneHotLevel.apply if onehot else _sample_level
-            out = out + sample(v, sampling_locations[:, :, :, lid], attention_weights[:, :, :, lid])
-            start += h * w
-        out = out.reshape(n, lq, m * d)
+        onehot = {lid for lid, form in enumerate(methods) if form == "onehot" and sampling_dtype == "bfloat16"}
+        out = ms_deform_attn_plain(value.float(), spatial_shapes, sampling_locations.float(),
+                                   attention_weights.float(), onehot)
     return out if span is None else _OpenBackwardSpan.apply(span, out)

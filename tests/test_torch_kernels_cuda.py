@@ -13,8 +13,10 @@ from rba_tpu_torch.kernels import fused_mlp as tfm
 from rba_tpu_torch.kernels import fused_rba as tfr
 from rba_tpu_torch.kernels import lsap as tls
 from rba_tpu_torch.kernels import masked_softmax as tms
+from rba_tpu_torch.kernels import ms_deform_attn as tmd
 from rba_tpu_torch.kernels import window_attention as twa
 from rba_tpu_torch.models.swin import shifted_window_mask
+from rba_tpu_torch.ops import deform_sampling as tds
 
 pytestmark = pytest.mark.cuda
 
@@ -236,3 +238,83 @@ def test_lsap_kernel_refuses_larger_shapes(cuda):
         tls.batched_linear_sum_assignment(torch.zeros(1, 4, 1025, device=cuda))
     with pytest.raises(ValueError):
         tls.batched_linear_sum_assignment(torch.zeros(1, 5, 4, device=cuda))
+
+
+R50_LEVELS = [(128, 256), (64, 128), (32, 64)]  # res3..res5 of a 1024x2048 frame: Lq = S = 43,008
+SWIN_B_LEVELS = [(32, 64)]  # swin_b_1dl's one level: Lq = 2,048
+
+
+def _sampling_inputs(gen, n, levels, m=8, d=32, p=4):
+    """Encoder-shaped inputs (Lq = S), locations drawn over [-0.1, 1.1] so that about a
+    third of the samples have a corner outside their map, and query 0 with every corner
+    outside."""
+    s, nl = sum(h * w for h, w in levels), len(levels)
+    value = torch.randn(n, s, m, d, generator=gen, device=gen.device)
+    loc = torch.rand(n, s, m, nl, p, 2, generator=gen, device=gen.device) * 1.2 - 0.1
+    loc[:, 0, ..., 0], loc[:, 0, ..., 1] = -0.5, 1.7
+    attn = torch.softmax(torch.randn(n, s, m, nl * p, generator=gen, device=gen.device), -1).reshape(n, s, m, nl, p)
+    return value, loc, attn
+
+
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("levels", [R50_LEVELS, SWIN_B_LEVELS], ids=["r50", "swin_b"])
+def test_ms_deform_attn_kernel(cuda, levels, n):
+    """Kernel F against the plain gather: only the order of the fp32 sums differs."""
+    gen = torch.Generator(device=cuda).manual_seed(n + len(levels))
+    value, loc, attn = _sampling_inputs(gen, n, levels)
+    before = tmd.ms_deform_attn.launches
+    with torch.no_grad():
+        got = tds.ms_deform_attn_core(value, levels, loc, attn)
+    torch.cuda.synchronize()
+    assert tmd.ms_deform_attn.launches == before + 1
+    want = tds.ms_deform_attn_plain(value, levels, loc, attn)
+    assert got.shape == want.shape == (n, value.shape[1], 8 * 32)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert bool((got[:, 0] == 0).all())
+
+
+def test_ms_deform_attn_kernel_head_dim_16(cuda):
+    """The kernel's other head width, the tests' tiny config's D = 16, at two levels, 4
+    heads and 3 points."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    levels = [(16, 32), (8, 16)]
+    value, loc, attn = _sampling_inputs(gen, 2, levels, m=4, d=16, p=3)
+    before = tmd.ms_deform_attn.launches
+    with torch.no_grad():
+        got = tds.ms_deform_attn_core(value, levels, loc, attn)
+    assert tmd.ms_deform_attn.launches == before + 1
+    want = tds.ms_deform_attn_plain(value, levels, loc, attn)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert bool((got[:, 0] == 0).all())
+
+
+@pytest.mark.parametrize("d,plain", [(24, False), (32, True)], ids=["d24", "plain"])
+def test_ms_deform_attn_plain_path_on_the_card(cuda, d, plain):
+    """A D the kernel is not built for, or ``plain=True``, runs the plain version on the
+    card: no launch, no raise, the plain output."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    levels = [(16, 32), (8, 16)]
+    value, loc, attn = _sampling_inputs(gen, 1, levels, d=d)
+    before = tmd.ms_deform_attn.launches
+    with torch.no_grad():
+        got = tds.ms_deform_attn_core(value, levels, loc, attn, plain=plain)
+    assert tmd.ms_deform_attn.launches == before
+    assert torch.equal(got, tds.ms_deform_attn_plain(value, levels, loc, attn))
+
+
+def test_ms_deform_attn_grad_takes_the_plain_path(cuda):
+    """A call whose inputs require a gradient launches nothing and gives the plain
+    path's output and gradient (held against the same call on the CPU)."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    levels = [(16, 32), (8, 16)]
+    value, loc, attn = _sampling_inputs(gen, 2, levels)
+    cot = torch.randn(2, value.shape[1], 8 * 32, generator=gen, device=cuda)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        xs = [x.detach().to(dev).requires_grad_() for x in (value, loc, attn)]
+        before = tmd.ms_deform_attn.launches
+        (tds.ms_deform_attn_core(xs[0], levels, xs[1], xs[2]) * cot.to(dev)).sum().backward()
+        assert tmd.ms_deform_attn.launches == before
+        grads[dev] = [x.grad.cpu() for x in xs]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
