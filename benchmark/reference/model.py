@@ -368,15 +368,18 @@ def preprocess(model: dict, image: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def score_map(P: Weights, model: dict, image: torch.Tensor, lowp: bool = False) -> torch.Tensor:
+def score_map(P: Weights, model: dict, image: torch.Tensor, lowp: bool = False, backbone=None) -> torch.Tensor:
     """The RbA score map (h, w) of one (h, w, 3) uint8 image, in fp32 with TF32 off (or,
-    with ``lowp``, the control's precision)."""
-    if model["backbone_name"] not in ("swin", "resnet"):
-        raise NotImplementedError(f"backbone {model['backbone_name']!r}")
+    with ``lowp``, the control's precision).  The backbone is ``backbone``'s ``features``
+    where a backbone file is given (``reference/__init__.py``), else Swin or ResNet."""
+    if backbone is None and model["backbone_name"] not in ("swin", "resnet"):
+        raise NotImplementedError(f"backbone {model['backbone_name']!r}: the configuration names no reference_backbone")
     q = _fp8 if lowp else _same
     with _matmul_precision(tf32=lowp):
         x = preprocess(model, image[None])
-        if model["backbone_name"] == "swin":
+        if backbone is not None:
+            feats = backbone.features(P, model, x, q)
+        elif model["backbone_name"] == "swin":
             feats = swin(P, model["swin"], x, q)
         else:
             feats = resnet(P, model["resnet"], x, q)

@@ -56,6 +56,7 @@ class Cell:
     end_to_end: List[dict]  # the end-to-end metrics this cell reports
     per_layer: List[dict] = field(default_factory=list)  # the per-layer metrics it reports
     folder: Path = ROOT / "benchmark"  # the benchmark's folder, which holds the readers
+    backbone: object = None  # the configuration's reference backbone file, if it names one
 
 
 def load_cell(name: str, root: Path = ROOT) -> Cell:
@@ -64,23 +65,40 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     entry = next((w for w in manifest["workloads"] if w["name"] == name), None)
     if entry is None:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
-    config = next(c for c in manifest["configs"] if c["name"] == entry["config"])
+    entry_config = next(c for c in manifest["configs"] if c["name"] == entry["config"])
     bench = root / Path(manifest["paths"][0])
     e2e = [m for m in manifest["end_to_end"] if name in m.get("workloads", [name])]
     reported = {m["name"] for m in e2e}
     per_layer = [m for m in manifest["per_layer"]
                  if (name in m["workloads"] if "workloads" in m else m["moves"] in reported)]
-    return Cell(name, entry["chips"], json.loads((root / config["file"]).read_text()),
-                json.loads((bench / "traffic" / f"{entry['traffic']}.json").read_text()), e2e, per_layer, bench)
+    config = json.loads((root / entry_config["file"]).read_text())
+    return Cell(name, entry["chips"], config, json.loads((bench / "traffic" / f"{entry['traffic']}.json").read_text()),
+                e2e, per_layer, bench, reference_backbone(config, bench))
+
+
+def _load(path: Path, name: str):
+    """The module of the file ``path``, executed under the name ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def layer_reader(cell: Cell, metric: str) -> Callable:
     """``read`` of ``layer_metrics/<metric>.py``."""
-    path = cell.folder / "layer_metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"benchmark_layer_metric_{metric.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(cell.folder / "layer_metrics" / f"{metric}.py",
+                 f"benchmark_layer_metric_{metric.replace('.', '_')}").read
+
+
+def reference_backbone(config: dict, folder: Path):
+    """The backbone file that ``config`` names under ``reference_backbone``, a path under
+    ``folder`` (the contract: ``reference/__init__.py``), loaded as a module of the
+    benchmark's package so that its relative imports reach the reference's helpers; None
+    without the key, where the reference's own Swin or ResNet serves."""
+    path = config.get("reference_backbone")
+    if path is None:
+        return None
+    return _load(folder / path, f"{__package__}.{Path(path).with_suffix('').as_posix().replace('/', '.')}")
 
 
 def _log(msg: str) -> None:
@@ -331,7 +349,7 @@ class Control(Program):
         from . import inputs, system
 
         model = cell.config["model"]
-        self.model, self.device, self.t0 = model, device, t0
+        self.model, self.backbone, self.device, self.t0 = model, cell.backbone, device, t0
         self.weights = inputs.make_weights(system.parameter_shapes(model), model, seed, device)
 
     def _maps(self, frames):
@@ -339,7 +357,8 @@ class Control(Program):
 
         from .reference import model as ref
 
-        return torch.stack([ref.score_map(self.weights, self.model, f.to(self.device), lowp=True) for f in frames])
+        return torch.stack([ref.score_map(self.weights, self.model, f.to(self.device), lowp=True,
+                                          backbone=self.backbone) for f in frames])
 
     def serve(self, cell: Cell):
         return lambda frames: self._maps(frames).cpu()
@@ -388,12 +407,13 @@ def check(cell: Cell, win: Window, seed: int, device):
                 failed += 1
                 continue
             for k in range(b):
-                want = ref.score_map(weights, model, frames[k].to(device))
+                want = ref.score_map(weights, model, frames[k].to(device), backbone=cell.backbone)
                 gap = (out[k].to(device) - want).abs()
                 worst, total, count = max(worst, float(gap.max())), total + float(gap.sum()), count + gap.numel()
                 rel = max(rel, float(gap.max() / (want.max() - want.min())))
         return {"score_max_rel_gap": rel, "score_max_gap": worst, "score_mean_gap": total / max(count, 1)}, failed
-    scores = torch.stack([ref.score_map(weights, model, torch.from_numpy(s.image).to(device)) for s in win.dataset])
+    scores = torch.stack([ref.score_map(weights, model, torch.from_numpy(s.image).to(device), backbone=cell.backbone)
+                          for s in win.dataset])
     labels = torch.stack([torch.from_numpy(s.label) for s in win.dataset]).to(device)
     want = ood_metrics(scores, labels)
     gaps = {f"{k}_gap": 0.0 for k in want}
@@ -433,7 +453,7 @@ def run_cell(cell: Cell, args, device="cuda", t0: float = T0) -> dict:
     if args.trace:
         for m in cell.per_layer:
             value = layer_reader(cell, m["name"])(SimpleNamespace(**vars(win.layer), config=cell.config,
-                                                                  traffic=cell.traffic))
+                                                                  traffic=cell.traffic, backbone=cell.backbone))
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     else:

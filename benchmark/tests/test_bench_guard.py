@@ -26,14 +26,25 @@ def test_forbidden_modules(monkeypatch, module, found):
 
 
 def test_reference_loads_nothing_of_the_program():
-    code = ("import sys, benchmark.reference.model, benchmark.reference.ood_metrics; "
-            "print(sorted({m.split('.')[0] for m in sys.modules} & {'rba_tpu_torch', 'rba_tpu', 'jax', 'jaxlib'}))")
+    """Every file of the reference, backbone files in subfolders too, loaded as the harness
+    loads a configuration's backbone file."""
+    code = """
+import sys
+from pathlib import Path
+from benchmark import run
+
+bench = Path("benchmark")
+files = sorted((bench / "reference").rglob("*.py"))
+for path in files:
+    run.reference_backbone({"reference_backbone": str(path.relative_to(bench))}, bench)
+print(len(files), sorted({m.split(".")[0] for m in sys.modules} & {"rba_tpu_torch", "rba_tpu", "jax", "jaxlib"}))
+"""
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300, check=True)
-    assert out.stdout.strip() == "[]"
+    assert out.stdout.strip() == f"{len(list((REPO / 'benchmark' / 'reference').rglob('*.py')))} []"
 
 
 def test_reference_sources_import_only_torch():
-    for path in (REPO / "benchmark" / "reference").glob("*.py"):
+    for path in (REPO / "benchmark" / "reference").rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]

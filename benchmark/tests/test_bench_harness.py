@@ -1,18 +1,20 @@
 """The harness end to end on the CPU: a run is correct, its control is not, each fault
-that a cell can have turns ``correct`` false, and a configuration, a traffic mix and a
-per-layer metric are added as files and entries alone."""
+that a cell can have turns ``correct`` false, and a configuration, a traffic mix, a
+per-layer metric and a configuration's own reference backbone are added as files and
+entries alone."""
 from __future__ import annotations
 
 import json
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import pytest
 import torch
 
-from benchmark import run
+from benchmark import run, workcount
 
-from .tiny import REPO, run_tiny, tiny_model, write_root
+from .tiny import REPO, TINY_LIMITS, run_tiny, tiny_model, write_root
 
 
 @pytest.mark.parametrize("workload", ["tiny.cam", "tiny.ev"])
@@ -108,6 +110,83 @@ def test_added_config_traffic_and_metric_are_found(tmp_path):
     assert traced["correct"]
     assert traced["metrics"] == {"backbone_spans.serve": {"value": 1.0, "unit": "count"}}
     assert set(traced["device"]) >= {"busy_s", "window_s"} and set(traced["breakdown"]) == {"device_ops", "idle_gaps"}
+
+
+OWN_BACKBONE = '''"""A configuration's backbone file that hands the work to the reference's ResNet."""
+from benchmark import workcount
+
+from .model import resnet
+
+
+def features(P, model, x, q):
+    maps = resnet(P, model["resnet"], x, q)
+    maps["res2"] = maps["res2"] + {shift}
+    return maps
+
+
+def flops(model, h, w):
+    count, maps = workcount.resnet_flops(model["resnet"], h, w)
+    return {scale} * count, maps
+'''
+
+
+def _own_backbone_root(path, shift: float = 0.0, scale: int = 1):
+    """A root with the cell ``tinyr.cam``: the tiny model on a ResNet, whose configuration
+    names the backbone file ``reference/own.py`` (new files and entries alone)."""
+    root = write_root(path)
+    bench = root / "benchmark"
+    (bench / "reference").mkdir()
+    (bench / "reference" / "own.py").write_text(OWN_BACKBONE.format(shift=shift, scale=scale))
+    (bench / "configs" / "tinyr.json").write_text(json.dumps({
+        "name": "tinyr", "model": dict(tiny_model(), backbone_name="resnet"), "limits": TINY_LIMITS,
+        "reference_backbone": "reference/own.py"}))
+    manifest = json.loads((root / "BENCHMARK.json").read_text())
+    manifest["configs"].append({"name": "tinyr", "source": "test", "file": "benchmark/configs/tinyr.json",
+                                "reduced": [], "why": "test"})
+    manifest["workloads"].append({"name": "tinyr.cam", "config": "tinyr", "traffic": "cam", "chips": 1, "why": "test"})
+    for metric in manifest["end_to_end"] + manifest["per_layer"]:
+        if "tiny.cam" in metric.get("workloads", []):
+            metric["workloads"].append("tinyr.cam")
+    (root / "BENCHMARK.json").write_text(json.dumps(manifest))
+    return root
+
+
+def test_config_brings_its_own_backbone_file(tmp_path, monkeypatch):
+    """The check, the control and ``mfu.serve`` take the backbone from the file that the
+    configuration names; delegating to the built-in ResNet, it reads what ResNet reads."""
+    root = _own_backbone_root(tmp_path)
+    cell = run.load_cell("tinyr.cam", root)
+    assert cell.backbone.__file__ == str(root / "benchmark" / "reference" / "own.py")
+    model = cell.config["model"]
+    assert workcount.image_flops(model, 64, 96, cell.backbone) == workcount.image_flops(model, 64, 96)
+    res = run_tiny(root, "tinyr.cam")
+    assert res["correct"], res["checks"]
+    control = run_tiny(root, "tinyr.cam", control=1)
+    assert not control["correct"], control["checks"]
+    seen, real = [], workcount.image_flops
+    monkeypatch.setattr(workcount, "image_flops", lambda m, h, w, backbone=None: seen.append(backbone) or real(
+        m, h, w, backbone))
+    traced = run_tiny(root, "tinyr.cam", trace=1)
+    assert traced["correct"] and "mfu.serve" in traced["metrics"]
+    assert [b.__file__ for b in seen] == [cell.backbone.__file__]
+
+
+def test_fault_in_backbone_file_makes_run_incorrect(tmp_path):
+    res = run_tiny(_own_backbone_root(tmp_path, shift=5.0), "tinyr.cam")
+    assert not res["correct"], res["checks"]
+
+
+def test_backbone_file_count_moves_mfu(tmp_path):
+    """A backbone file that counts its operations twice: ``mfu.serve`` reads the backbone's
+    share of the request twice."""
+    readings = []
+    for scale in (1, 2):
+        cell = run.load_cell("tinyr.cam", _own_backbone_root(tmp_path / str(scale), scale=scale))
+        readings.append(run.layer_reader(cell, "mfu.serve")(SimpleNamespace(
+            config=cell.config, backbone=cell.backbone, batch=2, height=64, width=96, unprofiled_s=0.05)))
+    model = cell.config["model"]
+    backbone = workcount.resnet_flops(model["resnet"], *workcount.padded_hw(model, 64, 96))[0]
+    assert readings[1] - readings[0] == pytest.approx(100 * 2 * backbone / 0.05 / workcount.PEAK_BF16_FLOPS)
 
 
 def test_without_a_card_no_result(tmp_path):

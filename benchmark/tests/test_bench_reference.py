@@ -1,9 +1,9 @@
-"""The frozen reference against the port at small sizes on the CPU, at fp32: Swin-B and
-ResNet-50 at their full widths, the one- and three-level MSDeformAttn encoders, the masked
-decoder and the RbA score; the exact OOD metrics against a brute-force count."""
+"""The frozen reference against the port at small sizes on the CPU, at fp32: every
+configuration file of the benchmark (Swin-B and ResNet-50, and a backbone that a
+configuration brings in its own file) at its full widths, the one- and three-level
+MSDeformAttn encoders, the masked decoder and the RbA score; the exact OOD metrics against
+a brute-force count."""
 from __future__ import annotations
-
-import json
 
 import numpy as np
 import pytest
@@ -13,25 +13,25 @@ from benchmark import inputs, system
 from benchmark.reference import model as ref
 from benchmark.reference.ood_metrics import ood_metrics
 
-CONFIGS = ["swin_b_1dl", "mask2former_r50"]
+from .tiny import CONFIG_NAMES, repo_config
+
 SCENE = {"stripes": 2, "inliers": 3, "anomalies": 1}
 
 
-def _model(name: str, compute_dtype: str) -> dict:
-    from benchmark.tests.tiny import REPO
+def _model(name: str, compute_dtype: str):
+    """(the configuration's ``model`` at ``compute_dtype``, its reference backbone file or None)."""
+    config, backbone = repo_config(name)
+    return dict(config["model"], compute_dtype=compute_dtype), backbone
 
-    model = json.loads((REPO / "benchmark" / "configs" / f"{name}.json").read_text())["model"]
-    return dict(model, compute_dtype=compute_dtype)
 
-
-@pytest.mark.parametrize("name", CONFIGS)
+@pytest.mark.parametrize("name", CONFIG_NAMES)
 def test_reference_equals_port_at_fp32(name):
-    model = _model(name, "float32")
+    model, backbone = _model(name, "float32")
     weights = inputs.make_weights(system.parameter_shapes(model), model, 3, "cpu")
     cfg, net = system.build(model, {k: v.clone() for k, v in weights.items()})
     frames, _ = next(inputs.make_scenes(2, 64, 96, SCENE, 3, "cpu"))
     got = system.serve_fn(cfg, net, "fused")(frames)
-    want = torch.stack([ref.score_map(weights, model, f) for f in frames])
+    want = torch.stack([ref.score_map(weights, model, f, backbone=backbone) for f in frames])
     assert got.shape == want.shape == (2, 64, 96)
     assert float(want.std()) > 0.1  # the maps are not flat
     # fp32 rounding in other orders, which the random ResNet's growing activations amplify
@@ -40,17 +40,17 @@ def test_reference_equals_port_at_fp32(name):
     assert float(gap.max()) < 5e-3 and float(gap.mean()) < 1e-3
 
 
-@pytest.mark.parametrize("name", CONFIGS)
+@pytest.mark.parametrize("name", CONFIG_NAMES)
 def test_control_is_farther_than_the_bf16_program(name):
     """The reference's control (fp8 backbone, TF32 elsewhere) lies farther from the fp32
     reference than the program at its stated bf16 backbone, on the mean gap."""
-    model = _model(name, "bfloat16")
+    model, backbone = _model(name, "bfloat16")
     weights = inputs.make_weights(system.parameter_shapes(model), model, 4, "cpu")
     cfg, net = system.build(model, {k: v.clone() for k, v in weights.items()})
     frames, _ = next(inputs.make_scenes(2, 64, 96, SCENE, 4, "cpu"))
     got = system.serve_fn(cfg, net, "fused")(frames)
-    want = torch.stack([ref.score_map(weights, model, f) for f in frames])
-    control = torch.stack([ref.score_map(weights, model, f, lowp=True) for f in frames])
+    want = torch.stack([ref.score_map(weights, model, f, backbone=backbone) for f in frames])
+    control = torch.stack([ref.score_map(weights, model, f, lowp=True, backbone=backbone) for f in frames])
     assert float((control - want).abs().mean()) > 3 * float((got - want).abs().mean())
 
 

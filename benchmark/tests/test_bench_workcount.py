@@ -13,27 +13,28 @@ from benchmark import inputs, run, system, workcount
 from benchmark.reference import model as ref
 from benchmark.trace import Trace
 
-from .tiny import REPO
+from .tiny import CONFIG_NAMES, REPO, repo_config
 
 
 def _config(name: str) -> dict:
     return json.loads((REPO / "benchmark" / "configs" / f"{name}.json").read_text())
 
 
-@pytest.mark.parametrize("name", ["swin_b_1dl", "mask2former_r50"])
+@pytest.mark.parametrize("name", CONFIG_NAMES)
 def test_image_flops_equal_flop_counter_on_reference(name):
-    model = _config(name)["model"]
+    cfg, backbone = repo_config(name)
+    model = cfg["model"]
     weights = inputs.make_weights(system.parameter_shapes(model), model, 1, "cpu")
     image = torch.randint(0, 256, (64, 96, 3), dtype=torch.uint8)
     with FlopCounterMode(display=False) as counter:
-        ref.score_map(weights, model, image)
-    assert workcount.image_flops(model, 64, 96) == counter.get_total_flops()
+        ref.score_map(weights, model, image, backbone=backbone)
+    assert workcount.image_flops(model, 64, 96, backbone) == counter.get_total_flops()
 
 
-@pytest.mark.parametrize("name", ["swin_b_1dl", "mask2former_r50"])
+@pytest.mark.parametrize("name", CONFIG_NAMES)
 def test_config_file_records_its_work(name):
-    cfg = _config(name)
-    assert cfg["flops_per_image"]["1024x2048"] == workcount.image_flops(cfg["model"], 1024, 2048)
+    cfg, backbone = repo_config(name)
+    assert cfg["flops_per_image"]["1024x2048"] == workcount.image_flops(cfg["model"], 1024, 2048, backbone)
     assert cfg["parameters"] == sum(torch.Size(s).numel() for s in system.parameter_shapes(cfg["model"]).values())
 
 
@@ -62,7 +63,7 @@ def _synthetic_run(name: str, kernel_share: float) -> SimpleNamespace:
                    _event("fused_rba_mma_kernel", "kernel", t + 27_600, b * 1e6 / kernel_share),
                    _event("aten::add", "cpu_op", t + 30_000, 5_000)]
     return SimpleNamespace(trace=Trace(events), units=2, window_s=0.08, unprofiled_s=0.04, batch=1, height=1024,
-                           width=2048, config=cfg, traffic={})
+                           width=2048, config=cfg, traffic={}, backbone=None)
 
 
 @pytest.mark.parametrize("kernel_share", [0.05, 0.5, 1.0])

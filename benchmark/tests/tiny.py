@@ -8,6 +8,7 @@ import shutil
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
+CONFIG_NAMES = sorted(p.stem for p in (REPO / "benchmark" / "configs").glob("*.json"))  # every configuration file
 SCENE = {"stripes": 2, "inliers": 3, "anomalies": 1}
 TINY_LIMITS = {"serve": {"score_max_rel_gap": 1e-3, "score_mean_gap": 1e-3},
                "ood_eval": {"auroc_gap": 1e-3, "aupr_gap": 1e-3, "fpr95_gap": 1e-3}}
@@ -17,6 +18,15 @@ def tiny_model() -> dict:
     from rba_tpu_torch.config import tiny_test_config
 
     return json.loads(json.dumps(dataclasses.asdict(tiny_test_config())))
+
+
+def repo_config(name: str):
+    """(the benchmark's configuration file ``name``, the backbone file it names or None)."""
+    from benchmark import run
+
+    folder = REPO / "benchmark"
+    config = json.loads((folder / "configs" / f"{name}.json").read_text())
+    return config, run.reference_backbone(config, folder)
 
 
 def write_root(root: Path, traffic_batch: int = 2) -> Path:

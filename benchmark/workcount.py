@@ -116,10 +116,13 @@ def decoder_flops(d: dict, num_classes: int, level_hw: List[int], mask_hw: int) 
     return flops + 2 * q * c * (num_classes + 1) + head + 2 * q * md * mask_hw
 
 
-def image_flops(model: dict, h: int, w: int) -> int:
-    """Operations of one (h, w) image through the model and the RbA score."""
+def image_flops(model: dict, h: int, w: int, backbone=None) -> int:
+    """Operations of one (h, w) image through the model and the RbA score; the backbone's
+    are ``backbone``'s ``flops`` where a backbone file is given (``reference/__init__.py``)."""
     hp, wp = padded_hw(model, h, w)
-    if model["backbone_name"] == "swin":
+    if backbone is not None:
+        flops, feats = backbone.flops(model, hp, wp)
+    elif model["backbone_name"] == "swin":
         flops, feats = swin_flops(model["swin"], hp, wp)
     elif model["backbone_name"] == "resnet":
         flops, feats = resnet_flops(model["resnet"], hp, wp)
