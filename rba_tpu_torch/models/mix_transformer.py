@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..ops.nn import apply_conv, apply_linear, centered_layer_norm
+from ..utils.profiling import SR_ATTENTION, span
 from .swin import gelu
 from .vit import scaled
 
@@ -90,9 +91,10 @@ def _attention(p: nn.ModuleDict, x: torch.Tensor, h: int, w: int, num_heads: int
         xs = apply_conv(p["sr"], x.reshape(b, h, w, c), stride=sr, padding="VALID")
         kv_in = centered_layer_norm(xs.reshape(b, -1, c), p["sr_norm"])
     k, v = apply_linear(p["kv"], kv_in).reshape(b, -1, 2, num_heads, hd).permute(2, 0, 3, 1, 4)
-    attn = scaled(torch.matmul(q, k.transpose(-1, -2)), hd**-0.5)
-    attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
-    out = torch.matmul(attn, v)  # rba_tpu sums in fp32 and rounds once, as the product does here
+    with span(SR_ATTENTION):  # the core alone: the projections, the reduction and proj stay outside
+        attn = scaled(torch.matmul(q, k.transpose(-1, -2)), hd**-0.5)
+        attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
+        out = torch.matmul(attn, v)  # rba_tpu sums in fp32 and rounds once, as the product does here
     return apply_linear(p["proj"], out.transpose(1, 2).reshape(b, n, c))
 
 

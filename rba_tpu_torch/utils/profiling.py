@@ -29,8 +29,12 @@ LAYERS = ("preprocess", "backbone", "pixel_decoder", "transformer_decoder", "rba
 WINDOW_ATTENTION = "window_attention"  # each call of Kernel A's wrapper (``kernels/window_attention.py``)
 DEFORM_SAMPLING = "deform_sampling"  # each call of ``ops/deform_sampling.py`` ``ms_deform_attn_core``
 DEFORM_SAMPLING_BACKWARD = "deform_sampling_backward"  # and its backward, where autograd runs one
+# the core of each MiT block's spatial-reduction attention (``models/mix_transformer.py``
+# ``_attention``): q·kᵀ, the scale, the softmax with its casts, and the product with v
+SR_ATTENTION = "sr_attention"
 TRAIN_STEP = ("forward", "criterion", "backward", "optimizer")  # the parts of a train step
-ALL_SPANS = (REQUEST, UPLOAD, *LAYERS, WINDOW_ATTENTION, DEFORM_SAMPLING, DEFORM_SAMPLING_BACKWARD, *TRAIN_STEP)
+ALL_SPANS = (REQUEST, UPLOAD, *LAYERS, WINDOW_ATTENTION, DEFORM_SAMPLING, DEFORM_SAMPLING_BACKWARD, SR_ATTENTION,
+             *TRAIN_STEP)
 
 _OFF = contextlib.nullcontext()
 

@@ -1,17 +1,19 @@
 """The port's spans (``rba_tpu_torch/utils/profiling.py``): free when no profiler records,
 and under a profiler one ``request`` per call of an entry, holding its upload, its layers,
-each Kernel A call and each deformable-sampling call."""
+each Kernel A call, each MiT block's attention core and each deformable-sampling call."""
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from rba_tpu_torch.config import tiny_test_config
+from rba_tpu_torch.config import load_config, tiny_test_config
 from rba_tpu_torch.models import maskformer as tmf
+from rba_tpu_torch.models import mix_transformer as tmit
 from rba_tpu_torch.ops import deform_sampling as tds
 from rba_tpu_torch.utils import profiling as tprof
 
@@ -147,3 +149,51 @@ def test_registry_names_the_spans_the_readers_read():
     assert tprof.TRAIN_STEP == ("forward", "criterion", "backward", "optimizer")
     assert (tprof.REQUEST, tprof.UPLOAD, tprof.WINDOW_ATTENTION) == ("request", "upload", "window_attention")
     assert len(set(tprof.ALL_SPANS)) == len(tprof.ALL_SPANS)
+
+
+MIT_HW = (64, 96)
+MIT_YAML = Path(__file__).resolve().parents[1] / "configs/cityscapes/semantic-segmentation/mix_transformer" / \
+    "maskformer_2_mit_b5_in21k_1dl.yaml"
+
+
+@pytest.fixture(scope="module")
+def tiny_mit():
+    """RbA's MiT 1dl configuration with MiT-B0 in place of MiT-B5, on the CPU, and a frame."""
+    torch.manual_seed(2)
+    cfg = dataclasses.replace(load_config(str(MIT_YAML)), backbone_name="mit_b0")
+    image = torch.from_numpy(np.random.RandomState(2).randint(0, 256, (1, *MIT_HW, 3)).astype(np.uint8))
+    return cfg, tmf.build_model(cfg, device="cpu").eval(), image
+
+
+def test_mit_request_opens_one_sr_attention_span_per_block(tiny_mit):
+    cfg, model, image = tiny_mit
+    spans = _profiled(lambda: tmf.maskformer_infer_rba(model, cfg, image))
+    counts = _counts(spans)
+    assert counts[tprof.SR_ATTENTION] == sum(tmit.MIT_VARIANTS["mit_b0"].depths) == 8
+    assert counts[tprof.REQUEST] == counts["backbone"] == 1 and tprof.WINDOW_ATTENTION not in counts
+    backbone = next(e for e in spans if e.name == "backbone")
+    assert all(_within(e, backbone) for e in spans if e.name == tprof.SR_ATTENTION)
+
+
+def test_swin_request_opens_no_sr_attention_span(tiny):
+    cfg, model, image = tiny
+    assert tprof.SR_ATTENTION not in _counts(_profiled(lambda: tmf.maskformer_infer_rba(model, cfg, image)))
+
+
+def test_mit_span_without_a_profiler_never_enters_record_function(tiny_mit, monkeypatch):
+    cfg, model, image = tiny_mit
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered with no profiler running")
+
+    monkeypatch.setattr(tprof, "record_function", refuse)
+    out = tmf.maskformer_infer_rba(model, cfg, image)
+    assert tuple(out.shape) == (1, *MIT_HW) and bool(torch.isfinite(out).all())
+
+
+def test_mit_score_map_is_the_same_under_a_profiler(tiny_mit):
+    cfg, model, image = tiny_mit
+    plain = tmf.maskformer_infer_rba(model, cfg, image)
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiled = tmf.maskformer_infer_rba(model, cfg, image)
+    assert torch.equal(plain, profiled)
