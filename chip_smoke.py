@@ -605,13 +605,14 @@ def _timed(fn, *args, **kw):
 
 def _wrappers(lsap: bool = False, deform: bool = False):
     """Every kernel wrapper of the port's Pallas counterparts by name, with ``lsap``
-    Kernel E's too and with ``deform`` Kernel F's (the deformable sampling, counted on
-    the serving paths); each counts its launches."""
+    Kernel E's too and with ``deform`` Kernels F's and G's (the deformable sampling and
+    MiT's attention core, counted on the serving paths); each counts its launches."""
     from rba_tpu_torch.kernels.fused_mlp import fused_mlp_residual
     from rba_tpu_torch.kernels.fused_rba import fused_rba_score
     from rba_tpu_torch.kernels.lsap import batched_linear_sum_assignment
     from rba_tpu_torch.kernels.masked_softmax import masked_softmax
     from rba_tpu_torch.kernels.ms_deform_attn import ms_deform_attn
+    from rba_tpu_torch.kernels.sr_attention import sr_attention
     from rba_tpu_torch.kernels.window_attention import window_attention
 
     out = {"window_attention": window_attention, "fused_rba_score": fused_rba_score,
@@ -620,7 +621,22 @@ def _wrappers(lsap: bool = False, deform: bool = False):
         out["lsap"] = batched_linear_sum_assignment
     if deform:
         out["ms_deform_attn"] = ms_deform_attn
+        out["sr_attention"] = sr_attention
     return out
+
+
+def _sr_per_request(cfg, model) -> int:
+    """Kernel G launches of one request, at any batch: one per MiT block where
+    ``models/mix_transformer.py`` ``takes_kernel`` takes the block's core (no autograd
+    in a request), else none."""
+    from rba_tpu_torch.models.mix_transformer import MiT, takes_kernel
+
+    mit = model.backbone
+    if not isinstance(mit, MiT):
+        return 0
+    dtype = getattr(torch, cfg.compute_dtype)
+    return sum(depth for depth, dim, heads in zip(mit.cfg.depths, mit.cfg.embed_dims, mit.cfg.num_heads)
+               if takes_kernel(torch.device("cuda"), dtype, False, dim // heads))
 
 
 def _deform_per_request(cfg, model, batch: int = 1, hw=IMAGE_HW) -> int:
@@ -729,13 +745,11 @@ def _device_kernels(prof):
                    and not e.key.startswith("Optimizer.")), key=lambda r: -r[1])
 
 
-def _sampling_busy(device, layer_busy_ms):
-    """Device busy ms of the kernels that start inside the deformable-sampling spans
-    (one per encoder layer), those kernels by name, and their share of the pixel
-    decoder's busy time."""
-    from rba_tpu_torch.ops.deform_sampling import SPAN
-
-    spans = [e.time_range for e in device if e.name == SPAN]
+def _span_busy(device, layer_busy_ms, span: str):
+    """Device busy ms of the kernels that start inside the ``span`` spans (the deformable
+    sampling's, one per encoder layer; ``sr_attention``, one per MiT block), those kernels
+    by name, and their share of the enclosing layer's busy time ``layer_busy_ms``."""
+    spans = [e.time_range for e in device if e.name == span]
     spans_all = _annotations()
     inside = [e for e in device if e.name not in spans_all
               and any(sp.start <= e.time_range.start < sp.end for sp in spans)]
@@ -745,7 +759,7 @@ def _sampling_busy(device, layer_busy_ms):
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
     busy = sum(ms for ms, _ in by_name.values())
     return dict(spans=len(spans), busy_ms=busy,
-                share_of_pixel_decoder=busy / layer_busy_ms if layer_busy_ms else None,
+                share_of_layer=busy / layer_busy_ms if layer_busy_ms else None,
                 kernels=[dict(kernel=k[:120], ms=ms, calls=c)
                          for k, (ms, c) in sorted(by_name.items(), key=lambda r: -r[1][0])])
 
@@ -762,6 +776,8 @@ def profile_phase(path, cfg, model, image, attention, redesigned, top: int = 10)
     from torch.profiler import ProfilerActivity, profile
 
     from rba_tpu_torch.models.maskformer import LAYERS, maskformer_infer_rba
+    from rba_tpu_torch.ops.deform_sampling import SPAN
+    from rba_tpu_torch.utils.profiling import SR_ATTENTION
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -798,20 +814,26 @@ def profile_phase(path, cfg, model, image, attention, redesigned, top: int = 10)
                     if e.name not in spans_all and span.start <= e.time_range.start < span.end) / 1e3 if span else 0.0)
         layers[name] = dict(host_ms=host_spans[name].elapsed_us() / 1e3,
                             device_span_ms=span.elapsed_us() / 1e3 if span else 0.0, device_busy_ms=busy)
-    sampling = _sampling_busy(device, layers["pixel_decoder"]["device_busy_ms"])
+    sampling = _span_busy(device, layers["pixel_decoder"]["device_busy_ms"], SPAN)
+    sr = _span_busy(device, layers["backbone"]["device_busy_ms"], SR_ATTENTION)
     out = dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms, layers=layers,
                top=[dict(kernel=k[:120], ms=t, calls=c) for k, t, c in kernels[:top]],
-               hand_kernels=[dict(kernel=k[:120], ms=t, calls=c) for k, t, c in hand], sampling=sampling)
+               hand_kernels=[dict(kernel=k[:120], ms=t, calls=c) for k, t, c in hand], sampling=sampling,
+               sr_attention=sr)
     log(f"{path} profile of one request (profiler on): wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
         f"idle share {out['idle_share']:.3f}; by layer, host span / device span / device busy ms: "
         + "; ".join(f"{k} {v['host_ms']:.2f} / {v['device_span_ms']:.2f} / {v['device_busy_ms']:.2f}"
                     for k, v in layers.items()))
-    share = sampling["share_of_pixel_decoder"]
+    share = sampling["share_of_layer"]
     log(f"{path} deformable sampling ({sampling['spans']} calls): device busy {sampling['busy_ms']:.3f} ms, "
         + (f"{share:.3f} of the pixel decoder's busy time" if share is not None else "pixel decoder not measured"))
+    if sr["spans"]:
+        log(f"{path} spatial-reduction attention ({sr['spans']} cores): device busy {sr['busy_ms']:.3f} ms, "
+            f"{sr['share_of_layer']:.3f} of the backbone's busy time")
     for title, rows in ((f"{path} top kernels by device time:", out["top"]),
                         (f"{path} its hand kernels:", out["hand_kernels"]),
-                        (f"{path} the deformable sampling's kernels:", sampling["kernels"])):
+                        (f"{path} the deformable sampling's kernels:", sampling["kernels"]),
+                        (f"{path} the attention cores' kernels:", sr["kernels"])):
         log(title)
         for r in rows:
             log(f"  {r['ms']:8.3f} ms  x{r['calls']:<4d} {r['kernel']}")
@@ -1596,6 +1618,75 @@ def ms_deform_attn_phase(gen):
     return rows
 
 
+# (heads, N, M, blocks) of MiT-B5's four stages on a 1024x2048 frame: 52 attention cores
+MIT_B5_STAGES = ((1, 131072, 2048, 3), (2, 32768, 2048, 6), (5, 8192, 2048, 40), (8, 2048, 2048, 3))
+SR_BIT_EQUAL_SHARE = 0.99  # least share of Kernel G's outputs bit-equal to the plain chain's
+SR_MAX_ULPS = 2.0  # most |kernel - plain|, in bf16 ulps of the plain output row's largest |value|
+
+
+def sr_attention_gap(got: torch.Tensor, want: torch.Tensor):
+    """(share of the elements of ``got`` bit-equal to ``want``, largest |got - want| in
+    bf16 ulps of the largest |want| of its row): Kernel G's measure against its plain
+    chain, whose fp32 sums it takes in another order."""
+    got, want = got.float(), want.float()
+    row_max = want.abs().amax(-1, keepdim=True).clamp_min(2.0**-126)
+    ulp = torch.exp2(torch.floor(torch.log2(row_max)) - 7)
+    return float((got == want).float().mean()), float(((got - want).abs() / ulp).max())
+
+
+def sr_attention_phase(gen):
+    """Kernel G against ``sr_attention_plain`` at MiT-B5's four stage shapes of a
+    1024x2048 frame (head dim 64, M = 2,048 keys): at least ``SR_BIT_EQUAL_SHARE`` of the
+    outputs bit-equal and none beyond ``SR_MAX_ULPS`` of its row's largest value; per
+    call and per image (each stage's time times its blocks, 52 launches) the kernel's ms
+    beside the bound (q·kᵀ and p·v at 989 TFLOP/s, or q, k, v and the output once at
+    3.35 TB/s, the larger), the plain chain's and ``scaled_dot_product_attention``'s (the
+    yardstick ``library_ms``; the port never calls it)."""
+    from rba_tpu_torch.kernels.sr_attention import sr_attention
+    from rba_tpu_torch.models.mix_transformer import sr_attention_plain
+
+    hd = 64
+    rows = {}
+    image = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, launches=0)
+    for heads, n, m, blocks in MIT_B5_STAGES:
+        c = heads * hd
+        q = torch.randn(1, n, c, generator=gen, device="cuda").bfloat16()
+        kv = torch.randn(1, m, 2 * c, generator=gen, device="cuda").bfloat16()
+        qh = q.view(1, n, heads, hd).transpose(1, 2)
+        k, v = kv.view(1, m, 2, heads, hd).permute(2, 0, 3, 1, 4)
+        with torch.no_grad():
+            before = sr_attention.launches
+            got = sr_attention(q, kv, heads)
+            torch.cuda.synchronize()
+            launched = sr_attention.launches - before
+            want = sr_attention_plain(q, kv, heads)
+            share, ulps = sr_attention_gap(got, want)
+            finite = bool(torch.isfinite(got.float()).all())
+            t_all = cuda_ms_batches(lambda: sr_attention(q, kv, heads))
+            t_p = cuda_ms(lambda: sr_attention_plain(q, kv, heads), iters=5)
+            t_l = cuda_ms(lambda: F.scaled_dot_product_attention(qh, k, v), iters=5)
+        b_ms, b_by = bound_ms(2.0 * (2 * n * c + 2 * m * c), 4.0 * n * m * c, "bfloat16")
+        name = f"h{heads}_N{n}_M{m}"
+        rows[name] = dict(heads=heads, n=n, m=m, head_dim=hd, blocks=blocks, launches=launched,
+                          bit_equal_share=share, max_ulps=ulps, ms=t_all[0], ms_batches=t_all, plain_ms=t_p,
+                          library_ms=t_l, bound_ms=b_ms, bound_by=b_by, roofline=b_ms / t_all[0])
+        for key, t in (("ms", t_all[0]), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b_ms)):
+            image[key] += blocks * t
+        image["launches"] += blocks * launched
+        log(f"sr_attention {name} (x{blocks} blocks): bit-equal {share:.5f} (least {SR_BIT_EQUAL_SHARE}), worst "
+            f"{ulps:.2f} ulps of the row's largest (most {SR_MAX_ULPS}), launches {launched} | kernel "
+            f"{t_all[0]:.4f} ms (3 batches {_fmt(t_all)}), bound {b_ms:.4f} ms ({b_by}; "
+            f"{100 * b_ms / t_all[0]:.1f} %), plain {t_p:.4f} ms, SDPA {t_l:.4f} ms")
+        if not (share >= SR_BIT_EQUAL_SHARE and ulps <= SR_MAX_ULPS and launched == 1 and finite):
+            raise RuntimeError(f"sr_attention {name}: {rows[name]}, finite {finite}")
+        del q, kv, qh, k, v, got, want
+    rows["per_image"] = image
+    log(f"sr_attention per 1024x2048 MiT-B5 image ({image['launches']} launches): kernel {image['ms']:.3f} ms, "
+        f"bound {image['bound_ms']:.3f} ms ({100 * image['bound_ms'] / image['ms']:.1f} %), plain "
+        f"{image['plain_ms']:.3f} ms, SDPA {image['library_ms']:.3f} ms")
+    return rows
+
+
 def _write_cityscapes_split(root: Path, split: str, frames: int, rs):
     """``frames`` 1024x2048 PNG frames of a Cityscapes-layout split under ``root`` with
     ``*_gtFine_labelTrainIds.png`` (blocks of the 19 classes and some void), from ``rs``."""
@@ -2277,8 +2368,9 @@ def backbones_phase(images):
     profiled request (busy, idle share, busy per layer span) and the launches of every
     kernel.  Gates: finite (1, 1024, 2048) maps; Kernel B once per request where the mask
     features are at stride 4 and never elsewhere, Kernel F once per encoder layer where
-    ``_deform_per_request`` says so (and not the plain gather's kernel), no other
-    kernel; at fp32 the entry
+    ``_deform_per_request`` says so (and not the plain gather's kernel), Kernel G once per
+    MiT block where ``_sr_per_request`` says so (and nothing else inside the
+    ``sr_attention`` spans), no other kernel; at fp32 the entry
     equals its plain version and ``maskformer_infer(...)["rba"]`` within 1e-3."""
     from rba_tpu_torch.config import fast_serving, load_config
     from rba_tpu_torch.models.maskformer import build_model, maskformer_infer, maskformer_infer_rba
@@ -2305,7 +2397,7 @@ def backbones_phase(images):
                 times.append(ms)
             launches = counts()
             bad = [tuple(r.shape) for r in maps if tuple(r.shape) != (1, *IMAGE_HW) or not bool(torch.isfinite(r).all())]
-            want = dict(per_image, ms_deform_attn=_deform_per_request(c, model))
+            want = dict(per_image, ms_deform_attn=_deform_per_request(c, model), sr_attention=_sr_per_request(c, model))
             want = {k: want.get(k, 0) * N_REQUESTS for k in launches}
             if bad or launches != want:
                 raise RuntimeError(f"backbones {name} {label}: maps {bad} not finite (1, 1024, 2048), launches "
@@ -2316,6 +2408,11 @@ def backbones_phase(images):
         if _deform_per_request(cfg, model):
             redesigned.update(KERNEL_F)
         row["profile"] = profile_phase(f"backbones {name}", cfg, model, images[1], "fused", redesigned, top=6)
+        cores, blocks = row["profile"].get("sr_attention"), _sr_per_request(cfg, model)
+        if blocks and cores is not None and not (cores["spans"] == blocks == sum(k["calls"] for k in cores["kernels"])
+                           and all("sr_attention_kernel" in k["kernel"] for k in cores["kernels"])):
+            raise RuntimeError(f"backbones {name}: the attention cores ran {cores}, expected Kernel G alone, once "
+                               "per block")
         cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
         counts = _zero_counts()
         r32 = maskformer_infer_rba(model, cfg32, images[1])
@@ -3606,6 +3703,7 @@ def main() -> int:
     mlp_rows, mlp, mlp_err = fused_mlp_phase(gen)
     lsap_rows = lsap_phase(gen)
     mda_rows = ms_deform_attn_phase(gen)
+    sr_rows = sr_attention_phase(gen)
 
     from rba_tpu_torch.models.maskformer import build_model
 
@@ -3829,6 +3927,14 @@ def main() -> int:
              gather_floor_ms=mda_rows["r50_B1"]["gather_floor_ms"], ms_batches=mda_rows["r50_B1"]["ms_batches"],
              **{f"{k2}_{k}": r[k2] for k, r in mda_rows.items() if k.startswith("swin_b")
                 for k2 in ("ms", "plain_ms", "bound_ms", "gather_floor_ms")}),
+        dict(name="sr_attention", route="cuda", source="rba_tpu_torch/csrc/sr_attention.cu",
+             replaces="none (rba_tpu/models/mix_transformer.py computes the core in plain jnp)",
+             launches=backbones["mit_b5_1dl"]["parity"]["launches"]["sr_attention"],
+             launches_per_image=sr_rows["per_image"]["launches"],
+             bit_equal_share=min(r["bit_equal_share"] for k, r in sr_rows.items() if k != "per_image"),
+             max_ulps=max(r["max_ulps"] for k, r in sr_rows.items() if k != "per_image"),
+             **{k: sr_rows["per_image"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+             bound_by="operations"),
     ]
     if args.out:
         args.out.mkdir(parents=True, exist_ok=True)
@@ -3837,7 +3943,7 @@ def main() -> int:
                  masked_softmax=ms_rows, fused_mlp=mlp_rows, serve=serve, paths_fp32_max_diff=cross32,
                  paths_bf16_max_diff_not_gated=cross16, profile=prof, fast=fast, xla=xla, eval=evaluation, d2=d2,
                  tta=tta, sliding=sliding, dense_hybrid=dense_hybrid, sweep_cli=sweep_cli, lsap=lsap_rows,
-                 ms_deform_attn=mda_rows,
+                 ms_deform_attn=mda_rows, sr_attention=sr_rows,
                  train=train, semseg=semseg, panoptic=panoptic, train_eval=train_eval, backbones=backbones,
                  r50_d2=r50_d2, train_backbones=train_backbones, masked_softmax_swin_l=ms_rows_l, swin_l=swin_l,
                  train_datasets=train_datasets, heads=heads, hf=hf, parallel=parallel, int8=int8, tools=tools,
@@ -3869,7 +3975,8 @@ def main() -> int:
         f"phase's {TRAIN_DS_WARMUP + TRAIN_DS_TIMED} steps of each recipe, its ms, "
         "plain_ms and bound are per launch on one step's real costs, scipy_ms scipy's host time on them with the "
         f"copy; ms_deform_attn's times are per call at R50's three levels (one encoder layer of one 1024x2048 "
-        "frame), *_swin_b_B1 / _B4 at Swin-B's one level, batch 1 and 4; "
+        "frame), *_swin_b_B1 / _B4 at Swin-B's one level, batch 1 and 4; sr_attention's times are per MiT-B5 "
+        "1024x2048 image (its 52 calls), its launches count the mit_b5_1dl backbones requests; "
         f"{time.perf_counter() - T_START:.1f} s in all)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,12 +13,14 @@ padded input, the kernel's ×4 upsample.  A model whose mask features lie at ano
 stride (ViT at 16, WiderResNet-38 at 8) takes ``maskformer_infer(...)["rba"]``, which
 resizes the masks to the padded input as the reference does; ``rba_tpu``'s fused tail
 returns a map of the wrong size there (ROADMAP.md §C).  The ``attention`` argument
-picks Swin's window-attention branch (the other backbones run no kernel):
+picks Swin's window-attention branch (MiT runs Kernel G in its attention cores, the
+other backbones no kernel):
 ``"fused"`` (Kernel A, path 1), ``"fused_softmax"`` (Kernel C, path 2, which
 with ``SwinConfig.mlp_impl="fused"`` also runs Kernel D) or ``"xla"`` (``rba_tpu``'s
 default chain in plain PyTorch); see ``models/swin.py``.
 ``maskformer_infer_rba(..., plain=True)`` runs the plain PyTorch versions of
-the kernels instead (the deformable sampling's too, Kernel F's), which is how each path
+the kernels instead (the deformable sampling's and MiT's attention core's too, Kernels F
+and G), which is how each path
 is held against them on the card.
 Each call of an entry is one ``request`` span, and inside it the frames' upload and
 each layer run in spans named after them (``UPLOAD``, ``LAYERS``; ``utils/profiling.py``),
@@ -224,7 +226,7 @@ def _backbone_features(model: RbAModel, cfg: RbAConfig, images, plain: bool, att
         if cfg.backbone_name == "swin":
             return swin_apply(model.backbone, cfg.swin, images, _dtype(cfg.compute_dtype), plain=plain,
                               attention=attention, fast_math=cfg.fast_math)
-        return backbone_apply(model.backbone, cfg, images, _dtype(cfg.compute_dtype))
+        return backbone_apply(model.backbone, cfg, images, _dtype(cfg.compute_dtype), plain)
 
 
 def per_pixel_forward(

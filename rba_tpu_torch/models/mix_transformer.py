@@ -5,7 +5,9 @@ spatial-reduction attention (keys and values from a strided conv of the map) and
 MLP with a 3×3 depthwise conv, and a final LayerNorm; ``res2``…``res5`` at strides
 4…32.  LayerNorm eps 1e-6, with the variance centred (``ops.nn.centered_layer_norm``).
 The attention rounds as ``rba_tpu``'s does: q·kᵀ in the compute dtype, times the scale
-rounded to it, the softmax in fp32 rounded back, ``· v`` summed in fp32 and rounded.
+rounded to it, the softmax in fp32 rounded back, ``· v`` summed in fp32 and rounded.  Its
+core runs Kernel G (``kernels/sr_attention.py``) where ``takes_kernel`` says so, else the
+plain chain ``sr_attention_plain``.
 Parameter names follow the JAX pytree: ``stages.2.blocks.5.attn.kv``,
 ``stages.0.blocks.1.mlp.dwconv``, ``stages.3.norm``.  ``drop_path_rate`` is kept and not
 applied, in training too: ``rba_tpu``'s MiT has no stochastic depth and its
@@ -19,6 +21,8 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from ..kernels.sr_attention import HEAD_DIMS as KERNEL_HEAD_DIMS
+from ..kernels.sr_attention import sr_attention
 from ..ops.nn import apply_conv, apply_linear, centered_layer_norm
 from ..utils.profiling import SR_ATTENTION, span
 from .swin import gelu
@@ -82,20 +86,46 @@ class MiT(nn.Module):
         self.stages = nn.ModuleList(stages)
 
 
-def _attention(p: nn.ModuleDict, x: torch.Tensor, h: int, w: int, num_heads: int, sr: int) -> torch.Tensor:
-    b, n, c = x.shape
+def takes_kernel(device: torch.device, dtype: torch.dtype, needs_grad: bool, head_dim: int) -> bool:
+    """Whether a block's attention core runs Kernel G: its tensors are on CUDA in bf16,
+    autograd does not need the core's gradient, and the kernel is built for the head dim
+    (``kernels/sr_attention.py`` ``HEAD_DIMS``)."""
+    return device.type == "cuda" and dtype == torch.bfloat16 and not needs_grad and head_dim in KERNEL_HEAD_DIMS
+
+
+def sr_attention_plain(
+    q: torch.Tensor,  # (B, N, C), the q linear's output
+    kv: torch.Tensor,  # (B, M, 2C), the kv linear's output: k, then v
+    num_heads: int,
+) -> torch.Tensor:  # (B, N, C)
+    """The attention core in plain PyTorch, Kernel G's plain version: q·kᵀ in the input
+    dtype, times ``hd**-0.5`` rounded to it, the softmax in fp32 rounded back, ``· v``."""
+    b, n, c = q.shape
     hd = c // num_heads
-    q = apply_linear(p["q"], x).reshape(b, n, num_heads, hd).transpose(1, 2)
+    q = q.reshape(b, n, num_heads, hd).transpose(1, 2)
+    k, v = kv.reshape(b, -1, 2, num_heads, hd).permute(2, 0, 3, 1, 4)
+    attn = scaled(torch.matmul(q, k.transpose(-1, -2)), hd**-0.5)
+    attn = torch.softmax(attn.float(), dim=-1).to(q.dtype)
+    out = torch.matmul(attn, v)  # rba_tpu sums in fp32 and rounds once, as the product does here
+    return out.transpose(1, 2).reshape(b, n, c)
+
+
+def _attention(p: nn.ModuleDict, x: torch.Tensor, h: int, w: int, num_heads: int, sr: int,
+               plain: bool) -> torch.Tensor:
+    b, n, c = x.shape
+    q = apply_linear(p["q"], x)
     kv_in = x
     if sr > 1:
         xs = apply_conv(p["sr"], x.reshape(b, h, w, c), stride=sr, padding="VALID")
         kv_in = centered_layer_norm(xs.reshape(b, -1, c), p["sr_norm"])
-    k, v = apply_linear(p["kv"], kv_in).reshape(b, -1, 2, num_heads, hd).permute(2, 0, 3, 1, 4)
-    with span(SR_ATTENTION):  # the core alone: the projections, the reduction and proj stay outside
-        attn = scaled(torch.matmul(q, k.transpose(-1, -2)), hd**-0.5)
-        attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
-        out = torch.matmul(attn, v)  # rba_tpu sums in fp32 and rounds once, as the product does here
-    return apply_linear(p["proj"], out.transpose(1, 2).reshape(b, n, c))
+    kv = apply_linear(p["kv"], kv_in)
+    needs_grad = torch.is_grad_enabled() and (q.requires_grad or kv.requires_grad)
+    kernel = not plain and takes_kernel(q.device, q.dtype, needs_grad, c // num_heads)
+    # the core alone (the plain chain's merge of the heads included): the projections, the
+    # reduction and proj stay outside
+    with span(SR_ATTENTION):
+        out = (sr_attention if kernel else sr_attention_plain)(q, kv, num_heads)
+    return apply_linear(p["proj"], out)
 
 
 def _mlp(p: nn.ModuleDict, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -106,8 +136,10 @@ def _mlp(p: nn.ModuleDict, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return apply_linear(p["fc2"], gelu(y.reshape(b, n, hidden)))
 
 
-def mit_apply(model: MiT, images: torch.Tensor, compute_dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
-    """(B, H, W, 3) normalized → {res2..res5} NHWC maps in ``compute_dtype``."""
+def mit_apply(model: MiT, images: torch.Tensor, compute_dtype=torch.bfloat16,
+              plain: bool = False) -> Dict[str, torch.Tensor]:
+    """(B, H, W, 3) normalized → {res2..res5} NHWC maps in ``compute_dtype``; ``plain``
+    keeps every attention core on ``sr_attention_plain``."""
     cfg = model.cfg
     x = images.to(compute_dtype)
     outs = {}
@@ -117,7 +149,8 @@ def mit_apply(model: MiT, images: torch.Tensor, compute_dtype=torch.bfloat16) ->
         b, h, w, dim = x.shape
         x = centered_layer_norm(x.reshape(b, h * w, dim), stage["patch_embed"]["norm"])
         for blk in stage["blocks"]:
-            x = x + _attention(blk.attn, centered_layer_norm(x, blk.norm1), h, w, cfg.num_heads[s], cfg.sr_ratios[s])
+            x = x + _attention(blk.attn, centered_layer_norm(x, blk.norm1), h, w, cfg.num_heads[s], cfg.sr_ratios[s],
+                               plain)
             x = x + _mlp(blk.mlp, centered_layer_norm(x, blk.norm2), h, w)
         x = centered_layer_norm(x, stage["norm"]).reshape(b, h, w, dim)
         outs[f"res{s + 2}"] = x

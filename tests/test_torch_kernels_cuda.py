@@ -14,7 +14,9 @@ from rba_tpu_torch.kernels import fused_rba as tfr
 from rba_tpu_torch.kernels import lsap as tls
 from rba_tpu_torch.kernels import masked_softmax as tms
 from rba_tpu_torch.kernels import ms_deform_attn as tmd
+from rba_tpu_torch.kernels import sr_attention as tsa
 from rba_tpu_torch.kernels import window_attention as twa
+from rba_tpu_torch.models import mix_transformer as tmit
 from rba_tpu_torch.models.swin import shifted_window_mask
 from rba_tpu_torch.ops import deform_sampling as tds
 
@@ -200,6 +202,9 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
         c = 192
         tfm.fused_mlp_residual(torch.zeros(8, c, device=cuda), *(torch.zeros(*s, device=cuda) for s in
                                ((c,), (c,), (4 * c, c), (4 * c,), (c, 4 * c), (c,))))
+    with pytest.raises(ValueError):  # head dim 48: not built
+        tsa.sr_attention(torch.zeros(1, 16, 96, device=cuda, dtype=torch.bfloat16),
+                         torch.zeros(1, 4, 192, device=cuda, dtype=torch.bfloat16), 2)
 
 
 def test_wrappers_refuse_gradients_on_the_card(cuda):
@@ -318,3 +323,57 @@ def test_ms_deform_attn_grad_takes_the_plain_path(cuda):
         grads[dev] = [x.grad.cpu() for x in xs]
     for got, want in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# (batch, heads, N, M, head dim): MiT-B5's four stages on a 1024x2048 frame; batch 2; MiT-B0's
+# head dim 32 (its first and third stages); a 720x1280 frame, padded to 736x1280, whose N and
+# M are no multiples of the kernel's 128 query rows and 64 keys; M < 64; one key
+SR_SHAPES = [(1, 1, 131072, 2048, 64), (1, 2, 32768, 2048, 64), (1, 5, 8192, 2048, 64), (1, 8, 2048, 2048, 64),
+             (2, 5, 8192, 2048, 64), (1, 1, 131072, 2048, 32), (1, 5, 8192, 2048, 32),
+             (1, 1, 58880, 920, 64), (1, 2, 14720, 920, 64), (1, 5, 3680, 920, 64), (1, 8, 920, 920, 64),
+             (3, 2, 77, 37, 64), (2, 3, 50, 5, 32), (1, 1, 1, 1, 64)]
+
+
+@pytest.mark.parametrize("shape", SR_SHAPES, ids=["b5_s1", "b5_s2", "b5_s3", "b5_s4", "b5_s3_B2", "b0_s1_hd32",
+                                                  "b0_s3_hd32", "720_s1", "720_s2", "720_s3", "720_s4", "M37",
+                                                  "M5_hd32", "M1"])
+def test_sr_attention_kernel(cuda, shape):
+    """Kernel G against ``sr_attention_plain``: only the order of the fp32 sums differs,
+    which moves a bf16 rounding now and then.  At least 99 % of the outputs are
+    bit-equal and none lies beyond 2 bf16 ulps of its row's largest |value|.  Measured
+    on an H100 80GB HBM3 (these inputs): bit-equal 99.900-99.905 % at the four MiT-B5
+    stage shapes, 99.894 % at batch 2, 99.898-99.899 % at head dim 32, 99.938-99.947 %
+    at the 720x1280 shapes, 100 % at M = 37, 5 and 1; the worst gap 1 ulp throughout."""
+    import chip_smoke
+
+    b, heads, n, m, hd = shape
+    gen = torch.Generator(device=cuda).manual_seed(n + m + hd)
+    q = torch.randn(b, n, heads * hd, generator=gen, device=cuda).bfloat16()
+    kv = torch.randn(b, m, 2 * heads * hd, generator=gen, device=cuda).bfloat16()
+    before = tsa.sr_attention.launches
+    with torch.no_grad():
+        got = tsa.sr_attention(q, kv, heads)
+    torch.cuda.synchronize()
+    assert tsa.sr_attention.launches == before + 1 and got.shape == q.shape and got.dtype == torch.bfloat16
+    share, ulps = chip_smoke.sr_attention_gap(got, tmit.sr_attention_plain(q, kv, heads))
+    assert share >= chip_smoke.SR_BIT_EQUAL_SHARE and ulps <= chip_smoke.SR_MAX_ULPS, (share, ulps)
+    if m == 1:  # one key: p = 1, the output is v
+        assert torch.equal(got, kv[:, :, heads * hd:].expand(b, n, heads * hd))
+
+
+def test_sr_attention_grad_takes_the_plain_path(cuda):
+    """MiT-B0 on the card at bf16: under autograd every attention core takes the plain
+    chain (no launch; the output equals ``plain=True``'s), without it one launch a block."""
+    torch.manual_seed(0)
+    model = tmit.MiT(tmit.MIT_VARIANTS["mit_b0"]).to(cuda)
+    images = torch.randn(1, 64, 96, 3, device=cuda)
+    before = tsa.sr_attention.launches
+    got = tmit.mit_apply(model, images.requires_grad_())
+    assert tsa.sr_attention.launches == before
+    want = tmit.mit_apply(model, images, plain=True)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    got["res5"].float().sum().backward()
+    assert images.grad is not None
+    with torch.no_grad():
+        tmit.mit_apply(model, images)
+    assert tsa.sr_attention.launches == before + sum(tmit.MIT_VARIANTS["mit_b0"].depths)
