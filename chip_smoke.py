@@ -603,6 +603,14 @@ def _timed(fn, *args, **kw):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def _plain(on: bool = True):
+    """``kernels.plain_versions()`` where ``on``: the kernels' plain versions inside the
+    block; else no switch, the kernels."""
+    from rba_tpu_torch.kernels import plain_versions
+
+    return plain_versions() if on else contextlib.nullcontext()
+
+
 def _wrappers(lsap: bool = False, deform: bool = False):
     """Every kernel wrapper of the port's Pallas counterparts by name, with ``lsap``
     Kernel E's too and with ``deform`` Kernels F's and G's (the deformable sampling and
@@ -627,24 +635,26 @@ def _wrappers(lsap: bool = False, deform: bool = False):
 
 def _sr_per_request(cfg, model) -> int:
     """Kernel G launches of one request, at any batch: one per MiT block where
-    ``models/mix_transformer.py`` ``takes_kernel`` takes the block's core (no autograd
-    in a request), else none."""
-    from rba_tpu_torch.models.mix_transformer import MiT, takes_kernel
+    ``kernels/sr_attention.py`` ``takes`` takes the block's core (no autograd in a
+    request), else none."""
+    from rba_tpu_torch.kernels.sr_attention import takes
+    from rba_tpu_torch.models.mix_transformer import MiT
 
     mit = model.backbone
     if not isinstance(mit, MiT):
         return 0
     dtype = getattr(torch, cfg.compute_dtype)
     return sum(depth for depth, dim, heads in zip(mit.cfg.depths, mit.cfg.embed_dims, mit.cfg.num_heads)
-               if takes_kernel(torch.device("cuda"), dtype, False, dim // heads))
+               if takes(torch.device("cuda"), dtype, False, dim // heads))
 
 
 def _deform_per_request(cfg, model, batch: int = 1, hw=IMAGE_HW) -> int:
     """Kernel F launches of one request of ``batch`` hw frames: one per encoder layer of
     a deformable pixel decoder whose levels' shapes and sampling forms
-    ``ops/deform_sampling.py`` ``takes_kernel`` takes, else none."""
+    ``kernels/ms_deform_attn.py`` ``takes`` takes, else none."""
+    from rba_tpu_torch.kernels.ms_deform_attn import takes
     from rba_tpu_torch.models.pixel_decoder import PixelDecoder
-    from rba_tpu_torch.ops.deform_sampling import sampling_methods, takes_kernel
+    from rba_tpu_torch.ops.deform_sampling import sampling_methods
 
     if not isinstance(model.sem_seg_head["pixel_decoder"], PixelDecoder):
         return 0
@@ -655,8 +665,8 @@ def _deform_per_request(cfg, model, batch: int = 1, hw=IMAGE_HW) -> int:
     lq, m = sum(h * w for h, w in shapes), pd.transformer_nheads
     methods = sampling_methods(batch, m, lq, shapes, pd.sampling_method, pd.sampling_onehot_cap)
     value, loc = (batch, lq, m, pd.conv_dim // m), (batch, lq, m, len(shapes), pd.enc_n_points, 2)
-    takes = takes_kernel(torch.device("cuda"), False, methods, pd.sampling_dtype, value, loc)
-    return pd.transformer_enc_layers if takes else 0
+    return pd.transformer_enc_layers if takes(torch.device("cuda"), False, methods, pd.sampling_dtype, value, loc) \
+        else 0
 
 
 def serve_phase(name, cfg, model, images, attention, per_image):
@@ -671,7 +681,8 @@ def serve_phase(name, cfg, model, images, attention, per_image):
     wrappers = _wrappers(lsap=True, deform=True)
     infer = functools.partial(maskformer_infer_rba, model, attention=attention)
     infer(cfg, images[0])  # warm-up requests, one per path
-    infer(cfg, images[0], plain=True)
+    with _plain():
+        infer(cfg, images[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in wrappers.values():
@@ -679,7 +690,8 @@ def serve_phase(name, cfg, model, images, attention, per_image):
     scores, plain_scores, times, t_plain = [], [], [], []
     for i in range(1, N_REQUESTS + 1):  # kernel, plain, plain, kernel, ...
         for plain in ((False, True) if i % 2 else (True, False)):
-            rba, ms = _timed(infer, cfg, images[i], plain=plain)
+            with _plain(plain):
+                rba, ms = _timed(infer, cfg, images[i])
             (plain_scores if plain else scores).append(rba)
             (t_plain if plain else times).append(ms)
     launches = {k: fn.launches for k, fn in wrappers.items()}
@@ -707,7 +719,8 @@ def serve_phase(name, cfg, model, images, attention, per_image):
     err32 = err16 = spread16 = 0.0
     scores32 = []
     for i in range(1, N_REQUESTS + 1):
-        plain32 = infer(cfg32, images[i], plain=True)
+        with _plain():
+            plain32 = infer(cfg32, images[i])
         scores32.append(infer(cfg32, images[i]))
         err32 = max(err32, max_abs(scores32[-1], plain32))
         err16 = max(err16, max_abs(scores[i - 1], plain_scores[i - 1]))
@@ -1014,9 +1027,9 @@ def eval_phase(cfg, busy_ms, model, samples, gen_s):
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     fp32 = {}
     for plain in (False, True):
-        ev32 = OODEvaluator(cfg32, model, score=lambda x, plain=plain: maskformer_infer_rba(
-            model, cfg32, to_device(x, "cuda"), plain=plain))
-        fp32["plain" if plain else "kernels"] = ev32.evaluate_ood(*ev32.compute_anomaly_scores(samples[:2]))
+        ev32 = OODEvaluator(cfg32, model, score=lambda x: maskformer_infer_rba(model, cfg32, to_device(x, "cuda")))
+        with _plain(plain):
+            fp32["plain" if plain else "kernels"] = ev32.evaluate_ood(*ev32.compute_anomaly_scores(samples[:2]))
     fp32_diff = max(abs(fp32["kernels"][k] - fp32["plain"][k]) for k in names)
     log(f"eval: fp32 metrics on 2 images, kernels {fp32['kernels']} vs plain versions {fp32['plain']}: "
         f"max diff {fp32_diff:.3e} (bound {E2E_FP32_TOL:.0e})")
@@ -1307,12 +1320,15 @@ def tta_phase(cfg, model, image):
             raise RuntimeError(f"tta {name}: launches {launches} (expected {expected}), finite {finite}")
         out[name] = dict(ms_per_image=ms, launches=launches, peak_gib=peak_gib, sampling=forms, profile=prof)
     fcfg = fast_serving(cfg)
-    err16 = max_abs(tta_inference(model, fcfg, img), tta_inference(model, fcfg, img, plain=True))
+    k16 = tta_inference(model, fcfg, img)
+    with _plain():
+        err16 = max_abs(k16, tta_inference(model, fcfg, img))
     c32 = dataclasses.replace(cfg, compute_dtype="float32")
     counts = _zero_counts()
     k = tta_inference(model, c32, img)
     launches32 = counts()
-    p = tta_inference(model, c32, img, plain=True)
+    with _plain():
+        p = tta_inference(model, c32, img)
     err_sem, err_rba = max_abs(k, p), max_abs(rba_score(k[None]), rba_score(p[None]))
     log(f"tta fp32 backbone, kernels ({launches32['window_attention']} Kernel A launches) vs plain versions: "
         f"sem_seg max diff {err_sem:.3e}, rba_score {err_rba:.3e} (bound {E2E_FP32_TOL:.0e}, gated); at "
@@ -1356,7 +1372,8 @@ def sliding_phase(cfg, model, image, gen):
     counts = _zero_counts()
     k = sliding_window_sem_seg(model, c32, image[0])
     launches32 = counts()["window_attention"]
-    err = max_abs(k, sliding_window_sem_seg(model, c32, image[0], plain=True))
+    with _plain():
+        err = max_abs(k, sliding_window_sem_seg(model, c32, image[0]))
     log(f"sliding 1024x2048 fp32 backbone, kernels ({launches32} Kernel A launches) vs plain versions: sem_seg max "
         f"diff {err:.3e} (bound {E2E_FP32_TOL:.0e}, gated)")
     if not err <= E2E_FP32_TOL or launches32 != out["1024x2048"]["launches"]["window_attention"]:
@@ -1387,7 +1404,8 @@ def dense_hybrid_phase(image):
     counts = _zero_counts()
     k = OODEvaluator(c32, model, score="dense_hybrid").score_fn(image)
     launches32 = counts()
-    o = maskformer_infer(model, c32, image.float(), plain=True)
+    with _plain():
+        o = maskformer_infer(model, c32, image.float())
     p = -torch.logsumexp(o["sem_seg"], 1) + torch.log(torch.softmax(o["ood_pred"], 1)[:, 1] + 1e-9)
     err = max_abs(k, p)
     log(f"dense_hybrid: one request {ms:.2f} ms, launches {launches}, finite {finite}, scores "
@@ -1757,21 +1775,23 @@ def _mapped_batch(cfg, args, n: int = TRAIN_BATCH):
 def _recorded_assignments(store: list):
     """Record the cost and the result of every Kernel E call that the matcher makes; the
     kernel's wrapper, with its launch count, is the same."""
+    from types import SimpleNamespace
+
     from rba_tpu_torch.train import matcher
 
-    real = matcher.batched_linear_sum_assignment
+    real = matcher.kernel  # the matcher's route asks this module for its rule and its kernel
 
     def recorded(cost):
-        out = real(cost)
+        out = real.batched_linear_sum_assignment(cost)
         if len(store) < 2:
             store.append((cost.clone(), out.clone()))
         return out
 
-    matcher.batched_linear_sum_assignment = recorded
+    matcher.kernel = SimpleNamespace(takes=real.takes, batched_linear_sum_assignment=recorded)
     try:
         yield store
     finally:
-        matcher.batched_linear_sum_assignment = real
+        matcher.kernel = real
 
 
 def _train_args(root: Path, weights: Path, out: Path, micro: int, max_iter: int):
@@ -2025,10 +2045,13 @@ def semseg_phase(model_dir: Path):
 
     # fp32: the kernels against their plain versions, on the same weights
     cfg32 = dataclasses.replace(load_d2_config(str(model_dir / "config.yaml")), compute_dtype="float32")
-    evs = {plain: SemSegEvaluator(cfg32, model, plain=plain) for plain in (False, True)}
+    evs = {plain: SemSegEvaluator(cfg32, model) for plain in (False, True)}
     same = total = 0
     for s in samples[:2]:
-        preds = {plain: e.predict(s.image) for plain, e in evs.items()}
+        preds = {}
+        for plain, e in evs.items():
+            with _plain(plain):
+                preds[plain] = e.predict(s.image)
         same += int((preds[False] == preds[True]).sum())
         total += preds[False].numel()
         for plain, e in evs.items():
@@ -2417,7 +2440,8 @@ def backbones_phase(images):
         counts = _zero_counts()
         r32 = maskformer_infer_rba(model, cfg32, images[1])
         fused32 = counts()["fused_rba_score"]
-        plain32 = maskformer_infer_rba(model, cfg32, images[1], plain=True)
+        with _plain():
+            plain32 = maskformer_infer_rba(model, cfg32, images[1])
         infer32 = maskformer_infer(model, cfg32, images[1])["rba"]
         row["fp32"] = dict(vs_plain=max_abs(r32, plain32), vs_maskformer_infer=max_abs(r32, infer32),
                            kernel_b_launches=fused32, bound=E2E_FP32_TOL)
@@ -2618,8 +2642,8 @@ def _fp32_kernel_vs_plain(cfg, model, batch):
             for n, p in model.named_parameters():
                 p.copy_(weights[n])
         st = make_train_state(cfg32, model=model, seed=TRAIN_SEED)
-        out["plain" if plain else "kernel"] = {k: float(v) for k, v in make_train_step(cfg32, plain=plain)(
-            st, small).items()}
+        with _plain(plain):
+            out["plain" if plain else "kernel"] = {k: float(v) for k, v in make_train_step(cfg32)(st, small).items()}
     # each metric within 1e-6 of its own size: the losses come from the same matching, and
     # grad_norm differs in its last bits between any two runs of one step (the backward's
     # atomic adds sum in no fixed order)
@@ -3249,8 +3273,9 @@ def _fp32_against_infer(name, cfg, model, image, attention):
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     got = maskformer_infer_rba(model, cfg32, image, attention=attention)
-    plain = maskformer_infer_rba(model, cfg32, image, attention=attention, plain=True)
-    full = maskformer_infer(model, cfg32, image, attention=attention, plain=True)["rba"]
+    with _plain():
+        plain = maskformer_infer_rba(model, cfg32, image, attention=attention)
+        full = maskformer_infer(model, cfg32, image, attention=attention)["rba"]
     errs = dict(vs_plain=max_abs(got, plain), vs_maskformer_infer=max_abs(got, full))
     log(f"heads {name} at fp32: the entry vs its plain version {errs['vs_plain']:.3e}, vs maskformer_infer "
         f"{errs['vs_maskformer_infer']:.3e} (bound {E2E_FP32_TOL:.0e}, gated)")

@@ -45,10 +45,9 @@ def confusion_counts(pred: torch.Tensor, label: torch.Tensor, k: int) -> torch.T
 class SemSegEvaluator:
     """Aggregate-confusion-matrix mIoU (plus per-class IoU and pixel accuracy)."""
 
-    def __init__(self, cfg: RbAConfig, model, plain: bool = False):
+    def __init__(self, cfg: RbAConfig, model):
         self.cfg = cfg
         self.model = model
-        self.plain = plain  # the kernels' plain versions, to hold the kernels against them
         k = cfg.num_classes
         self._conf = torch.zeros((k, k), dtype=torch.int64, device=_device(model))
 
@@ -59,7 +58,7 @@ class SemSegEvaluator:
     def predict(self, image: np.ndarray) -> torch.Tensor:
         """The (H, W) argmax of the semantic logits of one (H, W, 3) image, on the card."""
         images = torch.from_numpy(np.array(image)[None])
-        sem = maskformer_infer(self.model, self.cfg, images, plain=self.plain)["sem_seg"]
+        sem = maskformer_infer(self.model, self.cfg, images)["sem_seg"]
         return sem[0].argmax(0)
 
     def add(self, pred: torch.Tensor, label: np.ndarray) -> None:

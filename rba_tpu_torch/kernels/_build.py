@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List, Sequence
 
 import torch
 
@@ -105,7 +105,25 @@ def refuse_grad(what: str, *tensors) -> None:
             "plain-PyTorch branch (attention=\"xla\")")
 
 
-def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error (the C side returns cudaGetLastError())."""
-    if err:
-        raise RuntimeError(f"{what}: CUDA error {err}: {lib.rba_error_string(err).decode()}")
+class Launcher:
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, which takes the CUDA stream last
+    and returns ``cudaGetLastError()``.  Its library is loaded, and built first where
+    stale, at the first launch, never at import."""
+
+    def __init__(self, name: str, symbol: str, argtypes: Sequence):
+        self._name, self._symbol, self._argtypes = name, symbol, [*argtypes, ctypes.c_void_p]
+        self._lib = self._fn = None
+
+    def __call__(self, wrapper: Callable, device: torch.device, *args) -> None:
+        """Launch on ``device``'s current stream, raise if the launch returned a CUDA error,
+        and count it in ``wrapper.launches``."""
+        if self._fn is None:
+            lib = load(self._name)
+            fn = getattr(lib, self._symbol)
+            fn.argtypes, fn.restype = self._argtypes, ctypes.c_int
+            self._lib, self._fn = lib, fn
+        with torch.cuda.device(device):
+            err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{wrapper.__name__}: CUDA error {err}: {self._lib.rba_error_string(err).decode()}")
+        wrapper.launches += 1

@@ -17,12 +17,11 @@ both designs.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _PLAIN, _build
 
 DTYPES = (torch.float32, torch.bfloat16)
 EPS = 1e-5  # the Pallas kernel's LayerNorm epsilon
@@ -88,13 +87,15 @@ def _check(x, gamma, beta, w1, b1, w2, b2):
     return x.numel() // c, c
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    lib = _build.load("fused_mlp")
-    fn = lib.rba_fused_mlp
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+_LAUNCH = _build.Launcher("fused_mlp", "rba_fused_mlp",
+                          [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int])
+
+
+def takes(x: torch.Tensor) -> bool:
+    """Whether a call runs the kernel: outside ``plain_versions()``, on any device but the
+    CPU (the launcher raises on one other than CUDA, and on a shape it cannot take).
+    Whether the MLP tail is fused at all is the Swin block's choice (``beneficial``)."""
+    return x.device.type != "cpu" and not _PLAIN.get()
 
 
 def fused_mlp_residual(
@@ -106,26 +107,19 @@ def fused_mlp_residual(
     w2: torch.Tensor,
     b2: torch.Tensor,
 ) -> torch.Tensor:
-    """``x + fc2(gelu(fc1(LayerNorm(x))))`` over the last axis.  On a CUDA tensor it
-    launches the hand kernel or raises; on a CPU tensor it runs
+    """``x + fc2(gelu(fc1(LayerNorm(x))))`` over the last axis: the hand kernel where
+    ``takes`` says so (it raises on what it cannot take), else
     ``fused_mlp_residual_reference``."""
-    if x.device.type == "cpu":
+    if not takes(x):
         return fused_mlp_residual_reference(x, gamma, beta, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_residual runs on cuda or cpu, not {x.device}")
     t, c = _check(x, gamma, beta, w1, b1, w2, b2)
     if x.dtype == torch.bfloat16:  # the tensor-core kernel reads the weights in bf16
         w1, w2 = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
-    lib, fn = _kernel()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), out.data_ptr(), t, c, int(x.dtype == torch.bfloat16), stream,
-        )
-    _build.check(lib, err, "fused_mlp_residual")
-    fused_mlp_residual.launches += 1
+    _LAUNCH(fused_mlp_residual, x.device, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), t, c, int(x.dtype == torch.bfloat16))
     return out
 
 

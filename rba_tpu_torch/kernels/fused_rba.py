@@ -13,12 +13,11 @@ bound and the design.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _PLAIN, _build
 
 SMEM_LIMIT = 227 * 1024  # shared memory one block can have on the H100
 _TILE_COLS = 33  # low-res pixels per staged row (csrc/fused_rba.cu kTileCols)
@@ -55,13 +54,13 @@ def fused_rba_score_reference(
     return -torch.tanh(sem).sum(dim=1)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    lib = _build.load("fused_rba")
-    fn = lib.rba_fused_rba_score
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+_LAUNCH = _build.Launcher("fused_rba", "rba_fused_rba_score", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5)
+
+
+def takes(mask_pred: torch.Tensor) -> bool:
+    """Whether a call runs the kernel: outside ``plain_versions()``, on any device but the
+    CPU (the launcher raises on one other than CUDA, and on a shape it cannot take)."""
+    return mask_pred.device.type != "cpu" and not _PLAIN.get()
 
 
 def fused_rba_score(
@@ -69,10 +68,10 @@ def fused_rba_score(
     mask_pred: torch.Tensor,
     masks_layout: str = "bqhw",
 ) -> torch.Tensor:  # (B, 4h, 4w) fp32
-    """RbA score map of the x4-upsampled masks.  On CUDA tensors it launches the hand
-    kernel or raises (a ``bqhw`` input is transposed to ``bhwq`` first); on CPU tensors
-    it runs ``fused_rba_score_reference``."""
-    if mask_pred.device.type == "cpu":
+    """RbA score map of the x4-upsampled masks: the hand kernel where ``takes`` says so
+    (it raises on what it cannot take; a ``bqhw`` input is transposed to ``bhwq``
+    first), else ``fused_rba_score_reference``."""
+    if not takes(mask_pred):
         return fused_rba_score_reference(mask_cls, mask_pred, masks_layout)
     if mask_pred.device.type != "cuda" or mask_cls.device != mask_pred.device:
         raise ValueError(f"fused_rba_score runs on one cuda device or on cpu, got "
@@ -94,13 +93,8 @@ def fused_rba_score(
         raise ValueError(f"Q = {q}, K = {k} need {smem_bytes(q, k)} bytes of shared memory, "
                          f"more than the {SMEM_LIMIT} a block can have")
     cls = torch.softmax(mask_cls, dim=-1)[..., :k].contiguous()
-    lib, fn = _kernel()
     out = torch.empty(b, 4 * h, 4 * w, dtype=torch.float32, device=m.device)
-    with torch.cuda.device(m.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(cls.data_ptr(), m.data_ptr(), out.data_ptr(), b, q, k, h, w, stream)
-    _build.check(lib, err, "fused_rba_score")
-    fused_rba_score.launches += 1
+    _LAUNCH(fused_rba_score, m.device, cls.data_ptr(), m.data_ptr(), out.data_ptr(), b, q, k, h, w)
     return out
 
 

@@ -1,23 +1,20 @@
-"""Exact linear-sum assignment on the card: the hand kernel ``csrc/lsap.cu`` (Kernel E)
-and its plain version.
+"""Exact linear-sum assignment on the card: the hand kernel ``csrc/lsap.cu`` (Kernel E).
 
 ``rba_tpu`` keeps the matcher's Hungarian assignment on the device as a
 Jonker–Volgenant solver in ``lax`` while-loops (``rba_tpu/ops/lsap.py``), so that its
 train step never waits on the host.  Eager PyTorch has no device-side loop, so the port
 runs the same solver as one CUDA kernel: a block of one warp per matrix, the columns
 over the lanes, the rows in order.  Its assignment equals the plain version's
-(``ops/lsap.py``) exactly.  The source note in the .cu file gives the bound and the
-design.
+(``ops/lsap.py``) exactly, and ``train/matcher.py`` asks ``takes`` which of the two
+runs.  The source note in the .cu file gives the bound and the design.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from ..ops.lsap import batched_linear_sum_assignment as batched_linear_sum_assignment_reference
-from . import _build
+from . import _PLAIN, _build
 
 MAX_COLS = 1024  # columns (and rows) of a matrix the kernel takes
 
@@ -35,32 +32,27 @@ def _check(cost: torch.Tensor):
     return b, r, c
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    lib = _build.load("lsap")
-    fn = lib.rba_lsap
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+_LAUNCH = _build.Launcher("lsap", "rba_lsap", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3)
+
+
+def takes(cost: torch.Tensor) -> bool:
+    """Whether an assignment runs the kernel: outside ``plain_versions()``, on any device
+    but the CPU (the launcher raises on one other than CUDA, on a shape it cannot take
+    and on a cost that needs a gradient)."""
+    return cost.device.type != "cpu" and not _PLAIN.get()
 
 
 def batched_linear_sum_assignment(cost: torch.Tensor) -> torch.Tensor:
     """(B, R, C) fp32 cost, R <= C → (B, R) int32 column of each row, the exact minimum
-    assignment with ``rba_tpu``'s tie order.  On a CUDA tensor it launches the hand
-    kernel or raises; on a CPU tensor it runs the plain version."""
-    if cost.device.type == "cpu":
-        return batched_linear_sum_assignment_reference(cost)
+    assignment with ``rba_tpu``'s tie order, in one launch on the cost's CUDA device; it
+    raises on any other device: its plain version is ``ops/lsap.py``'s."""
     if cost.device.type != "cuda":
-        raise ValueError(f"batched_linear_sum_assignment runs on cuda or cpu, not {cost.device}")
+        raise ValueError(f"batched_linear_sum_assignment runs on cuda, not {cost.device}")
     if cost.requires_grad and torch.is_grad_enabled():
         raise RuntimeError("the LSAP kernel has no gradient: call it on a detached cost")
     b, r, c = _check(cost)
-    lib, fn = _kernel()
     out = torch.empty(b, r, dtype=torch.int32, device=cost.device)
-    with torch.cuda.device(cost.device):
-        err = fn(cost.data_ptr(), out.data_ptr(), b, r, c, torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "lsap")
-    batched_linear_sum_assignment.launches += 1
+    _LAUNCH(batched_linear_sum_assignment, cost.device, cost.data_ptr(), out.data_ptr(), b, r, c)
     return out
 
 

@@ -14,12 +14,11 @@ bound and the design.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
 import torch
 
-from . import _build
+from . import _PLAIN, _build
 
 MAX_TOKENS = 160  # keys per row the kernel takes
 OUT_DTYPES = (torch.float32, torch.bfloat16)
@@ -67,13 +66,13 @@ def _check(scores, rel_bias, mask, out_dtype):
     return bw, nh, n
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    lib = _build.load("masked_softmax")
-    fn = lib.rba_masked_softmax
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+_LAUNCH = _build.Launcher("masked_softmax", "rba_masked_softmax", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5)
+
+
+def takes(scores: torch.Tensor) -> bool:
+    """Whether a call runs the kernel: outside ``plain_versions()``, on any device but the
+    CPU (the launcher raises on one other than CUDA, and on a shape it cannot take)."""
+    return scores.device.type != "cpu" and not _PLAIN.get()
 
 
 def masked_softmax(
@@ -82,27 +81,21 @@ def masked_softmax(
     mask: Optional[torch.Tensor],
     out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """softmax(scores + rel_bias + mask) over the last axis, in ``out_dtype``.  On a CUDA
-    tensor it launches the hand kernel or raises; on a CPU tensor it runs
+    """softmax(scores + rel_bias + mask) over the last axis, in ``out_dtype``: the hand
+    kernel where ``takes`` says so (it raises on what it cannot take), else
     ``masked_softmax_reference``.  The kernel has no gradient: with grad mode on and an
-    input that requires one it raises, on either device, instead of returning a result
+    input that requires one it raises, on either path, instead of returning a result
     cut off from the graph."""
     _build.refuse_grad("masked_softmax (Kernel C)", scores, rel_bias, mask)
-    if scores.device.type == "cpu":
+    if not takes(scores):
         return masked_softmax_reference(scores, rel_bias, mask, out_dtype)
     if scores.device.type != "cuda":
         raise ValueError(f"masked_softmax runs on cuda or cpu, not {scores.device}")
     bw, nh, n = _check(scores, rel_bias, mask, out_dtype)
-    lib, fn = _kernel()
     out = torch.empty(bw, nh, n, n, dtype=out_dtype, device=scores.device)
-    with torch.cuda.device(scores.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            scores.data_ptr(), rel_bias.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
-            bw, nh, n, 1 if mask is None else mask.shape[0], int(out_dtype == torch.bfloat16), stream,
-        )
-    _build.check(lib, err, "masked_softmax")
-    masked_softmax.launches += 1
+    _LAUNCH(masked_softmax, scores.device, scores.data_ptr(), rel_bias.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(), bw, nh, n,
+            1 if mask is None else mask.shape[0], int(out_dtype == torch.bfloat16))
     return out
 
 

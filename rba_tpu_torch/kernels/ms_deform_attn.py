@@ -6,19 +6,19 @@ while eager PyTorch runs the port's gather (``ops/deform_sampling.py`` ``_sample
 as about 100 small operations per level.  The kernel computes that gather, summed over
 levels, points and corners, in one launch per call, and writes the (N, Lq, M·D) output
 directly.  Its plain version is ``ops/deform_sampling.py`` ``ms_deform_attn_plain``, and
-``ms_deform_attn_core`` there decides which of the two runs (``takes_kernel``): the plain
-version stays for the CPU, for training (the kernel has no gradient), for the bf16
-one-hot form and for shapes the kernel is not built for (``supports``).  The source note in the .cu file gives the bound and the design.
+``ms_deform_attn_core`` there runs the one ``takes`` names: the plain version stays for
+the CPU, for training (the kernel has no gradient), for the bf16 one-hot form and for
+shapes the kernel is not built for (``supports``).  The source note in the .cu file
+gives the bound and the design.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Sequence, Tuple
 
 import torch
 
-from . import _build
+from . import _PLAIN, _build
 
 HEAD_DIMS = (16, 32)  # per-head channels D the kernel is built for: 32 in every served config, 16 in the tests
 MAX_LEVELS = 4
@@ -33,6 +33,18 @@ def supports(value_shape: Sequence[int], loc_shape: Sequence[int]) -> bool:
     lq, nl, p = loc_shape[1], loc_shape[3], loc_shape[4]
     return (d in HEAD_DIMS and 1 <= nl <= MAX_LEVELS
             and max(s, lq, 4 * nl * p, -(-n * lq * m // WARPS)) < 2**31)
+
+
+def takes(device: torch.device, needs_grad: bool, methods: Sequence[str], sampling_dtype: str,
+          value_shape: Sequence[int], loc_shape: Sequence[int]) -> bool:
+    """Whether a call runs the kernel: outside ``plain_versions()``, its tensors are on
+    CUDA, autograd does not need the sampling's gradient, no level takes the one-hot form
+    (``"onehot"`` in ``methods`` at ``sampling_dtype="bfloat16"``), and the kernel is built
+    for its shapes, value (N, S, M, D) and sampling_locations (N, Lq, M, L, P, 2)
+    (``supports``: D 16 or 32, 1 to 4 levels)."""
+    onehot = sampling_dtype == "bfloat16" and "onehot" in methods
+    return (device.type == "cuda" and not needs_grad and not onehot and supports(value_shape, loc_shape)
+            and not _PLAIN.get())
 
 
 def _check(value, spatial_shapes, loc, attn) -> Tuple[int, int, int, int, int, int, int]:
@@ -66,14 +78,8 @@ def _check(value, spatial_shapes, loc, attn) -> Tuple[int, int, int, int, int, i
     return n, s, m, d, lq, nl, p
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    lib = _build.load("ms_deform_attn")
-    fn = lib.rba_ms_deform_attn
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return lib, fn
+_LAUNCH = _build.Launcher("ms_deform_attn", "rba_ms_deform_attn", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                          + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 2)
 
 
 def ms_deform_attn(
@@ -91,14 +97,10 @@ def ms_deform_attn(
         raise ValueError(f"ms_deform_attn runs on one cuda device, got {device}, {sampling_locations.device} "
                          f"and {attention_weights.device}")
     _build.refuse_grad("ms_deform_attn", value, sampling_locations, attention_weights)
-    lib, fn = _kernel()
     out = torch.empty(n, lq, m * d, dtype=torch.float32, device=device)
     hw = (ctypes.c_int * (2 * nl))(*(int(x) for shape in spatial_shapes for x in shape))
-    with torch.cuda.device(device):
-        err = fn(value.data_ptr(), sampling_locations.data_ptr(), attention_weights.data_ptr(), out.data_ptr(),
-                 n, s, m, d, lq, hw, nl, p, torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "ms_deform_attn")
-    ms_deform_attn.launches += 1
+    _LAUNCH(ms_deform_attn, device, value.data_ptr(), sampling_locations.data_ptr(), attention_weights.data_ptr(),
+            out.data_ptr(), n, s, m, d, lq, hw, nl, p)
     return out
 
 

@@ -6,25 +6,32 @@ fuses, while eager PyTorch runs the port's chain (``models/mix_transformer.py``
 ``sr_attention_plain``) as six to eight operations that write every block's whole score
 matrix to device memory four times.  The kernel computes that chain, with its roundings,
 in one launch per block, reading q and k, v straight from the linears' outputs and
-writing the output in the layout ``proj`` takes.  ``models/mix_transformer.py``
-``takes_kernel`` decides which of the two runs: the plain chain stays for the CPU, for
-fp32, for training (the kernel has no gradient) and for head dims the kernel is not
-built for.  The source note in the .cu file gives the bound and the design.
+writing the output in the layout ``proj`` takes.  ``models/mix_transformer.py`` runs the
+one ``takes`` names: the plain chain stays for the CPU, for fp32, for training (the
+kernel has no gradient) and for head dims the kernel is not built for.  The source note
+in the .cu file gives the bound and the design.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _PLAIN, _build
 
 HEAD_DIMS = (32, 64)  # per-head channels the kernel is built for: 32 on MiT-B0, 64 on MiT-B1…B5
 MAX_IMAGE_HEADS = 65535  # images × heads: the launch's second grid dimension
 # hd**-0.5 rounded to bf16, as models/vit.py scaled rounds it
 SCALES = {hd: torch.tensor(hd**-0.5, dtype=torch.bfloat16).item() for hd in HEAD_DIMS}
+
+
+def takes(device: torch.device, dtype: torch.dtype, needs_grad: bool, head_dim: int) -> bool:
+    """Whether a block's attention core runs the kernel: outside ``plain_versions()``, its
+    tensors are on CUDA in bf16, autograd does not need the core's gradient, and the
+    kernel is built for the head dim (``HEAD_DIMS``)."""
+    return (device.type == "cuda" and dtype == torch.bfloat16 and not needs_grad and head_dim in HEAD_DIMS
+            and not _PLAIN.get())
 
 
 def _check(q: torch.Tensor, kv: torch.Tensor, num_heads: int) -> Tuple[int, int, int, int]:
@@ -51,13 +58,8 @@ def _check(q: torch.Tensor, kv: torch.Tensor, num_heads: int) -> Tuple[int, int,
     return b, n, m, hd
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    lib = _build.load("sr_attention")
-    fn = lib.rba_sr_attention
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+_LAUNCH = _build.Launcher("sr_attention", "rba_sr_attention",
+                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float])
 
 
 def sr_attention(
@@ -73,13 +75,8 @@ def sr_attention(
     if device.type != "cuda" or kv.device != device:
         raise ValueError(f"sr_attention runs on one cuda device, got {device} and {kv.device}")
     _build.refuse_grad("sr_attention", q, kv)
-    lib, fn = _kernel()
     out = torch.empty_like(q)
-    with torch.cuda.device(device):
-        err = fn(q.data_ptr(), kv.data_ptr(), out.data_ptr(), b, n, m, num_heads, hd, SCALES[hd],
-                 torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "sr_attention")
-    sr_attention.launches += 1
+    _LAUNCH(sr_attention, device, q.data_ptr(), kv.data_ptr(), out.data_ptr(), b, n, m, num_heads, hd, SCALES[hd])
     return out
 
 

@@ -14,13 +14,12 @@ fp32.  The source note in the .cu file gives the bound and both designs.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
 import torch
 
 from ..utils.profiling import WINDOW_ATTENTION, span
-from . import _build
+from . import _PLAIN, _build
 
 # (N, hd) the kernel takes: N <= 160 keys per window, head dims 16 and 32
 MAX_TOKENS = 160
@@ -78,13 +77,14 @@ def _check(qkv, rel_bias, mask, nh):
     return bw, n, hd
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    lib = _build.load("window_attention")
-    fn = lib.rba_window_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+_LAUNCH = _build.Launcher("window_attention", "rba_window_attention",
+                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int])
+
+
+def takes(qkv: torch.Tensor) -> bool:
+    """Whether a call runs the kernel: outside ``plain_versions()``, on any device but the
+    CPU (the launcher raises on one other than CUDA, and on a shape it cannot take)."""
+    return qkv.device.type != "cpu" and not _PLAIN.get()
 
 
 def window_attention(
@@ -94,29 +94,22 @@ def window_attention(
     nh: int,
     scale: float,
 ) -> torch.Tensor:
-    """Window attention of fused qkv.  On a CUDA tensor it launches the hand kernel or
-    raises; on a CPU tensor it runs ``window_attention_reference``.  The kernel has no
+    """Window attention of fused qkv: the hand kernel where ``takes`` says so (it raises
+    on what it cannot take), else ``window_attention_reference``.  The kernel has no
     gradient: with grad mode on and an input that requires one it raises, on either
-    device, instead of returning a result cut off from the graph.  Each call, on either
-    device, is one ``window_attention`` span."""
+    path, instead of returning a result cut off from the graph.  Each call, on either
+    path, is one ``window_attention`` span."""
     with span(WINDOW_ATTENTION):
         _build.refuse_grad("window_attention (Kernel A)", qkv, rel_bias, mask)
-        if qkv.device.type == "cpu":
+        if not takes(qkv):
             return window_attention_reference(qkv, rel_bias, mask, nh, scale)
         if qkv.device.type != "cuda":
             raise ValueError(f"window_attention runs on cuda or cpu, not {qkv.device}")
         bw, n, hd = _check(qkv, rel_bias, mask, nh)
-        lib, fn = _kernel()
         out = torch.empty(bw, n, nh * hd, dtype=qkv.dtype, device=qkv.device)
-        with torch.cuda.device(qkv.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = fn(
-                qkv.data_ptr(), rel_bias.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
-                bw, n, nh, hd, 1 if mask is None else mask.shape[0], float(scale),
-                int(qkv.dtype == torch.bfloat16), stream,
-            )
-        _build.check(lib, err, "window_attention")
-        window_attention.launches += 1
+        _LAUNCH(window_attention, qkv.device, qkv.data_ptr(), rel_bias.data_ptr(),
+                None if mask is None else mask.data_ptr(), out.data_ptr(), bw, n, nh, hd,
+                1 if mask is None else mask.shape[0], float(scale), int(qkv.dtype == torch.bfloat16))
         return out
 
 

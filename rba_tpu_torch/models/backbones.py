@@ -7,9 +7,8 @@ and their fixed configs are the JAX package's: Swin (``cfg.swin``), ResNet
 (``ViTConfig()``), ViT with the SimpleFeaturePyramid (``vit_sfp``, the pyramid at
 ``pixel_decoder.conv_dim``), MViTv2 (``MViTConfig()``) and WiderResNet-38
 (``WideResNetConfig()``).  Swin and MiT run kernels: ``maskformer.maskformer_forward``
-calls ``swin.swin_apply`` for Swin with its ``attention``, ``plain`` and ``fast_math``
-arguments, and ``backbone_apply`` hands MiT its ``plain`` (Kernel G in each block's
-attention core).
+calls ``swin.swin_apply`` for Swin with its ``attention`` and ``fast_math`` arguments,
+and MiT runs Kernel G in each block's attention core.
 """
 from __future__ import annotations
 
@@ -61,16 +60,14 @@ def backbone_apply(
     cfg: RbAConfig,
     images: torch.Tensor,  # (B, H, W, 3) normalized
     compute_dtype=torch.bfloat16,
-    plain: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """The NHWC feature maps by name, in ``compute_dtype``, of a backbone other than Swin
-    (Swin runs through ``swin.swin_apply``, which picks its kernels); ``plain`` keeps MiT
-    on its attention core's plain version."""
+    (Swin runs through ``swin.swin_apply``, which picks its kernels)."""
     name = cfg.backbone_name
     if name == "resnet":
         return resnet_apply(model, images, compute_dtype)
     if name == "mix_transformer" or name in MIT_VARIANTS:
-        return mit_apply(model, images, compute_dtype, plain)
+        return mit_apply(model, images, compute_dtype)
     if name == "vit":
         return vit_apply(model, images, compute_dtype)
     if name == "vit_sfp":

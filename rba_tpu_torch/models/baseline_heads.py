@@ -176,15 +176,14 @@ def build_pixel_decoder(cfg: RbAConfig, in_channels: Dict[str, int]) -> nn.Modul
     raise NotImplementedError(f"PIXEL_DECODER_NAME {name}")
 
 
-def pixel_decoder_apply(pd: nn.Module, cfg: RbAConfig, features: Dict[str, torch.Tensor], dtype=torch.float32,
-                        plain: bool = False):
+def pixel_decoder_apply(pd: nn.Module, cfg: RbAConfig, features: Dict[str, torch.Tensor], dtype=torch.float32):
     """(mask_features, the encoder's top feature, the multi-scale features) of any pixel
-    decoder; ``plain`` keeps the deformable sampling on its plain version."""
+    decoder."""
     if isinstance(pd, FPNPixelDecoder):
         return fpn_pixel_decoder_apply(pd, cfg, features, dtype)
     from .pixel_decoder import pixel_decoder_apply as msdeform_apply
 
-    return msdeform_apply(pd, cfg.pixel_decoder, features, dtype, plain)
+    return msdeform_apply(pd, cfg.pixel_decoder, features, dtype)
 
 
 # ---------------------------------------------------------------------------

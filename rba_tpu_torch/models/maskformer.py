@@ -17,11 +17,9 @@ picks Swin's window-attention branch (MiT runs Kernel G in its attention cores, 
 other backbones no kernel):
 ``"fused"`` (Kernel A, path 1), ``"fused_softmax"`` (Kernel C, path 2, which
 with ``SwinConfig.mlp_impl="fused"`` also runs Kernel D) or ``"xla"`` (``rba_tpu``'s
-default chain in plain PyTorch); see ``models/swin.py``.
-``maskformer_infer_rba(..., plain=True)`` runs the plain PyTorch versions of
-the kernels instead (the deformable sampling's and MiT's attention core's too, Kernels F
-and G), which is how each path
-is held against them on the card.
+default chain in plain PyTorch); see ``models/swin.py``.  Under
+``kernels.plain_versions()`` every entry runs the kernels' plain PyTorch versions
+instead, which is how each path is held against them on the card.
 Each call of an entry is one ``request`` span, and inside it the frames' upload and
 each layer run in spans named after them (``UPLOAD``, ``LAYERS``; ``utils/profiling.py``),
 so a profile of the entry reads its layers.
@@ -42,7 +40,7 @@ import torch
 from torch import nn
 
 from ..config import RbAConfig, check_supported
-from ..kernels.fused_rba import fused_rba_score, fused_rba_score_reference
+from ..kernels.fused_rba import fused_rba_score
 from ..ops.resize import resize_bilinear
 from ..utils.profiling import LAYERS  # noqa: F401  (the spans of a request's layers, read as maskformer.LAYERS)
 from ..utils.profiling import REQUEST, UPLOAD, span
@@ -192,7 +190,6 @@ def maskformer_forward(
     images: torch.Tensor,  # (B, Hp, Wp, 3) normalized and padded
     final_mask_layout: str = "bqhw",
     need_aux: bool = False,
-    plain: bool = False,
     attention: str = "fused",
 ) -> Dict:
     """pred_logits (B, Q, K+1) and pred_masks at the mask features' stride s (4 but for
@@ -204,10 +201,10 @@ def maskformer_forward(
     window-attention branch (``swin_apply``).  A per-pixel head takes ``per_pixel_forward``."""
     if is_per_pixel(cfg):
         raise ValueError(f"{cfg.sem_seg_head_name} has no mask predictions; call per_pixel_forward")
-    features = _backbone_features(model, cfg, images, plain, attention)
+    features = _backbone_features(model, cfg, images, attention)
     with span("pixel_decoder"):
         mask_features, enc_feat, ms_feats = bh.pixel_decoder_apply(model.sem_seg_head["pixel_decoder"], cfg,
-                                                                   features, _dtype(cfg.pixel_decoder_dtype), plain)
+                                                                   features, _dtype(cfg.pixel_decoder_dtype))
     pred, d = model.sem_seg_head["predictor"], cfg.decoder
     with span("transformer_decoder"):
         if isinstance(pred, bh.StandardDecoder):
@@ -220,31 +217,30 @@ def maskformer_forward(
                              final_mask_layout=final_mask_layout, need_aux=need_aux or pred.class_embed is None)
 
 
-def _backbone_features(model: RbAModel, cfg: RbAConfig, images, plain: bool, attention: str):
+def _backbone_features(model: RbAModel, cfg: RbAConfig, images, attention: str):
     check_supported(cfg)
     with span("backbone"):
         if cfg.backbone_name == "swin":
-            return swin_apply(model.backbone, cfg.swin, images, _dtype(cfg.compute_dtype), plain=plain,
-                              attention=attention, fast_math=cfg.fast_math)
-        return backbone_apply(model.backbone, cfg, images, _dtype(cfg.compute_dtype), plain)
+            return swin_apply(model.backbone, cfg.swin, images, _dtype(cfg.compute_dtype), attention=attention,
+                              fast_math=cfg.fast_math)
+        return backbone_apply(model.backbone, cfg, images, _dtype(cfg.compute_dtype))
 
 
 def per_pixel_forward(
     model: RbAModel,
     cfg: RbAConfig,
     images: torch.Tensor,  # (B, Hp, Wp, 3) normalized and padded
-    plain: bool = False,
     attention: str = "fused",
 ):
     """A per-pixel head's ((B, K, Hp/4, Wp/4) class logits, aux list of {"pred_masks"}):
     the Plus head's earlier decoder layers, none for the plain head."""
     if not is_per_pixel(cfg):
         raise ValueError("per_pixel_forward takes a per-pixel baseline head")
-    features = _backbone_features(model, cfg, images, plain, attention)
+    features = _backbone_features(model, cfg, images, attention)
     head = model.sem_seg_head
     with span("pixel_decoder"):
         mask_features, enc_feat, _ = bh.pixel_decoder_apply(head["pixel_decoder"], cfg, features,
-                                                            _dtype(cfg.pixel_decoder_dtype), plain)
+                                                            _dtype(cfg.pixel_decoder_dtype))
     with span("transformer_decoder"):  # the predictor
         return bh.per_pixel_predict(head["predictor"], cfg, features, mask_features, enc_feat)
 
@@ -282,7 +278,6 @@ def maskformer_infer_rba(
     model: RbAModel,
     cfg: RbAConfig,
     images: torch.Tensor,  # (B, H, W, 3) raw RGB
-    plain: bool = False,
     attention: str = "fused",
 ) -> torch.Tensor:  # (B, H, W) fp32
     """RbA score map: the full-resolution tail (x4 upsample → sigmoid → class
@@ -294,17 +289,16 @@ def maskformer_infer_rba(
     window-attention branch.  The call is one ``request`` span."""
     with span(REQUEST):
         if model.mask_stride(cfg) != 4 or is_per_pixel(cfg):
-            return _infer(model, cfg, images, None, False, attention, plain)["rba"]
+            return _infer(model, cfg, images, None, False, attention)["rba"]
         images = _on_model(model, images)
         h_img, w_img = images.shape[1], images.shape[2]
         with span("preprocess"):
             x = preprocess(cfg, images)
-        out = maskformer_forward(model, cfg, x, final_mask_layout="bhwq", plain=plain, attention=attention)
+        out = maskformer_forward(model, cfg, x, final_mask_layout="bhwq", attention=attention)
         if "pred_logits" not in out:
             raise ValueError(f"{cfg.decoder.name} has no class head to score with (ROADMAP.md §C.18)")
-        score_fn = fused_rba_score_reference if plain else fused_rba_score
         with span("rba_tail"):
-            rba = score_fn(out["pred_logits"], out["pred_masks"], masks_layout="bhwq")
+            rba = fused_rba_score(out["pred_logits"], out["pred_masks"], masks_layout="bhwq")
             return rba[:, :h_img, :w_img]
 
 
@@ -316,20 +310,18 @@ def maskformer_infer(
     out_hw: Optional[Tuple[int, int]] = None,
     include_void: bool = False,
     attention: str = "fused",
-    plain: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """{"sem_seg": (B, K, h, w), "rba": (B, h, w)} at ``out_hw`` (default: the input size),
     and for a model with the DenseHybrid head its (B, 2, H, W) ``ood_pred`` logits at the
     input size (resized with ``align_corners=True``, as the reference does).
-    ``attention``: Swin's window-attention branch (``swin_apply``); ``plain`` runs the
-    kernels' plain versions.  The call is one ``request`` span (so each variant of a TTA
-    and each tile of a sliding window is one)."""
+    ``attention``: Swin's window-attention branch (``swin_apply``).  The call is one
+    ``request`` span (so each variant of a TTA and each tile of a sliding window is one)."""
     with span(REQUEST):
-        return _infer(model, cfg, images, out_hw, include_void, attention, plain)
+        return _infer(model, cfg, images, out_hw, include_void, attention)
 
 
 def _infer(model: RbAModel, cfg: RbAConfig, images: torch.Tensor, out_hw: Optional[Tuple[int, int]],
-           include_void: bool, attention: str, plain: bool) -> Dict[str, torch.Tensor]:
+           include_void: bool, attention: str) -> Dict[str, torch.Tensor]:
     """``maskformer_infer`` inside its caller's ``request`` span."""
     images = _on_model(model, images)
     h_img, w_img = images.shape[1], images.shape[2]
@@ -338,11 +330,11 @@ def _infer(model: RbAModel, cfg: RbAConfig, images: torch.Tensor, out_hw: Option
         x = preprocess(cfg, images)
     hp, wp = x.shape[1], x.shape[2]
     if is_per_pixel(cfg):  # logits upsampled ×4 to the padded input, cropped, resized
-        logits, _ = per_pixel_forward(model, cfg, x, attention=attention, plain=plain)
+        logits, _ = per_pixel_forward(model, cfg, x, attention=attention)
         with span("rba_tail"):
             sem = resize_bilinear(resize_bilinear(logits, (hp, wp))[:, :, :h_img, :w_img], out_hw)
             return {"sem_seg": sem, "rba": rba_score(sem)}
-    out = maskformer_forward(model, cfg, x, attention=attention, plain=plain)
+    out = maskformer_forward(model, cfg, x, attention=attention)
     if "pred_logits" not in out:
         raise ValueError(f"{cfg.decoder.name} has no class head to infer with (ROADMAP.md §C.18)")
     with span("rba_tail"):

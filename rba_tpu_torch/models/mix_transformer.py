@@ -6,7 +6,7 @@ MLP with a 3×3 depthwise conv, and a final LayerNorm; ``res2``…``res5`` at st
 4…32.  LayerNorm eps 1e-6, with the variance centred (``ops.nn.centered_layer_norm``).
 The attention rounds as ``rba_tpu``'s does: q·kᵀ in the compute dtype, times the scale
 rounded to it, the softmax in fp32 rounded back, ``· v`` summed in fp32 and rounded.  Its
-core runs Kernel G (``kernels/sr_attention.py``) where ``takes_kernel`` says so, else the
+core runs Kernel G (``kernels/sr_attention.py``) where its ``takes`` says so, else the
 plain chain ``sr_attention_plain``.
 Parameter names follow the JAX pytree: ``stages.2.blocks.5.attn.kv``,
 ``stages.0.blocks.1.mlp.dwconv``, ``stages.3.norm``.  ``drop_path_rate`` is kept and not
@@ -21,8 +21,7 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
-from ..kernels.sr_attention import HEAD_DIMS as KERNEL_HEAD_DIMS
-from ..kernels.sr_attention import sr_attention
+from ..kernels import sr_attention as kernel
 from ..ops.nn import apply_conv, apply_linear, centered_layer_norm
 from ..utils.profiling import SR_ATTENTION, span
 from .swin import gelu
@@ -86,13 +85,6 @@ class MiT(nn.Module):
         self.stages = nn.ModuleList(stages)
 
 
-def takes_kernel(device: torch.device, dtype: torch.dtype, needs_grad: bool, head_dim: int) -> bool:
-    """Whether a block's attention core runs Kernel G: its tensors are on CUDA in bf16,
-    autograd does not need the core's gradient, and the kernel is built for the head dim
-    (``kernels/sr_attention.py`` ``HEAD_DIMS``)."""
-    return device.type == "cuda" and dtype == torch.bfloat16 and not needs_grad and head_dim in KERNEL_HEAD_DIMS
-
-
 def sr_attention_plain(
     q: torch.Tensor,  # (B, N, C), the q linear's output
     kv: torch.Tensor,  # (B, M, 2C), the kv linear's output: k, then v
@@ -110,8 +102,7 @@ def sr_attention_plain(
     return out.transpose(1, 2).reshape(b, n, c)
 
 
-def _attention(p: nn.ModuleDict, x: torch.Tensor, h: int, w: int, num_heads: int, sr: int,
-               plain: bool) -> torch.Tensor:
+def _attention(p: nn.ModuleDict, x: torch.Tensor, h: int, w: int, num_heads: int, sr: int) -> torch.Tensor:
     b, n, c = x.shape
     q = apply_linear(p["q"], x)
     kv_in = x
@@ -120,11 +111,11 @@ def _attention(p: nn.ModuleDict, x: torch.Tensor, h: int, w: int, num_heads: int
         kv_in = centered_layer_norm(xs.reshape(b, -1, c), p["sr_norm"])
     kv = apply_linear(p["kv"], kv_in)
     needs_grad = torch.is_grad_enabled() and (q.requires_grad or kv.requires_grad)
-    kernel = not plain and takes_kernel(q.device, q.dtype, needs_grad, c // num_heads)
+    core = kernel.sr_attention if kernel.takes(q.device, q.dtype, needs_grad, c // num_heads) else sr_attention_plain
     # the core alone (the plain chain's merge of the heads included): the projections, the
     # reduction and proj stay outside
     with span(SR_ATTENTION):
-        out = (sr_attention if kernel else sr_attention_plain)(q, kv, num_heads)
+        out = core(q, kv, num_heads)
     return apply_linear(p["proj"], out)
 
 
@@ -136,10 +127,8 @@ def _mlp(p: nn.ModuleDict, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return apply_linear(p["fc2"], gelu(y.reshape(b, n, hidden)))
 
 
-def mit_apply(model: MiT, images: torch.Tensor, compute_dtype=torch.bfloat16,
-              plain: bool = False) -> Dict[str, torch.Tensor]:
-    """(B, H, W, 3) normalized → {res2..res5} NHWC maps in ``compute_dtype``; ``plain``
-    keeps every attention core on ``sr_attention_plain``."""
+def mit_apply(model: MiT, images: torch.Tensor, compute_dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """(B, H, W, 3) normalized → {res2..res5} NHWC maps in ``compute_dtype``."""
     cfg = model.cfg
     x = images.to(compute_dtype)
     outs = {}
@@ -149,8 +138,7 @@ def mit_apply(model: MiT, images: torch.Tensor, compute_dtype=torch.bfloat16,
         b, h, w, dim = x.shape
         x = centered_layer_norm(x.reshape(b, h * w, dim), stage["patch_embed"]["norm"])
         for blk in stage["blocks"]:
-            x = x + _attention(blk.attn, centered_layer_norm(x, blk.norm1), h, w, cfg.num_heads[s], cfg.sr_ratios[s],
-                               plain)
+            x = x + _attention(blk.attn, centered_layer_norm(x, blk.norm1), h, w, cfg.num_heads[s], cfg.sr_ratios[s])
             x = x + _mlp(blk.mlp, centered_layer_norm(x, blk.norm2), h, w)
         x = centered_layer_norm(x, stage["norm"]).reshape(b, h, w, dim)
         outs[f"res{s + 2}"] = x

@@ -101,7 +101,6 @@ def ms_deform_attn_apply(
     value_input: torch.Tensor,  # (N, S, C)
     spatial_shapes: Sequence[Tuple[int, int]],
     cfg: PixelDecoderConfig,
-    plain: bool = False,
 ) -> torch.Tensor:
     n, lq, c = query.shape
     nh, nl, npts = attn.n_heads, len(spatial_shapes), attn.n_points
@@ -112,13 +111,12 @@ def ms_deform_attn_apply(
     normalizer = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32, device=query.device)
     loc = reference_points[:, :, None, :, None, :] + offsets / normalizer[None, None, None, :, None, :]
     out = ms_deform_attn_core(value, spatial_shapes, loc, aw, method=cfg.sampling_method,
-                              sampling_dtype=cfg.sampling_dtype, onehot_cap=cfg.sampling_onehot_cap, plain=plain)
+                              sampling_dtype=cfg.sampling_dtype, onehot_cap=cfg.sampling_onehot_cap)
     return apply_linear(attn.output_proj, out)
 
 
-def encoder_layer_apply(layer: EncoderLayer, src, pos, reference_points, spatial_shapes, cfg: PixelDecoderConfig,
-                        plain: bool = False):
-    src2 = ms_deform_attn_apply(layer.self_attn, src + pos, reference_points, src, spatial_shapes, cfg, plain)
+def encoder_layer_apply(layer: EncoderLayer, src, pos, reference_points, spatial_shapes, cfg: PixelDecoderConfig):
+    src2 = ms_deform_attn_apply(layer.self_attn, src + pos, reference_points, src, spatial_shapes, cfg)
     src = apply_norm(layer.norm1, src + src2)
     ffn = apply_linear(layer.linear2, F.relu(apply_linear(layer.linear1, src)))
     return apply_norm(layer.norm2, src + ffn)
@@ -143,11 +141,10 @@ def pixel_decoder_apply(
     cfg: PixelDecoderConfig,
     features: Dict[str, torch.Tensor],  # NHWC backbone maps
     dtype=torch.float32,
-    plain: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
     """(mask_features, transformer encoder output, multi-scale features), all NHWC fp32.
     ``dtype`` is the inputs' dtype: fp32, or bf16 in ``fast_serving`` (see the module's
-    docstring).  ``plain`` samples with the plain version, never Kernel F."""
+    docstring)."""
     srcs, poss, spatial_shapes = [], [], []
     for i, f in enumerate(cfg.transformer_in_features[::-1]):
         proj = model.input_proj[i]
@@ -166,7 +163,7 @@ def pixel_decoder_apply(
 
     y = src_flat
     for layer in model.transformer.encoder.layers:
-        y = encoder_layer_apply(layer, y, pos_flat, ref_pts, spatial_shapes, cfg, plain)
+        y = encoder_layer_apply(layer, y, pos_flat, ref_pts, spatial_shapes, cfg)
 
     out: List[torch.Tensor] = []
     start = 0

@@ -58,10 +58,9 @@ def sliding_window_sem_seg(
     tile_hw: Tuple[int, int] = (1024, 1024),
     overlap: int = 256,
     attention: str = "fused",
-    plain: bool = False,
 ) -> torch.Tensor:  # (K, H, W) fp32 on the model's device
     """Weighted blend of the class probabilities of overlapping tiles, each through Swin's
-    ``attention`` branch (``plain``: the kernels' plain versions)."""
+    ``attention`` branch."""
     h, w = image.shape[:2]
     th, tw, overlap, ys, xs = tile_grid(h, w, tile_hw, overlap)
     device = next(model.parameters()).device
@@ -72,7 +71,7 @@ def sliding_window_sem_seg(
     for y in ys:
         for x in xs:
             tile = img[None, y : y + th, x : x + tw]
-            sem = maskformer_infer(model, cfg, tile, attention=attention, plain=plain)["sem_seg"][0]
+            sem = maskformer_infer(model, cfg, tile, attention=attention)["sem_seg"][0]
             total[:, y : y + th, x : x + tw] += sem * weight[None]
             norm[y : y + th, x : x + tw] += weight
     return total / torch.clamp(norm, min=1e-6)[None]

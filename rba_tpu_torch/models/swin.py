@@ -23,8 +23,7 @@ does not read):
 
 With ``SwinConfig.mlp_impl == "fused"``, no gradient tracked and C where
 ``kernels.fused_mlp.beneficial`` holds, a block's MLP tail goes through
-``kernels.fused_mlp`` (Kernel D), as ``rba_tpu/models/swin.py:488-501`` decides.
-``plain=True`` runs every kernel's plain version instead.  Under tensor parallelism
+``kernels.fused_mlp`` (Kernel D), as ``rba_tpu/models/swin.py:488-501`` decides.  Under tensor parallelism
 (``parallel/tp.py``) Kernel D reads the whole fc1 and fc2, gathered from their shards.
 
 ``SwinConfig.attn_layout`` "nested", "resident" and "qkv_canvas" are ``rba_tpu``'s TPU
@@ -46,9 +45,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import SwinConfig
-from ..kernels.fused_mlp import beneficial, fused_mlp_residual, fused_mlp_residual_reference
-from ..kernels.masked_softmax import masked_softmax, masked_softmax_reference
-from ..kernels.window_attention import window_attention, window_attention_reference
+from ..kernels.fused_mlp import beneficial, fused_mlp_residual
+from ..kernels.masked_softmax import masked_softmax
+from ..kernels.window_attention import window_attention
 from ..ops.nn import apply_linear, apply_norm
 from ..ops.resize import resize_bicubic_nhwc
 from ..parallel.tp import full_linear
@@ -213,7 +212,6 @@ def softmax_attention(
     mask: Optional[torch.Tensor],  # (nW, N, N) fp32 additive, or None
     nh: int,
     scale: float,
-    plain: bool = False,
     fast_math: bool = False,
 ) -> torch.Tensor:  # (B·nW, N, C), qkv's dtype
     """The ``"fused_softmax"`` branch: ``q * scale`` in the compute dtype, q·kᵀ into
@@ -225,8 +223,7 @@ def softmax_attention(
         return xla_attention(qkv, rel_bias, mask, nh, scale, fast_math=True)
     q, k, v = _split_heads(qkv, nh, scale)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    softmax = masked_softmax_reference if plain else masked_softmax
-    p = softmax(s, rel_bias, mask, qkv.dtype)
+    p = masked_softmax(s, rel_bias, mask, qkv.dtype)
     return _merge_heads(torch.matmul(p.float(), v.float()).to(qkv.dtype))
 
 
@@ -239,15 +236,14 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return (x * 0.5) * torch.special.erfc(x * -0.70703125)
 
 
-def _mlp_tail(blk: SwinBlock, x: torch.Tensor, mlp_impl: str, plain: bool) -> torch.Tensor:
+def _mlp_tail(blk: SwinBlock, x: torch.Tensor, mlp_impl: str) -> torch.Tensor:
     """``x + fc2(gelu(fc1(norm2(x))))``: Kernel D where ``rba_tpu``'s dispatch would take
     the Pallas kernel (``mlp_impl="fused"``, inference, ``beneficial``), else the unfused
     chain."""
     b, h, w, c = x.shape
     if mlp_impl == "fused" and not torch.is_grad_enabled() and beneficial(b * h * w, c):
-        fused = fused_mlp_residual_reference if plain else fused_mlp_residual
         (w1, b1), (w2, b2) = full_linear(blk.mlp["fc1"]), full_linear(blk.mlp["fc2"])
-        return fused(x.contiguous(), blk.norm2.weight, blk.norm2.bias, w1, b1, w2, b2)
+        return fused_mlp_residual(x.contiguous(), blk.norm2.weight, blk.norm2.bias, w1, b1, w2, b2)
     y = apply_norm(blk.norm2, x)
     y = apply_linear(blk.mlp["fc2"], gelu(apply_linear(blk.mlp["fc1"], y)))
     return x + y
@@ -260,7 +256,6 @@ def swin_block_apply(
     ws: int,
     shift: int,
     qk_scale: Optional[float],
-    plain: bool = False,
     attention: str = "fused",
     mlp_impl: str = "xla",
     fast_math: bool = False,
@@ -284,9 +279,9 @@ def swin_block_apply(
     qkv = apply_linear(blk.attn.qkv, xw)  # (B·nW, N, 3C)
     scale = qk_scale or (c // num_heads) ** -0.5
     if attention == "fused":
-        attend = window_attention_reference if plain else window_attention
+        attend = window_attention
     elif attention == "fused_softmax":
-        attend = functools.partial(softmax_attention, plain=plain, fast_math=fast_math)
+        attend = functools.partial(softmax_attention, fast_math=fast_math)
     elif attention == "xla":
         attend = functools.partial(xla_attention, fast_math=fast_math)
     else:
@@ -299,7 +294,7 @@ def swin_block_apply(
         x = torch.roll(x, shifts=(shift, shift), dims=(1, 2))
     if pad_b or pad_r:
         x = x[:, :h, :w]
-    return _mlp_tail(blk, shortcut + x, mlp_impl, plain)
+    return _mlp_tail(blk, shortcut + x, mlp_impl)
 
 
 def _patch_merging(down: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
@@ -317,7 +312,6 @@ def swin_apply(
     cfg: SwinConfig,
     images: torch.Tensor,  # (B, H, W, 3) normalized
     compute_dtype=torch.bfloat16,
-    plain: bool = False,
     attention: str = "fused",
     fast_math: bool = False,
 ) -> Dict[str, torch.Tensor]:
@@ -341,8 +335,7 @@ def swin_apply(
     for i, layer in enumerate(model.layers):
         for j, blk in enumerate(layer.blocks):
             shift = 0 if j % 2 == 0 else cfg.window_size // 2
-            args = (blk, x, cfg.num_heads[i], cfg.window_size, shift, cfg.qk_scale, plain, attention, cfg.mlp_impl,
-                    fast_math)
+            args = (blk, x, cfg.num_heads[i], cfg.window_size, shift, cfg.qk_scale, attention, cfg.mlp_impl, fast_math)
             if cfg.use_checkpoint and torch.is_grad_enabled():
                 x = checkpoint(swin_block_apply, *args, use_reentrant=False)
             else:

@@ -46,10 +46,9 @@ def tta_inference(
     min_sizes: Optional[Sequence[int]] = None,
     flip: Optional[bool] = None,
     attention: str = "fused",
-    plain: bool = False,
 ) -> torch.Tensor:  # (K, H, W) fp32 on the model's device
     """Averaged sem_seg probabilities over all augmentations, each variant through Swin's
-    ``attention`` branch (``plain``: the kernels' plain versions)."""
+    ``attention`` branch."""
     h, w = image.shape[:2]
     img = torch.as_tensor(image).to(next(model.parameters()).device).float()[None]
     variants = tta_variants(cfg, h, w, min_sizes, flip)
@@ -58,7 +57,7 @@ def tta_inference(
         x = resize_bilinear_nhwc(img, (hh, ww))
         if flipped:
             x = torch.flip(x, dims=[2])
-        sem = maskformer_infer(model, cfg, x, out_hw=(h, w), attention=attention, plain=plain)["sem_seg"]
+        sem = maskformer_infer(model, cfg, x, out_hw=(h, w), attention=attention)["sem_seg"]
         if flipped:
             sem = torch.flip(sem, dims=[-1])
         total = sem[0] if total is None else total + sem[0]

@@ -25,9 +25,9 @@ contracts it at HIGHEST precision), so fp32 levels take the gather.
 
 On the card a call whose every level is a gather, whose gradient autograd does not
 need and whose shapes the kernel is built for runs Kernel F
-(``kernels/ms_deform_attn.py``), the gather of all levels in one launch
-(``takes_kernel``); the plain gather above stays for the CPU, for training, for other
-shapes and under ``plain=True``, and the bf16 one-hot form keeps its own path.
+(``kernels/ms_deform_attn.py``), the gather of all levels in one launch (that module's
+``takes``); the plain gather above stays for the CPU, for training, for other shapes and
+under ``kernels.plain_versions()``, and the bf16 one-hot form keeps its own path.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ from typing import Collection, Sequence, Tuple
 
 import torch
 
-from ..kernels.ms_deform_attn import ms_deform_attn, supports as kernel_supports
+from ..kernels import ms_deform_attn as kernel
 from ..utils import profiling
 
 SPAN = profiling.DEFORM_SAMPLING  # the span of each ms_deform_attn_core call
@@ -199,17 +199,6 @@ def sampling_methods(
     return (method,) * len(spatial_shapes)
 
 
-def takes_kernel(device: torch.device, needs_grad: bool, methods: Sequence[str], sampling_dtype: str,
-                 value_shape: Sequence[int], loc_shape: Sequence[int]) -> bool:
-    """Whether a call runs Kernel F: its tensors are on CUDA, autograd does not need the
-    sampling's gradient, no level takes the one-hot form (``"onehot"`` in ``methods`` at
-    ``sampling_dtype="bfloat16"``), and the kernel is built for its shapes, value (N, S,
-    M, D) and sampling_locations (N, Lq, M, L, P, 2) (``kernels/ms_deform_attn.py``
-    ``supports``: D 16 or 32, 1 to 4 levels)."""
-    onehot = sampling_dtype == "bfloat16" and "onehot" in methods
-    return device.type == "cuda" and not needs_grad and not onehot and kernel_supports(value_shape, loc_shape)
-
-
 def _aligned(x: torch.Tensor, nbytes: int) -> torch.Tensor:
     """``x`` as fp32 and contiguous, copied where it does not start on ``nbytes`` (a view
     into the middle of a tensor may start anywhere)."""
@@ -247,10 +236,9 @@ def ms_deform_attn_core(
     method: str = "auto",
     sampling_dtype: str = "float32",
     onehot_cap: int = 192 * 1024 * 1024,
-    plain: bool = False,
 ) -> torch.Tensor:  # (N, Lq, M·D) fp32
-    """The sampling of every level, summed: Kernel F where ``takes_kernel`` says so and
-    not ``plain``, else the plain version (``ms_deform_attn_plain``)."""
+    """The sampling of every level, summed: Kernel F where its ``takes`` says so, else the
+    plain version (``ms_deform_attn_plain``)."""
     n, s, m, d = value.shape
     _, lq, _, nlevels, p, _ = sampling_locations.shape
     if nlevels != len(spatial_shapes):
@@ -260,10 +248,9 @@ def ms_deform_attn_core(
     methods = sampling_methods(n, m, lq, spatial_shapes, method, onehot_cap)
     inputs = (value, sampling_locations, attention_weights)
     needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in inputs)
-    if not plain and takes_kernel(value.device, needs_grad, methods, sampling_dtype, value.shape,
-                                  sampling_locations.shape):
+    if kernel.takes(value.device, needs_grad, methods, sampling_dtype, value.shape, sampling_locations.shape):
         with profiling.span(SPAN):
-            return ms_deform_attn(_aligned(value, 16), spatial_shapes, _aligned(sampling_locations, 8),
+            return kernel.ms_deform_attn(_aligned(value, 16), spatial_shapes, _aligned(sampling_locations, 8),
                                   attention_weights.float().contiguous())
     span = [] if needs_grad else None
     if span is not None:

@@ -5,9 +5,9 @@ for each (R, C) cost matrix of a batch with R <= C: the rows are taken in order;
 each, the shortest augmenting path is grown one column at a time (the least reduced
 cost over unscanned columns; among equal minima the first free column, failing that
 the first column), the duals ``u``, ``v`` are updated, and the path is augmented.  The
-fp32 arithmetic is in ``rba_tpu``'s order.  It is the CPU path of
-``kernels/lsap.py`` (Kernel E) and the reference that the kernel is held against,
-assignment for assignment.
+fp32 arithmetic is in ``rba_tpu``'s order.  It is the matcher's assignment where
+Kernel E (``kernels/lsap.py``) does not run, the CPU's included, and the reference
+that the kernel is held against, assignment for assignment.
 """
 from __future__ import annotations
 

@@ -245,11 +245,9 @@ def densehybrid_loss(cfg: RbAConfig, pred_logits, pred_masks, ood_pred, outlier_
     return loss_seg + beta * loss_ood + beta * 10.0 * loss_th
 
 
-def criterion(cfg: RbAConfig, uniform: Uniform, outputs: Dict, targets: Dict,
-              plain: bool = False, group=None) -> Dict[str, torch.Tensor]:
-    """The weighted losses of every supervised layer and their ``total``.  ``plain``
-    runs the matcher's plain LSAP on the card too.  ``group``: the data-parallel group
-    whose ranks hold the rest of the batch (see the module docstring)."""
+def criterion(cfg: RbAConfig, uniform: Uniform, outputs: Dict, targets: Dict, group=None) -> Dict[str, torch.Tensor]:
+    """The weighted losses of every supervised layer and their ``total``.  ``group``: the
+    data-parallel group whose ranks hold the rest of the batch (see the module docstring)."""
     gt_labels = targets["gt_labels"]
     gt_masks = targets["gt_masks"]
     gt_valid = targets["gt_valid"].float()
@@ -263,7 +261,7 @@ def criterion(cfg: RbAConfig, uniform: Uniform, outputs: Dict, targets: Dict,
             assignment = fixed_match(gt_labels, preds["pred_logits"].shape[1])
         else:
             assignment = hungarian_match(uniform, w, preds["pred_logits"], preds["pred_masks"], gt_labels,
-                                         gt_masks, gt_valid, plain=plain)
+                                         gt_masks, gt_valid)
         lc = loss_labels(cfg, preds["pred_logits"], gt_labels, gt_valid, assignment, group)
         lm, ld = loss_masks(cfg, uniform, preds["pred_masks"], gt_masks, gt_valid, assignment, num_masks, group)
         out = {f"loss_ce{suffix}": w.class_weight * lc,

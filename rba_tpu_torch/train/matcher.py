@@ -4,8 +4,9 @@ Per image: cost = class_weight · (−softmax probability of the target class) +
 mask_weight · point-sampled sigmoid CE + dice_weight · point-sampled dice, with one
 shared set of uniform points per image, then the exact assignment.  Targets are padded
 to a static T per image; a padded target's row costs ``INVALID_COST`` everywhere and is
-ignored downstream through ``gt_valid``.  The assignment is Kernel E on the card
-(``kernels/lsap.py``) and its plain version on the CPU, without gradient.
+ignored downstream through ``gt_valid``.  The assignment is Kernel E
+(``kernels/lsap.py``) where its ``takes`` says so, on the card, else its plain version
+(``ops/lsap.py``), without gradient.
 
 ``fixed_match`` is the FixedMatcher: the target of class c goes to query c.
 """
@@ -15,7 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import LossConfig
-from ..kernels.lsap import batched_linear_sum_assignment, batched_linear_sum_assignment_reference
+from ..kernels import lsap as kernel
+from ..ops.lsap import batched_linear_sum_assignment
 from ..ops.point_sample import Uniform, point_sample
 
 INVALID_COST = 1e6
@@ -65,12 +67,11 @@ def match_cost(
     return torch.where(gt_valid[:, :, None] > 0, cost, torch.full_like(cost, INVALID_COST)).contiguous()
 
 
-def hungarian_match(uniform: Uniform, cfg: LossConfig, pred_logits, pred_masks, gt_labels, gt_masks, gt_valid,
-                    plain: bool = False) -> torch.Tensor:
-    """(B, T) int32 query assigned to each (padded) target.  ``plain`` runs the plain LSAP
-    on the card too."""
+def hungarian_match(uniform: Uniform, cfg: LossConfig, pred_logits, pred_masks, gt_labels, gt_masks,
+                    gt_valid) -> torch.Tensor:
+    """(B, T) int32 query assigned to each (padded) target."""
     cost = match_cost(uniform, cfg, pred_logits, pred_masks, gt_labels, gt_masks, gt_valid)
-    solve = batched_linear_sum_assignment_reference if plain else batched_linear_sum_assignment
+    solve = kernel.batched_linear_sum_assignment if kernel.takes(cost) else batched_linear_sum_assignment
     return solve(cost)
 
 

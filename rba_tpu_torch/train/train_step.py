@@ -101,14 +101,12 @@ def all_reduce_grads(params: List[torch.Tensor], group) -> None:
             start += n
 
 
-def make_train_step(cfg: RbAConfig, grad_accum: int = 1, plain: bool = False, mesh: Optional[Mesh] = None,
-                    tp: bool = False):
+def make_train_step(cfg: RbAConfig, grad_accum: int = 1, mesh: Optional[Mesh] = None, tp: bool = False):
     """A function (state, batch) -> metrics that updates ``state`` in place.  ``batch``:
     images (B, H, W, 3) raw RGB; gt_labels (B, T); gt_masks (B, T, H, W); gt_valid (B, T);
     optional outlier_masks and sem_seg (B, H, W); numpy or tensors.  The metrics are the
     weighted losses, ``total`` and ``grad_norm`` (the unclipped gradients' global norm),
-    as 0-dim tensors on the card.  ``plain`` runs the plain LSAP instead of Kernel E.  A
-    per-pixel head reads only images and sem_seg.
+    as 0-dim tensors on the card.  A per-pixel head reads only images and sem_seg.
 
     With ``mesh`` the batch is this data rank's rows of the global batch, micro-batch by
     micro-batch (``parallel.mesh.shard_batch(mesh, batch, grad_accum)``), and the metrics
@@ -133,7 +131,7 @@ def make_train_step(cfg: RbAConfig, grad_accum: int = 1, plain: bool = False, me
                                          attention="xla")
         with span("criterion"):
             targets = {k: v for k, v in batch.items() if k != "images"}
-            return criterion(cfg, uniform, outputs, targets, plain=plain, group=group)
+            return criterion(cfg, uniform, outputs, targets, group=group)
 
     def step_fn(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
         model = state.model

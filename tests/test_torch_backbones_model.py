@@ -33,6 +33,8 @@ from rba_tpu.models import maskformer as jmf
 from rba_tpu.models import pixel_decoder as jpd
 from rba_tpu_torch import config as tconfig
 from rba_tpu_torch.convert import load_jax_params
+from rba_tpu_torch.kernels import fused_rba as tfr
+from rba_tpu_torch.kernels import plain_versions
 from rba_tpu_torch.models import maskformer as tmf
 from rba_tpu_torch.models import pixel_decoder as tpd
 from rba_tpu_torch.models.maskformer import RbAModel
@@ -96,24 +98,26 @@ def test_r50_rba_takes_the_fused_tail(r50, monkeypatch):
     the CPU), on the decoder's bhwq masks."""
     _, tcfg, _, model = r50
     calls = []
-    real = tmf.fused_rba_score_reference
+    real = tfr.fused_rba_score_reference
 
     def counted(cls, masks, masks_layout="bqhw"):
         calls.append(tuple(masks.shape))
         return real(cls, masks, masks_layout)
 
-    monkeypatch.setattr(tmf, "fused_rba_score_reference", counted)
+    monkeypatch.setattr(tfr, "fused_rba_score_reference", counted)
     assert model.mask_stride(tcfg) == 4
-    tmf.maskformer_infer_rba(model, tcfg, t(_image((64, 96))), plain=True)
+    with plain_versions():
+        tmf.maskformer_infer_rba(model, tcfg, t(_image((64, 96))))
     assert calls == [(1, 16, 24, tcfg.decoder.num_queries)]
 
 
 def test_vit_rba_takes_maskformer_infer(vit, monkeypatch):
     _, tcfg, _, model = vit
-    monkeypatch.setattr(tmf, "fused_rba_score_reference", None)  # never called at stride 16
+    monkeypatch.setattr(tfr, "fused_rba_score_reference", None)  # never called at stride 16
     monkeypatch.setattr(tmf, "fused_rba_score", None)
     assert model.mask_stride(tcfg) == 16
-    assert tuple(tmf.maskformer_infer_rba(model, tcfg, t(_image((64, 96))), plain=True).shape) == (1, 64, 96)
+    with plain_versions():
+        assert tuple(tmf.maskformer_infer_rba(model, tcfg, t(_image((64, 96)))).shape) == (1, 64, 96)
 
 
 def test_rba_tpus_fused_tail_has_the_wrong_size_at_stride_16(vit, request):

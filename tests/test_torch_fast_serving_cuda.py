@@ -14,6 +14,7 @@ import torch
 
 from rba_tpu_torch import config as tconfig
 from rba_tpu_torch.kernels import fused_rba as tfr
+from rba_tpu_torch.kernels import plain_versions
 from rba_tpu_torch.kernels import window_attention as twa
 from rba_tpu_torch.models import maskformer as tmf
 from rba_tpu_torch.models import swin as tswin
@@ -85,6 +86,7 @@ def test_fast_serving_kernels_match_plain_versions(cuda):
     torch.cuda.synchronize()
     after = twa.window_attention.launches, tfr.fused_rba_score.launches
     assert (after[0] - before[0], after[1] - before[1]) == (sum(cfg.swin.depths), 1)
-    want = tmf.maskformer_infer_rba(model, cfg, img, plain=True)
+    with plain_versions():
+        want = tmf.maskformer_infer_rba(model, cfg, img)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)

@@ -162,3 +162,24 @@ def test_last_slice_entry_points_default_to_the_gpu(tmp_path):
     with pytest.raises(RuntimeError, match="GPU"):
         make_mesh()
     assert not dist.is_initialized()
+
+
+KERNEL_MODULES = ("window_attention", "fused_rba", "masked_softmax", "fused_mlp", "lsap", "ms_deform_attn",
+                  "sr_attention")
+
+
+def test_kernels_decide_their_own_routes():
+    """Each kernel's module defines its ``takes`` rule and only they read the switch, and
+    ``kernels/`` imports nothing from the layers that call it (ops, models, train)."""
+    kernels = ROOT / "rba_tpu_torch" / "kernels"
+    for name in KERNEL_MODULES:
+        tree = ast.parse((kernels / f"{name}.py").read_text())
+        assert "takes" in {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}, name
+    readers = {p.relative_to(ROOT).as_posix() for p in (ROOT / "rba_tpu_torch").rglob("*.py")
+               if "_PLAIN" in p.read_text()}
+    assert readers == {f"rba_tpu_torch/kernels/{name}.py" for name in ("__init__", *KERNEL_MODULES)}
+    for path in kernels.glob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom):
+                module = (node.module or "") if node.level else (node.module or "").removeprefix("rba_tpu_torch.")
+                assert module.split(".")[0] not in ("ops", "models", "train"), (path.name, module)

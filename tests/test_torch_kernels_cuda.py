@@ -6,6 +6,8 @@ test_torch_fused_rba.py, test_torch_masked_softmax.py and test_torch_fused_mlp.p
 hold against rba_tpu).  On a machine with an H100:
 ``python -m pytest tests/test_torch_kernels_cuda.py -q``.
 """
+import contextlib
+
 import pytest
 import torch
 
@@ -14,11 +16,13 @@ from rba_tpu_torch.kernels import fused_rba as tfr
 from rba_tpu_torch.kernels import lsap as tls
 from rba_tpu_torch.kernels import masked_softmax as tms
 from rba_tpu_torch.kernels import ms_deform_attn as tmd
+from rba_tpu_torch.kernels import plain_versions
 from rba_tpu_torch.kernels import sr_attention as tsa
 from rba_tpu_torch.kernels import window_attention as twa
 from rba_tpu_torch.models import mix_transformer as tmit
 from rba_tpu_torch.models.swin import shifted_window_mask
 from rba_tpu_torch.ops import deform_sampling as tds
+from rba_tpu_torch.ops.lsap import batched_linear_sum_assignment as lsap_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -235,7 +239,7 @@ def test_lsap_kernel_equals_plain(cuda, shape, kind):
     got = tls.batched_linear_sum_assignment(cost)
     torch.cuda.synchronize()
     assert tls.batched_linear_sum_assignment.launches == before + 1
-    assert torch.equal(got.cpu(), tls.batched_linear_sum_assignment_reference(cost.cpu()))
+    assert torch.equal(got.cpu(), lsap_plain(cost.cpu()))
 
 
 def test_lsap_kernel_refuses_larger_shapes(cuda):
@@ -295,14 +299,14 @@ def test_ms_deform_attn_kernel_head_dim_16(cuda):
 
 @pytest.mark.parametrize("d,plain", [(24, False), (32, True)], ids=["d24", "plain"])
 def test_ms_deform_attn_plain_path_on_the_card(cuda, d, plain):
-    """A D the kernel is not built for, or ``plain=True``, runs the plain version on the
-    card: no launch, no raise, the plain output."""
+    """A D the kernel is not built for, or ``plain_versions()``, runs the plain version on
+    the card: no launch, no raise, the plain output."""
     gen = torch.Generator(device=cuda).manual_seed(d)
     levels = [(16, 32), (8, 16)]
     value, loc, attn = _sampling_inputs(gen, 1, levels, d=d)
     before = tmd.ms_deform_attn.launches
-    with torch.no_grad():
-        got = tds.ms_deform_attn_core(value, levels, loc, attn, plain=plain)
+    with torch.no_grad(), plain_versions() if plain else contextlib.nullcontext():
+        got = tds.ms_deform_attn_core(value, levels, loc, attn)
     assert tmd.ms_deform_attn.launches == before
     assert torch.equal(got, tds.ms_deform_attn_plain(value, levels, loc, attn))
 
@@ -363,14 +367,15 @@ def test_sr_attention_kernel(cuda, shape):
 
 def test_sr_attention_grad_takes_the_plain_path(cuda):
     """MiT-B0 on the card at bf16: under autograd every attention core takes the plain
-    chain (no launch; the output equals ``plain=True``'s), without it one launch a block."""
+    chain (no launch; the output equals ``plain_versions()``'s), without it one launch a block."""
     torch.manual_seed(0)
     model = tmit.MiT(tmit.MIT_VARIANTS["mit_b0"]).to(cuda)
     images = torch.randn(1, 64, 96, 3, device=cuda)
     before = tsa.sr_attention.launches
     got = tmit.mit_apply(model, images.requires_grad_())
     assert tsa.sr_attention.launches == before
-    want = tmit.mit_apply(model, images, plain=True)
+    with plain_versions():
+        want = tmit.mit_apply(model, images)
     assert all(torch.equal(got[k], want[k]) for k in want)
     got["res5"].float().sum().backward()
     assert images.grad is not None

@@ -1,4 +1,4 @@
-"""The plain LSAP (``rba_tpu_torch/ops/lsap.py``, Kernel E's CPU path and reference)
+"""The plain LSAP (``rba_tpu_torch/ops/lsap.py``, the matcher's CPU path and Kernel E's reference)
 against ``rba_tpu.ops.lsap.batched_linear_sum_assignment``: the same assignment exactly
 (int equality), and its total cost equal to scipy's optimum, on random fp32 costs,
 integer costs (ties), padded rows at 1e6, R = C and R < C.  Kernel E itself is held
@@ -12,6 +12,7 @@ from scipy.optimize import linear_sum_assignment as scipy_lsa
 from rba_tpu.ops.lsap import batched_linear_sum_assignment as jax_lsa
 from rba_tpu_torch.kernels import lsap as klsap
 from rba_tpu_torch.ops.lsap import batched_linear_sum_assignment
+from rba_tpu_torch.train import matcher as tm
 
 
 def _costs(kind, shape, seed):
@@ -39,12 +40,17 @@ def test_plain_lsap_equals_rba_tpu_and_scipy(kind, shape):
         assert c[np.arange(len(a)), a].astype(np.float64).sum() == c[r, col].astype(np.float64).sum()
 
 
-def test_cpu_wrapper_runs_the_plain_version():
+def test_cpu_wrapper_runs_the_plain_version(monkeypatch):
+    """On a CPU cost the matcher's route runs the plain version and launches nothing; the
+    kernel's own wrapper raises there."""
     cost = torch.from_numpy(_costs("rand", (2, 6, 9), seed=5))
+    monkeypatch.setattr(tm, "match_cost", lambda *args: cost)
     before = klsap.batched_linear_sum_assignment.launches
-    got = klsap.batched_linear_sum_assignment(cost)
+    got = tm.hungarian_match(None, None, None, None, None, None, None)
     assert klsap.batched_linear_sum_assignment.launches == before
     assert torch.equal(got, batched_linear_sum_assignment(cost))
+    with pytest.raises(ValueError, match="cuda"):
+        klsap.batched_linear_sum_assignment(cost)
 
 
 @pytest.mark.parametrize("shape", [(1, 5, 4), (1, 10, 1025), (2, 3, 3, 3)])

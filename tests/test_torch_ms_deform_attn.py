@@ -1,16 +1,19 @@
 """Kernel F's dispatch and its wrapper's argument checks, on the CPU.
 
-``ops/deform_sampling.py`` ``takes_kernel`` decides from what a call can observe whether
-``ms_deform_attn_core`` runs Kernel F (``kernels/ms_deform_attn.py``) or the plain
-version; the wrapper checks its arguments before it looks at the device, so CPU
+``kernels/ms_deform_attn.py`` ``takes`` decides from what a call can observe whether
+``ops/deform_sampling.py`` ``ms_deform_attn_core`` runs Kernel F or the plain version;
+the wrapper checks its arguments before it looks at the device, so CPU
 tensors reach every check without a launch.  The kernel itself is held against the
 plain gather on the card (tests/test_torch_kernels_cuda.py).
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
 from rba_tpu_torch.kernels import ms_deform_attn as kmd
+from rba_tpu_torch.kernels import plain_versions
 from rba_tpu_torch.ops import deform_sampling as tds
 
 CUDA, CPU = torch.device("cuda"), torch.device("cpu")
@@ -29,7 +32,7 @@ R50_VALUE, R50_LOC = (1, 43008, 8, 32), (1, 43008, 8, 3, 4, 2)  # one encoder la
     (CPU, False, ("gather", "gather", "gather"), "float32", False),
 ], ids=["cuda_gather", "cuda_fp32_onehot", "cuda_bf16_all_gather", "bf16_onehot", "grad", "cpu"])
 def test_takes_kernel(device, needs_grad, methods, sampling_dtype, want):
-    assert tds.takes_kernel(device, needs_grad, methods, sampling_dtype, R50_VALUE, R50_LOC) is want
+    assert kmd.takes(device, needs_grad, methods, sampling_dtype, R50_VALUE, R50_LOC) is want
 
 
 @pytest.mark.parametrize("value_shape,loc_shape,want", [
@@ -44,7 +47,7 @@ def test_takes_kernel_only_for_the_shapes_it_is_built_for(value_shape, loc_shape
     """A CUDA, no-grad, all-gather call of a shape the kernel is not built for stays on
     the plain path, by rule; the wrapper's raise is left for real misuse."""
     methods = ("gather",) * loc_shape[3]
-    assert tds.takes_kernel(CUDA, False, methods, "float32", value_shape, loc_shape) is want
+    assert kmd.takes(CUDA, False, methods, "float32", value_shape, loc_shape) is want
     assert kmd.supports(value_shape, loc_shape) is want
 
 
@@ -117,7 +120,7 @@ def test_wrapper_checks_raise_without_a_launch(make, error, match):
 
 
 def test_core_hands_the_kernel_fp32_contiguous_aligned_inputs(monkeypatch):
-    """Where ``takes_kernel`` says so, ``ms_deform_attn_core`` returns the wrapper's output,
+    """Where ``takes`` says so, ``ms_deform_attn_core`` returns the wrapper's output,
     called once with fp32 contiguous tensors, the value on 16 bytes and the locations on 8
     (a view that starts elsewhere is copied), and the shapes."""
     value, loc, attn = _inputs()
@@ -128,8 +131,8 @@ def test_core_hands_the_kernel_fp32_contiguous_aligned_inputs(monkeypatch):
         calls.append((v, shapes, l, a))
         return want.clone()
 
-    monkeypatch.setattr(tds, "takes_kernel", lambda *args: True)
-    monkeypatch.setattr(tds, "ms_deform_attn", fake)
+    monkeypatch.setattr(kmd, "takes", lambda *args: True)
+    monkeypatch.setattr(kmd, "ms_deform_attn", fake)
     got = tds.ms_deform_attn_core(value.bfloat16(), SHAPES, loc.transpose(1, 2).contiguous().transpose(1, 2), attn)
     shifted_value, _, shifted_loc, _ = _misaligned()
     shifted_loc = torch.empty(loc.numel() + 1)[1:].view(loc.shape).copy_(loc)  # 4 bytes past the allocation
@@ -143,21 +146,29 @@ def test_core_hands_the_kernel_fp32_contiguous_aligned_inputs(monkeypatch):
     assert torch.equal(v, value) and torch.equal(l, loc)
 
 
+def _rule_sees_a_card(monkeypatch):
+    """``takes`` as it answers for these tensors on the card."""
+    real = kmd.takes
+    monkeypatch.setattr(kmd, "takes", lambda device, *args: real(CUDA, *args))
+
+
 def test_core_plain_never_takes_the_kernel(monkeypatch):
-    """``plain=True`` keeps the call on the plain version where the rule would take the
-    kernel, and gives its output."""
+    """``plain_versions()`` keeps the call on the plain version where the rule would take
+    the kernel, and gives its output."""
     value, loc, attn = _inputs()
-    monkeypatch.setattr(tds, "takes_kernel", lambda *args: True)
-    monkeypatch.setattr(tds, "ms_deform_attn", lambda *args: pytest.fail("the kernel was called under plain=True"))
-    got = tds.ms_deform_attn_core(value, SHAPES, loc, attn, plain=True)
+    _rule_sees_a_card(monkeypatch)
+    assert kmd.takes(CPU, False, ("gather",) * len(SHAPES), "float32", value.shape, loc.shape)
+    monkeypatch.setattr(kmd, "ms_deform_attn", lambda *args: pytest.fail("the kernel ran under plain_versions()"))
+    with plain_versions():
+        got = tds.ms_deform_attn_core(value, SHAPES, loc, attn)
     assert torch.equal(got, tds.ms_deform_attn_plain(value, SHAPES, loc, attn))
 
 
 @pytest.mark.parametrize("plain", [False, True], ids=["kernels", "plain"])
 def test_entry_plain_reaches_the_sampling(plain, monkeypatch):
-    """``maskformer_infer_rba(..., plain=...)`` reaches ``ms_deform_attn_core``: where the
-    rule takes the kernel, a request launches it once per encoder layer, and a plain
-    request never (the kernel stood in for by its plain version on the CPU)."""
+    """``plain_versions()`` around ``maskformer_infer_rba`` reaches ``ms_deform_attn_core``:
+    where the rule takes the kernel, a request launches it once per encoder layer, and a
+    plain request never (the kernel stood in for by its plain version on the CPU)."""
     from rba_tpu_torch.config import tiny_test_config
     from rba_tpu_torch.models import maskformer as tmf
 
@@ -172,8 +183,9 @@ def test_entry_plain_reaches_the_sampling(plain, monkeypatch):
         calls.append(shapes)
         return tds.ms_deform_attn_plain(v, shapes, l, a)
 
-    monkeypatch.setattr(tds, "takes_kernel", lambda *args: True)
-    monkeypatch.setattr(tds, "ms_deform_attn", fake)
-    got = tmf.maskformer_infer_rba(model, cfg, image, plain=plain)
+    _rule_sees_a_card(monkeypatch)
+    monkeypatch.setattr(kmd, "ms_deform_attn", fake)
+    with plain_versions() if plain else contextlib.nullcontext():
+        got = tmf.maskformer_infer_rba(model, cfg, image)
     assert len(calls) == (0 if plain else cfg.pixel_decoder.transformer_enc_layers)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)

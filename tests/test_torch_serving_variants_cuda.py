@@ -1,6 +1,6 @@
 """The serving variants on the card: test-time augmentation, sliding-window inference and
 the DenseHybrid score through the kernels, against the same functions through the
-kernels' plain versions (``plain=True``), on one model on the card.
+kernels' plain versions (``plain_versions()``), on one model on the card.
 
 Marked ``cuda``: each test skips where no CUDA GPU is present (there
 tests/test_torch_tta.py, tests/test_torch_sliding_window.py and
@@ -17,6 +17,7 @@ import torch
 
 from rba_tpu_torch import config as tconfig
 from rba_tpu_torch.evalx import evaluator as tev
+from rba_tpu_torch.kernels import plain_versions
 from rba_tpu_torch.kernels.fused_mlp import fused_mlp_residual
 from rba_tpu_torch.kernels.masked_softmax import masked_softmax
 from rba_tpu_torch.kernels.window_attention import window_attention
@@ -60,7 +61,8 @@ def test_tta_kernels_match_plain(cuda, attention):
     launches = _counting(kernel)
     got = ttta.tta_inference(model, cfg, img, min_sizes=(64, 140), flip=True, attention=attention)
     assert launches() == [4 * N_BLOCKS]  # 2 scales x 2 flips, every block
-    want = ttta.tta_inference(model, cfg, img, min_sizes=(64, 140), flip=True, attention=attention, plain=True)
+    with plain_versions():
+        want = ttta.tta_inference(model, cfg, img, min_sizes=(64, 140), flip=True, attention=attention)
     assert got.shape == (7, 70, 101) and bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= FP32_TOL
 
@@ -73,7 +75,8 @@ def test_sliding_window_kernels_match_plain(cuda):
     got = tsw.sliding_window_sem_seg(model, cfg, img, tile_hw=(64, 64), overlap=16)
     _, _, _, ys, xs = tsw.tile_grid(100, 150, (64, 64), 16)
     assert launches() == [len(ys) * len(xs) * N_BLOCKS, 0]
-    want = tsw.sliding_window_sem_seg(model, cfg, img, tile_hw=(64, 64), overlap=16, plain=True)
+    with plain_versions():
+        want = tsw.sliding_window_sem_seg(model, cfg, img, tile_hw=(64, 64), overlap=16)
     assert got.shape == (7, 100, 150) and bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= FP32_TOL
 
@@ -85,7 +88,8 @@ def test_dense_hybrid_score_kernels_match_plain(cuda):
     img = _image(96, 130, 2)[None]
     got = tev.make_score_fn(cfg, model, "dense_hybrid")(img)
     x = torch.as_tensor(img, device=cuda).float()
-    out = tmf.maskformer_infer(model, cfg, x, plain=True)
+    with plain_versions():
+        out = tmf.maskformer_infer(model, cfg, x)
     want = -torch.logsumexp(out["sem_seg"], 1) + torch.log(torch.softmax(out["ood_pred"], 1)[:, 1] + 1e-9)
     assert got.shape == (1, 96, 130) and bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= FP32_TOL

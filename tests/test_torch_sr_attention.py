@@ -1,16 +1,19 @@
 """Kernel G's route and its wrapper's argument checks, and MiT's plain attention core, on
 the CPU.
 
-``models/mix_transformer.py`` ``takes_kernel`` decides from what a call can observe
-whether a block's attention core runs Kernel G (``kernels/sr_attention.py``) or the
-plain chain ``sr_attention_plain``; the wrapper checks its arguments before it looks at
+``kernels/sr_attention.py`` ``takes`` decides from what a call can observe whether a
+block's attention core (``models/mix_transformer.py``) runs Kernel G or the plain chain
+``sr_attention_plain``; the wrapper checks its arguments before it looks at
 the device, so CPU tensors reach every check without a launch.  The kernel itself is
 held against the plain chain on the card (tests/test_torch_kernels_cuda.py).
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
+from rba_tpu_torch.kernels import plain_versions
 from rba_tpu_torch.kernels import sr_attention as tsa
 from rba_tpu_torch.models import mix_transformer as tmit
 from rba_tpu_torch.models.vit import scaled
@@ -28,7 +31,7 @@ CUDA, CPU = torch.device("cuda"), torch.device("cpu")
     (CUDA, torch.bfloat16, False, 48, False),
 ], ids=["cuda_hd64", "cuda_hd32", "cpu", "grad", "fp32", "fp16", "hd48"])
 def test_takes_kernel(device, dtype, needs_grad, head_dim, want):
-    assert tmit.takes_kernel(device, dtype, needs_grad, head_dim) is want
+    assert tsa.takes(device, dtype, needs_grad, head_dim) is want
 
 
 def _inputs(b=2, heads=2, n=20, m=7, hd=64, dtype=torch.bfloat16, seed=0):
@@ -145,7 +148,7 @@ def mit_b0():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_mit_apply_on_the_cpu_never_reaches_the_kernel(mit_b0, dtype, monkeypatch):
     model, images = mit_b0
-    monkeypatch.setattr(tmit, "sr_attention", lambda *args: pytest.fail("Kernel G was called on the CPU"))
+    monkeypatch.setattr(tsa, "sr_attention", lambda *args: pytest.fail("Kernel G was called on the CPU"))
     with torch.no_grad():
         outs = tmit.mit_apply(model, images, dtype)
     assert all(x.dtype == dtype for x in outs.values())
@@ -153,9 +156,10 @@ def test_mit_apply_on_the_cpu_never_reaches_the_kernel(mit_b0, dtype, monkeypatc
 
 @pytest.mark.parametrize("plain", [False, True], ids=["kernels", "plain"])
 def test_mit_apply_launches_once_per_block_where_the_rule_says_so(mit_b0, plain, monkeypatch):
-    """Where ``takes_kernel`` says so, each block's core goes to the wrapper once, with the
-    linears' outputs as they are (contiguous) and the block's heads; ``plain=True`` keeps
-    every core on the plain chain.  The wrapper is stood in for by the plain chain."""
+    """Where ``takes`` says so, each block's core goes to the wrapper once, with the
+    linears' outputs as they are (contiguous) and the block's heads; ``plain_versions()``
+    keeps every core on the plain chain.  The rule answers as on the card, and the
+    wrapper is stood in for by the plain chain."""
     model, images = mit_b0
     calls = []
 
@@ -165,10 +169,11 @@ def test_mit_apply_launches_once_per_block_where_the_rule_says_so(mit_b0, plain,
 
     with torch.no_grad():
         want = tmit.mit_apply(model, images)
-    monkeypatch.setattr(tmit, "takes_kernel", lambda *args: True)
-    monkeypatch.setattr(tmit, "sr_attention", fake)
-    with torch.no_grad():
-        got = tmit.mit_apply(model, images, plain=plain)
+    real = tsa.takes
+    monkeypatch.setattr(tsa, "takes", lambda device, *args: real(CUDA, *args))
+    monkeypatch.setattr(tsa, "sr_attention", fake)
+    with torch.no_grad(), plain_versions() if plain else contextlib.nullcontext():
+        got = tmit.mit_apply(model, images)
     cfg = tmit.MIT_VARIANTS["mit_b0"]
     assert calls == ([] if plain else [(True, h) for h, d in zip(cfg.num_heads, cfg.depths) for _ in range(d)])
     assert all(torch.equal(got[k], want[k]) for k in want)
@@ -178,7 +183,7 @@ def test_mit_apply_under_autograd_asks_for_the_plain_chain(mit_b0, monkeypatch):
     """The route sees ``needs_grad`` where an input of the core requires a gradient."""
     model, images = mit_b0
     seen = []
-    monkeypatch.setattr(tmit, "takes_kernel", lambda device, dtype, needs_grad, hd: seen.append(needs_grad))
+    monkeypatch.setattr(tsa, "takes", lambda device, dtype, needs_grad, hd: seen.append(needs_grad))
     tmit.mit_apply(model, images)
     with torch.no_grad():
         tmit.mit_apply(model, images)

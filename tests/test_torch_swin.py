@@ -22,7 +22,7 @@ from rba_tpu.ops.pallas.masked_softmax import masked_softmax_bf16
 from rba_tpu_torch import config as tconfig
 from rba_tpu_torch.config import tiny_test_config
 from rba_tpu_torch.convert import load_jax_params
-from rba_tpu_torch.kernels import fused_mlp, masked_softmax
+from rba_tpu_torch.kernels import fused_mlp, masked_softmax, plain_versions
 from rba_tpu_torch.models import swin as tswin
 from tests.torch_port_common import max_abs, perturbed, record, t, to_jax
 
@@ -89,7 +89,8 @@ def test_plain_flag_is_the_same_function_on_cpu(tiny_swin, rng):
     cfg = tiny_test_config().swin
     with torch.no_grad():
         a = tswin.swin_apply(model, cfg, x, compute_dtype=torch.float32)
-        b = tswin.swin_apply(model, cfg, x, compute_dtype=torch.float32, plain=True)
+    with torch.no_grad(), plain_versions():
+        b = tswin.swin_apply(model, cfg, x, compute_dtype=torch.float32)
     for name in a:
         torch.testing.assert_close(a[name], b[name], rtol=0, atol=0)
 
