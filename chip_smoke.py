@@ -648,6 +648,20 @@ def _sr_per_request(cfg, model) -> int:
                if takes(torch.device("cuda"), dtype, False, dim // heads))
 
 
+def _replays_per_request(cfg, model) -> int:
+    """CUDA-graph replays of one request once its shape is captured: one per stretch of
+    MiT's forward between two attention cores (blocks + 1) where
+    ``models/mix_transformer.py`` ``graphs_take`` says so (no autograd in a request), else
+    none."""
+    from rba_tpu_torch.models.mix_transformer import MiT, graphs_take
+
+    mit = model.backbone
+    if not isinstance(mit, MiT) or not graphs_take(mit.cfg, torch.device("cuda"), getattr(torch, cfg.compute_dtype),
+                                                   False):
+        return 0
+    return sum(mit.cfg.depths) + 1
+
+
 def _deform_per_request(cfg, model, batch: int = 1, hw=IMAGE_HW) -> int:
     """Kernel F launches of one request of ``batch`` hw frames: one per encoder layer of
     a deformable pixel decoder whose levels' shapes and sampling forms
@@ -2393,9 +2407,11 @@ def backbones_phase(images):
     features are at stride 4 and never elsewhere, Kernel F once per encoder layer where
     ``_deform_per_request`` says so (and not the plain gather's kernel), Kernel G once per
     MiT block where ``_sr_per_request`` says so (and nothing else inside the
-    ``sr_attention`` spans), no other kernel; at fp32 the entry
-    equals its plain version and ``maskformer_infer(...)["rba"]`` within 1e-3."""
+    ``sr_attention`` spans), no other kernel; MiT's stretches between its cores replayed
+    as CUDA graphs where ``_replays_per_request`` says so, captured at most once; at fp32
+    the entry equals its plain version and ``maskformer_infer(...)["rba"]`` within 1e-3."""
     from rba_tpu_torch.config import fast_serving, load_config
+    from rba_tpu_torch.models.cuda_graphs import piecewise
     from rba_tpu_torch.models.maskformer import build_model, maskformer_infer, maskformer_infer_rba
 
     out = {}
@@ -2413,19 +2429,25 @@ def backbones_phase(images):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             counts = _zero_counts(deform=True)
+            piecewise.captures = piecewise.replays = 0
             maps, times = [], []
             for i in range(1, N_REQUESTS + 1):
                 rba, ms = _timed(maskformer_infer_rba, model, c, images[i])
                 maps.append(rba)
                 times.append(ms)
             launches = counts()
+            graphs = dict(captures=piecewise.captures, replays=piecewise.replays)
             bad = [tuple(r.shape) for r in maps if tuple(r.shape) != (1, *IMAGE_HW) or not bool(torch.isfinite(r).all())]
             want = dict(per_image, ms_deform_attn=_deform_per_request(c, model), sr_attention=_sr_per_request(c, model))
             want = {k: want.get(k, 0) * N_REQUESTS for k in launches}
-            if bad or launches != want:
+            replays = _replays_per_request(c, model)
+            # the warm-up ran eagerly; the first request after it captures where none is yet
+            if (bad or launches != want or graphs["replays"] != replays * N_REQUESTS
+                    or graphs["captures"] > (1 if replays else 0)):
                 raise RuntimeError(f"backbones {name} {label}: maps {bad} not finite (1, 1024, 2048), launches "
-                                   f"{launches}, expected {want}")
-            row[label] = dict(ms_per_image=statistics.median(times), ms_all=times, launches=launches,
+                                   f"{launches}, expected {want}; graphs {graphs}, expected {replays} replays a "
+                                   "request and at most one capture")
+            row[label] = dict(ms_per_image=statistics.median(times), ms_all=times, launches=launches, graphs=graphs,
                               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
         redesigned = {"fused_rba_mma_kernel": "fused_rba_kernel"} if per_image else {}
         if _deform_per_request(cfg, model):

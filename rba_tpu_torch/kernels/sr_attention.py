@@ -14,7 +14,7 @@ in the .cu file gives the bound and the design.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -66,16 +66,23 @@ def sr_attention(
     q: torch.Tensor,  # (B, N, C) bf16, the q linear's output
     kv: torch.Tensor,  # (B, M, 2C) bf16, the kv linear's output: k, then v
     num_heads: int,
-) -> torch.Tensor:  # (B, N, C) bf16
+    out: Optional[torch.Tensor] = None,  # (B, N, C) bf16, contiguous, to write into
+) -> torch.Tensor:  # (B, N, C) bf16: ``out`` where given
     """softmax(q·kᵀ · bf16(hd^-0.5))·v per image and head, rounded as
-    ``sr_attention_plain`` rounds it, in one launch.  Checks the arguments first, then
-    launches on their CUDA device or raises: it has no plain fallback and no gradient."""
+    ``sr_attention_plain`` rounds it, in one launch, into ``out`` where given (a CUDA
+    graph's fixed buffer) or a new tensor.  Checks the arguments first, then launches on
+    their CUDA device or raises: it has no plain fallback and no gradient."""
     b, n, m, hd = _check(q, kv, num_heads)
     device = q.device
+    if out is not None and (out.shape != q.shape or out.dtype != q.dtype or out.device != device
+                            or not out.is_contiguous() or out.data_ptr() % 16):
+        raise ValueError(f"out must be a contiguous {q.dtype} tensor of q's shape {tuple(q.shape)} on {device}, "
+                         f"starting on 16 bytes, got {out.dtype} {tuple(out.shape)} on {out.device}")
     if device.type != "cuda" or kv.device != device:
         raise ValueError(f"sr_attention runs on one cuda device, got {device} and {kv.device}")
     _build.refuse_grad("sr_attention", q, kv)
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty_like(q)
     _LAUNCH(sr_attention, device, q.data_ptr(), kv.data_ptr(), out.data_ptr(), b, n, m, num_heads, hd, SCALES[hd])
     return out
 

@@ -7,7 +7,9 @@ MLP with a 3×3 depthwise conv, and a final LayerNorm; ``res2``…``res5`` at st
 The attention rounds as ``rba_tpu``'s does: q·kᵀ in the compute dtype, times the scale
 rounded to it, the softmax in fp32 rounded back, ``· v`` summed in fp32 and rounded.  Its
 core runs Kernel G (``kernels/sr_attention.py``) where its ``takes`` says so, else the
-plain chain ``sr_attention_plain``.
+plain chain ``sr_attention_plain``.  The forward is written once, as a generator that
+stops at each core (``_forward``); where ``graphs_take`` says so, the stretches between
+the cores replay as CUDA graphs (``cuda_graphs.piecewise``), else it runs eagerly.
 Parameter names follow the JAX pytree: ``stages.2.blocks.5.attn.kv``,
 ``stages.0.blocks.1.mlp.dwconv``, ``stages.3.norm``.  ``drop_path_rate`` is kept and not
 applied, in training too: ``rba_tpu``'s MiT has no stochastic depth and its
@@ -16,7 +18,7 @@ applied, in training too: ``rba_tpu``'s MiT has no stochastic depth and its
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -24,6 +26,7 @@ from torch import nn
 from ..kernels import sr_attention as kernel
 from ..ops.nn import apply_conv, apply_linear, centered_layer_norm
 from ..utils.profiling import SR_ATTENTION, span
+from .cuda_graphs import piecewise
 from .swin import gelu
 from .vit import scaled
 
@@ -102,7 +105,29 @@ def sr_attention_plain(
     return out.transpose(1, 2).reshape(b, n, c)
 
 
-def _attention(p: nn.ModuleDict, x: torch.Tensor, h: int, w: int, num_heads: int, sr: int) -> torch.Tensor:
+def graphs_take(cfg: MiTConfig, device: torch.device, compute_dtype: torch.dtype, grad_enabled: bool) -> bool:
+    """Whether ``mit_apply`` replays the forward as CUDA graphs split at the attention
+    cores (``cuda_graphs.piecewise``): on CUDA, with autograd off, where Kernel G's
+    ``takes`` takes every block's core (bf16, its head dims, not under
+    ``plain_versions()``).  Elsewhere the forward runs eagerly: the CPU, training, fp32."""
+    return not grad_enabled and all(kernel.takes(device, compute_dtype, False, dim // heads)
+                                    for dim, heads in zip(cfg.embed_dims, cfg.num_heads))
+
+
+def _core(q: torch.Tensor, kv: torch.Tensor, num_heads: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One block's attention core, alone in its span (the plain chain's merge of the heads
+    included): Kernel G where its ``takes`` says so, into ``out`` where given, else the
+    plain chain."""
+    needs_grad = torch.is_grad_enabled() and (q.requires_grad or kv.requires_grad)
+    fused = kernel.takes(q.device, q.dtype, needs_grad, q.shape[-1] // num_heads)
+    with span(SR_ATTENTION):
+        return kernel.sr_attention(q, kv, num_heads, out=out) if fused else sr_attention_plain(q, kv, num_heads)
+
+
+def _attention(p: nn.ModuleDict, x: torch.Tensor, h: int, w: int, num_heads: int, sr: int):
+    """The block's attention, a generator: it yields the core's arguments, is sent the
+    core's output and returns ``proj`` of it.  The projections, the reduction and
+    ``proj`` stay outside the core."""
     b, n, c = x.shape
     q = apply_linear(p["q"], x)
     kv_in = x
@@ -110,12 +135,7 @@ def _attention(p: nn.ModuleDict, x: torch.Tensor, h: int, w: int, num_heads: int
         xs = apply_conv(p["sr"], x.reshape(b, h, w, c), stride=sr, padding="VALID")
         kv_in = centered_layer_norm(xs.reshape(b, -1, c), p["sr_norm"])
     kv = apply_linear(p["kv"], kv_in)
-    needs_grad = torch.is_grad_enabled() and (q.requires_grad or kv.requires_grad)
-    core = kernel.sr_attention if kernel.takes(q.device, q.dtype, needs_grad, c // num_heads) else sr_attention_plain
-    # the core alone (the plain chain's merge of the heads included): the projections, the
-    # reduction and proj stay outside
-    with span(SR_ATTENTION):
-        out = core(q, kv, num_heads)
+    out = yield q, kv, num_heads
     return apply_linear(p["proj"], out)
 
 
@@ -127,8 +147,9 @@ def _mlp(p: nn.ModuleDict, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return apply_linear(p["fc2"], gelu(y.reshape(b, n, hidden)))
 
 
-def mit_apply(model: MiT, images: torch.Tensor, compute_dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
-    """(B, H, W, 3) normalized → {res2..res5} NHWC maps in ``compute_dtype``."""
+def _forward(model: MiT, images: torch.Tensor, compute_dtype):
+    """The forward as a generator that stops at each block's attention core: it yields
+    ``(q, kv, heads)`` and is sent the core's output; it returns {res2..res5}."""
     cfg = model.cfg
     x = images.to(compute_dtype)
     outs = {}
@@ -138,8 +159,19 @@ def mit_apply(model: MiT, images: torch.Tensor, compute_dtype=torch.bfloat16) ->
         b, h, w, dim = x.shape
         x = centered_layer_norm(x.reshape(b, h * w, dim), stage["patch_embed"]["norm"])
         for blk in stage["blocks"]:
-            x = x + _attention(blk.attn, centered_layer_norm(x, blk.norm1), h, w, cfg.num_heads[s], cfg.sr_ratios[s])
+            x = x + (yield from _attention(blk.attn, centered_layer_norm(x, blk.norm1), h, w, cfg.num_heads[s],
+                                           cfg.sr_ratios[s]))
             x = x + _mlp(blk.mlp, centered_layer_norm(x, blk.norm2), h, w)
         x = centered_layer_norm(x, stage["norm"]).reshape(b, h, w, dim)
         outs[f"res{s + 2}"] = x
     return outs
+
+
+def mit_apply(model: MiT, images: torch.Tensor, compute_dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """(B, H, W, 3) normalized → {res2..res5} NHWC maps in ``compute_dtype``.  Where
+    ``graphs_take`` says so, the stretches between the attention cores replay as CUDA
+    graphs, captured at an input shape's second call, and Kernel G runs eagerly between
+    them, in its spans; else the forward runs eagerly."""
+    graphed = graphs_take(model.cfg, images.device, compute_dtype, torch.is_grad_enabled())
+    return piecewise(model, lambda x: _forward(model, x, compute_dtype), images, _core,
+                     key=compute_dtype if graphed else None)
