@@ -154,6 +154,10 @@ ABLATION_SCORE_TOL = (0.05, 5e-3)
 N_REQUESTS = 4  # distinct images served after one warm-up request
 # Kernel F, and the plain gather's kernel that a request which runs it must not run
 KERNEL_F = {"ms_deform_attn_kernel": "_scatter_gather_elementwise_kernel"}
+# superseded kernels looked for only inside the deformable sampling's spans, not the whole
+# request: the plain gather's kernel is also what ``index_select`` lowers to elsewhere
+# (ViT's position tables, on torch 2.11)
+SAMPLING_ONLY = ("_scatter_gather_elementwise_kernel",)
 E2E_FP32_TOL = 1e-3  # score-map bound of rba_tpu's selfcheck
 BF16_ULP = 2.0**-7  # one bf16 ulp, relative to the value, at most
 BF16_TINY = 2.0**-133  # spacing of bf16's subnormals
@@ -648,18 +652,35 @@ def _sr_per_request(cfg, model) -> int:
                if takes(torch.device("cuda"), dtype, False, dim // heads))
 
 
+def _rel_pos_spans_per_request(model) -> dict:
+    """``rel_pos_attention`` and ``qkv_pool`` spans of one request, at any batch: one of
+    each per MViT block, one ``rel_pos_attention`` per ViT block, none elsewhere."""
+    from rba_tpu_torch.models.mvit import MViT
+    from rba_tpu_torch.models.vit import ViT
+    from rba_tpu_torch.utils.profiling import QKV_POOL, REL_POS_ATTENTION
+
+    backbone = getattr(model.backbone, "vit", model.backbone)
+    blocks = len(backbone.blocks) if isinstance(backbone, (MViT, ViT)) else 0
+    return {REL_POS_ATTENTION: blocks, QKV_POOL: blocks if isinstance(backbone, MViT) else 0}
+
+
 def _replays_per_request(cfg, model) -> int:
     """CUDA-graph replays of one request once its shape is captured: one per stretch of
     MiT's forward between two attention cores (blocks + 1) where
-    ``models/mix_transformer.py`` ``graphs_take`` says so (no autograd in a request), else
-    none."""
+    ``models/mix_transformer.py`` ``graphs_take`` says so, one per ``qkv_pool`` and
+    ``rel_pos_attention`` span of MViT's forward and one per stretch around them (4 ·
+    blocks + 1) where ``models/mvit.py`` ``graphs_take`` says so (no autograd in a
+    request), else none."""
+    from rba_tpu_torch.models import mvit
     from rba_tpu_torch.models.mix_transformer import MiT, graphs_take
 
-    mit = model.backbone
-    if not isinstance(mit, MiT) or not graphs_take(mit.cfg, torch.device("cuda"), getattr(torch, cfg.compute_dtype),
-                                                   False):
+    backbone = model.backbone
+    if isinstance(backbone, mvit.MViT):
+        return 4 * len(backbone.blocks) + 1 if mvit.graphs_take(torch.device("cuda"), False) else 0
+    if not isinstance(backbone, MiT) or not graphs_take(backbone.cfg, torch.device("cuda"),
+                                                        getattr(torch, cfg.compute_dtype), False):
         return 0
-    return sum(mit.cfg.depths) + 1
+    return sum(backbone.cfg.depths) + 1
 
 
 def _deform_per_request(cfg, model, batch: int = 1, hw=IMAGE_HW) -> int:
@@ -798,13 +819,13 @@ def profile_phase(path, cfg, model, image, attention, redesigned, top: int = 10)
     the kernels that take the most device time.  ``redesigned`` maps the name of each
     kernel the path must run to the name of the kernel it superseded (or the fp32
     CUDA-core counterpart that a bf16 request must not take): fails unless the first
-    ran and the second did not."""
+    ran and the second did not (inside the sampling's spans, for ``SAMPLING_ONLY``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from rba_tpu_torch.models.maskformer import LAYERS, maskformer_infer_rba
     from rba_tpu_torch.ops.deform_sampling import SPAN
-    from rba_tpu_torch.utils.profiling import SR_ATTENTION
+    from rba_tpu_torch.utils.profiling import QKV_POOL, REL_POS_ATTENTION, SR_ATTENTION
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -817,14 +838,6 @@ def profile_phase(path, cfg, model, image, attention, redesigned, top: int = 10)
     if busy_ms == 0:
         log(f"{path} profile: the profiler recorded no device time (not measured)")
         return dict(wall_ms=wall_ms, busy_ms=None, idle_share=None, layers=None, top=[])
-    hand = []
-    for new, old in redesigned.items():
-        ran = [r for r in kernels if new in r[0]]
-        stale = [r[0] for r in kernels if old in r[0]]
-        if not ran or stale:
-            raise RuntimeError(f"{path}: the request ran {[r[0] for r in ran]} and {stale}; expected {new} "
-                               f"and no {old}")
-        hand += ran
     events = list(prof.events())
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     spans_all = _annotations()
@@ -842,11 +855,21 @@ def profile_phase(path, cfg, model, image, attention, redesigned, top: int = 10)
         layers[name] = dict(host_ms=host_spans[name].elapsed_us() / 1e3,
                             device_span_ms=span.elapsed_us() / 1e3 if span else 0.0, device_busy_ms=busy)
     sampling = _span_busy(device, layers["pixel_decoder"]["device_busy_ms"], SPAN)
-    sr = _span_busy(device, layers["backbone"]["device_busy_ms"], SR_ATTENTION)
+    sr, rel, pool = (_span_busy(device, layers["backbone"]["device_busy_ms"], sp)
+                     for sp in (SR_ATTENTION, REL_POS_ATTENTION, QKV_POOL))
+    hand = []
+    for new, old in redesigned.items():
+        ran = [r for r in kernels if new in r[0]]
+        names = [k["kernel"] for k in sampling["kernels"]] if old in SAMPLING_ONLY else [r[0] for r in kernels]
+        stale = [k for k in names if old in k]
+        if not ran or stale:
+            raise RuntimeError(f"{path}: the request ran {[r[0] for r in ran]} and {stale}; expected {new} "
+                               f"and no {old}")
+        hand += ran
     out = dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms, layers=layers,
                top=[dict(kernel=k[:120], ms=t, calls=c) for k, t, c in kernels[:top]],
                hand_kernels=[dict(kernel=k[:120], ms=t, calls=c) for k, t, c in hand], sampling=sampling,
-               sr_attention=sr)
+               sr_attention=sr, rel_pos_attention=rel, qkv_pool=pool)
     log(f"{path} profile of one request (profiler on): wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
         f"idle share {out['idle_share']:.3f}; by layer, host span / device span / device busy ms: "
         + "; ".join(f"{k} {v['host_ms']:.2f} / {v['device_span_ms']:.2f} / {v['device_busy_ms']:.2f}"
@@ -854,13 +877,15 @@ def profile_phase(path, cfg, model, image, attention, redesigned, top: int = 10)
     share = sampling["share_of_layer"]
     log(f"{path} deformable sampling ({sampling['spans']} calls): device busy {sampling['busy_ms']:.3f} ms, "
         + (f"{share:.3f} of the pixel decoder's busy time" if share is not None else "pixel decoder not measured"))
-    if sr["spans"]:
-        log(f"{path} spatial-reduction attention ({sr['spans']} cores): device busy {sr['busy_ms']:.3f} ms, "
-            f"{sr['share_of_layer']:.3f} of the backbone's busy time")
+    for title, row in (("spatial-reduction attention", sr), ("relative-position attention", rel),
+                       ("q/k/v pooling", pool)):
+        if row["spans"]:
+            log(f"{path} {title} ({row['spans']} spans): device busy {row['busy_ms']:.3f} ms, "
+                f"{row['share_of_layer']:.3f} of the backbone's busy time")
     for title, rows in ((f"{path} top kernels by device time:", out["top"]),
                         (f"{path} its hand kernels:", out["hand_kernels"]),
                         (f"{path} the deformable sampling's kernels:", sampling["kernels"]),
-                        (f"{path} the attention cores' kernels:", sr["kernels"])):
+                        (f"{path} the attention cores' kernels:", sr["kernels"] + rel["kernels"])):
         log(title)
         for r in rows:
             log(f"  {r['ms']:8.3f} ms  x{r['calls']:<4d} {r['kernel']}")
@@ -2407,11 +2432,13 @@ def backbones_phase(images):
     features are at stride 4 and never elsewhere, Kernel F once per encoder layer where
     ``_deform_per_request`` says so (and not the plain gather's kernel), Kernel G once per
     MiT block where ``_sr_per_request`` says so (and nothing else inside the
-    ``sr_attention`` spans), no other kernel; MiT's stretches between its cores replayed
-    as CUDA graphs where ``_replays_per_request`` says so, captured at most once; at fp32
-    the entry equals its plain version and ``maskformer_infer(...)["rba"]`` within 1e-3."""
+    ``sr_attention`` spans), no other kernel; one ``rel_pos_attention`` span per MViT
+    and ViT block and one ``qkv_pool`` span per MViT block; MiT's stretches between its
+    cores, and MViT's spans and the stretches around them, replayed as CUDA graphs where
+    ``_replays_per_request`` says so, captured at most once; at fp32 the entry equals its plain version and
+    ``maskformer_infer(...)["rba"]`` within 1e-3."""
     from rba_tpu_torch.config import fast_serving, load_config
-    from rba_tpu_torch.models.cuda_graphs import piecewise
+    from rba_tpu_torch.models.cuda_graphs import piecewise, spanwise
     from rba_tpu_torch.models.maskformer import build_model, maskformer_infer, maskformer_infer_rba
 
     out = {}
@@ -2429,14 +2456,15 @@ def backbones_phase(images):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             counts = _zero_counts(deform=True)
-            piecewise.captures = piecewise.replays = 0
+            piecewise.captures = piecewise.replays = spanwise.captures = spanwise.replays = 0
             maps, times = [], []
             for i in range(1, N_REQUESTS + 1):
                 rba, ms = _timed(maskformer_infer_rba, model, c, images[i])
                 maps.append(rba)
                 times.append(ms)
             launches = counts()
-            graphs = dict(captures=piecewise.captures, replays=piecewise.replays)
+            graphs = dict(captures=piecewise.captures + spanwise.captures,
+                          replays=piecewise.replays + spanwise.replays)
             bad = [tuple(r.shape) for r in maps if tuple(r.shape) != (1, *IMAGE_HW) or not bool(torch.isfinite(r).all())]
             want = dict(per_image, ms_deform_attn=_deform_per_request(c, model), sr_attention=_sr_per_request(c, model))
             want = {k: want.get(k, 0) * N_REQUESTS for k in launches}
@@ -2458,6 +2486,11 @@ def backbones_phase(images):
                            and all("sr_attention_kernel" in k["kernel"] for k in cores["kernels"])):
             raise RuntimeError(f"backbones {name}: the attention cores ran {cores}, expected Kernel G alone, once "
                                "per block")
+        want_spans = _rel_pos_spans_per_request(model)
+        if row["profile"]["layers"] is not None:
+            spans = {sp: row["profile"][sp]["spans"] for sp in want_spans}
+            if spans != want_spans:
+                raise RuntimeError(f"backbones {name}: a request opened {spans} spans, expected {want_spans}")
         cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
         counts = _zero_counts()
         r32 = maskformer_infer_rba(model, cfg32, images[1])

@@ -6,7 +6,9 @@ adaptive stride), window attention with decomposed relative positions (global in
 last block of stages 2–4), the pooled q added back, and an MLP; the skip is projected
 where the width changes and max-pooled where q is strided.  ``scale2``…``scale5`` at
 strides 4…32, each after its own LayerNorm.  It shares ViT's attention chain and
-roundings (``vit.attention_core``).  Parameter names follow the JAX pytree:
+roundings (``vit.attention_core``).  Where ``graphs_take`` says so, the forward replays
+as CUDA graphs split at its ``qkv_pool`` and ``rel_pos_attention`` spans
+(``cuda_graphs.spanwise``), else it runs eagerly.  Parameter names follow the JAX pytree:
 ``blocks.2.attn.pool_k``, ``blocks.2.attn.norm_k``, ``blocks.2.proj``, ``scale3_norm``.
 """
 from __future__ import annotations
@@ -18,6 +20,8 @@ import torch
 from torch import nn
 
 from ..ops.nn import apply_conv, apply_linear, centered_layer_norm, max_pool_nhwc
+from ..utils.profiling import QKV_POOL, span
+from .cuda_graphs import spanwise
 from .swin import gelu
 from .vit import abs_pos_embed, attention_core, window_partition, window_unpartition
 
@@ -122,9 +126,10 @@ def _ms_attention(attn: nn.Module, x: torch.Tensor, s: Dict[str, int], cfg: MViT
     hd = attn.proj.weight.shape[0] // heads
     qkv = apply_linear(attn.qkv, x).reshape(b, h, w, 3, heads, hd).permute(3, 0, 4, 1, 2, 5)
     q, k, v = qkv.reshape(3, b * heads, h, w, hd)
-    q = _pool(attn.pool_q, attn.norm_q, q, s["stride_q"])
-    k = _pool(attn.pool_k, attn.norm_k, k, s["stride_kv"])
-    v = _pool(attn.pool_v, attn.norm_v, v, s["stride_kv"])
+    with span(QKV_POOL):
+        q = _pool(attn.pool_q, attn.norm_q, q, s["stride_q"])
+        k = _pool(attn.pool_k, attn.norm_k, k, s["stride_kv"])
+        v = _pool(attn.pool_v, attn.norm_v, v, s["stride_kv"])
     ori_q = q
     ws = s["window"]
     if ws:
@@ -147,8 +152,23 @@ def _ms_attention(attn: nn.Module, x: torch.Tensor, s: Dict[str, int], cfg: MViT
     return apply_linear(attn.proj, out)
 
 
+def graphs_take(device: torch.device, grad_enabled: bool) -> bool:
+    """Whether ``mvit_apply`` replays the forward as CUDA graphs split at its spans
+    (``cuda_graphs.spanwise``): on CUDA with autograd off.  Elsewhere (the CPU,
+    training) the forward runs eagerly."""
+    return device.type == "cuda" and not grad_enabled
+
+
 def mvit_apply(model: MViT, images: torch.Tensor, compute_dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
-    """(B, H, W, 3) normalized → {scale2..scale5} NHWC maps in ``compute_dtype``."""
+    """(B, H, W, 3) normalized → {scale2..scale5} NHWC maps in ``compute_dtype``.  Where
+    ``graphs_take`` says so, the forward replays as CUDA graphs captured at an input
+    shape's second call, one for each ``qkv_pool`` and ``rel_pos_attention`` span,
+    replayed inside it, and one for each stretch between them; else it runs eagerly."""
+    graphed = graphs_take(images.device, torch.is_grad_enabled())
+    return spanwise(model, lambda x: _forward(model, x, compute_dtype), images, key=compute_dtype if graphed else None)
+
+
+def _forward(model: MViT, images: torch.Tensor, compute_dtype) -> Dict[str, torch.Tensor]:
     cfg = model.cfg
     x = apply_conv(model.patch_embed["proj"], images.to(compute_dtype), stride=cfg.patch_stride[0],
                    padding=cfg.patch_padding[0])

@@ -26,6 +26,7 @@ from torch import nn
 
 from ..ops.nn import apply_conv, apply_linear, centered_layer_norm, max_pool_nhwc
 from ..ops.resize import interp_coeffs, resize_bicubic_nhwc
+from ..utils.profiling import REL_POS_ATTENTION, span
 from .swin import gelu
 
 
@@ -47,10 +48,11 @@ class ViTConfig:
     ln_eps: float = 1e-6
 
 
-@functools.lru_cache(maxsize=256)
+@functools.lru_cache(maxsize=None)
 def _rel_pos_constants(table: int, q_size: int, k_size: int, device: torch.device):
     """The resampling's (lo, hi, frac) (None at the table's own size) and the (q, k)
-    gather index, copied to ``device`` once."""
+    gather index, copied to ``device`` once.  Kept for good: a CUDA graph captured over
+    the gathers (``mvit_apply``) reads them at every replay."""
     with torch.inference_mode(False):
         max_rel = 2 * max(q_size, k_size) - 1
         resample = None
@@ -90,20 +92,22 @@ def attention_core(
 ) -> torch.Tensor:  # (B·heads, q_h·q_w, hd), compute dtype
     """The ViT and MViT attention: (q·scale)·kᵀ in the compute dtype, plus the
     decomposed relative positions (tables resampled in fp32, then cast), the softmax in
-    fp32 rounded back, and ``· v`` summed in fp32 and rounded."""
-    dt = q.dtype
-    attn = torch.matmul(scaled(q, q.shape[-1] ** -0.5), k.transpose(-1, -2))
-    if rel_pos_h is not None:
-        rh = rel_pos_resampled(rel_pos_h, q_hw[0], kv_hw[0]).to(dt)  # (q_h, k_h, hd)
-        rw = rel_pos_resampled(rel_pos_w, q_hw[1], kv_hw[1]).to(dt)
-        r_q = q.reshape(-1, q_hw[0], q_hw[1], q.shape[-1])
-        rel_h = torch.einsum("bhwc,hkc->bhwk", r_q, rh)
-        rel_w = torch.einsum("bhwc,wkc->bhwk", r_q, rw)
-        attn = attn.reshape(-1, q_hw[0], q_hw[1], kv_hw[0], kv_hw[1])
-        attn = (attn + rel_h[:, :, :, :, None]) + rel_w[:, :, :, None, :]
-        attn = attn.reshape(-1, q_hw[0] * q_hw[1], kv_hw[0] * kv_hw[1])
-    p = torch.softmax(attn.float(), dim=-1).to(dt)
-    return torch.matmul(p, v)
+    fp32 rounded back, and ``· v`` summed in fp32 and rounded.  The whole core is one
+    ``rel_pos_attention`` span."""
+    with span(REL_POS_ATTENTION):
+        dt = q.dtype
+        attn = torch.matmul(scaled(q, q.shape[-1] ** -0.5), k.transpose(-1, -2))
+        if rel_pos_h is not None:
+            rh = rel_pos_resampled(rel_pos_h, q_hw[0], kv_hw[0]).to(dt)  # (q_h, k_h, hd)
+            rw = rel_pos_resampled(rel_pos_w, q_hw[1], kv_hw[1]).to(dt)
+            r_q = q.reshape(-1, q_hw[0], q_hw[1], q.shape[-1])
+            rel_h = torch.einsum("bhwc,hkc->bhwk", r_q, rh)
+            rel_w = torch.einsum("bhwc,wkc->bhwk", r_q, rw)
+            attn = attn.reshape(-1, q_hw[0], q_hw[1], kv_hw[0], kv_hw[1])
+            attn = (attn + rel_h[:, :, :, :, None]) + rel_w[:, :, :, None, :]
+            attn = attn.reshape(-1, q_hw[0] * q_hw[1], kv_hw[0] * kv_hw[1])
+        p = torch.softmax(attn.float(), dim=-1).to(dt)
+        return torch.matmul(p, v)
 
 
 class ViTBlock(nn.Module):

@@ -1,9 +1,11 @@
 """The port's spans (``rba_tpu_torch/utils/profiling.py``): free when no profiler records,
 and under a profiler one ``request`` per call of an entry, holding its upload, its layers,
-each Kernel A call, each MiT block's attention core and each deformable-sampling call."""
+each Kernel A call, each MiT block's attention core, each ViTDet and MViT block's
+attention core and MViT's q/k/v pooling, and each deformable-sampling call."""
 from __future__ import annotations
 
 import dataclasses
+import re
 from pathlib import Path
 
 import numpy as np
@@ -148,7 +150,18 @@ def test_registry_names_the_spans_the_readers_read():
     assert (tds.SPAN, tds.BACKWARD_SPAN) == ("deform_sampling", "deform_sampling_backward")
     assert tprof.TRAIN_STEP == ("forward", "criterion", "backward", "optimizer")
     assert (tprof.REQUEST, tprof.UPLOAD, tprof.WINDOW_ATTENTION) == ("request", "upload", "window_attention")
+    assert (tprof.SR_ATTENTION, tprof.REL_POS_ATTENTION, tprof.QKV_POOL) == ("sr_attention", "rel_pos_attention",
+                                                                            "qkv_pool")
     assert len(set(tprof.ALL_SPANS)) == len(tprof.ALL_SPANS)
+
+
+def test_every_span_a_benchmark_reader_reads_is_a_span_of_the_port():
+    folder = Path(__file__).resolve().parents[1] / "benchmark" / "layer_metrics"
+    read = set()
+    for path in folder.glob("*.py"):
+        read.update(re.findall(r'^SPAN = "([^"]+)"', path.read_text(), re.M))
+    assert {tprof.SR_ATTENTION, tprof.REL_POS_ATTENTION, tprof.QKV_POOL, "backbone"} <= read
+    assert read <= set(tprof.ALL_SPANS)
 
 
 MIT_HW = (64, 96)
@@ -196,4 +209,85 @@ def test_mit_score_map_is_the_same_under_a_profiler(tiny_mit):
     plain = tmf.maskformer_infer_rba(model, cfg, image)
     with profile(activities=[ProfilerActivity.CPU]):
         profiled = tmf.maskformer_infer_rba(model, cfg, image)
+    assert torch.equal(plain, profiled)
+
+
+MVIT_HW = (64, 128)
+SEMSEG = Path(__file__).resolve().parents[1] / "configs/cityscapes/semantic-segmentation"
+
+
+def _fp32_model(rel: str, seed: int):
+    """The configuration ``rel`` under ``SEMSEG`` at full width and fp32 on the CPU."""
+    torch.manual_seed(seed)
+    cfg = dataclasses.replace(load_config(str(SEMSEG / rel)), compute_dtype="float32")
+    return cfg, tmf.build_model(cfg, device="cpu").eval()
+
+
+def _frames(batch: int, seed: int = 3):
+    return torch.from_numpy(np.random.RandomState(seed).randint(0, 256, (batch, *MVIT_HW, 3)).astype(np.uint8))
+
+
+@pytest.fixture(scope="module")
+def mvit():
+    """RbA's MViTv2-B 1dl model at full width, fp32, on the CPU."""
+    return _fp32_model("mvit/maskformer_2_mvit_in21k_bs16_90k_1dl.yaml", 3)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_mvit_request_opens_one_rel_pos_and_one_pool_span_per_block(mvit, batch):
+    cfg, model = mvit
+    spans = _profiled(lambda: tmf.maskformer_infer_rba(model, cfg, _frames(batch)))
+    counts = _counts(spans)
+    assert counts[tprof.REL_POS_ATTENTION] == counts[tprof.QKV_POOL] == len(model.backbone.blocks) == 24
+    assert counts[tprof.REQUEST] == counts["backbone"] == 1
+    assert tprof.SR_ATTENTION not in counts and tprof.WINDOW_ATTENTION not in counts
+    backbone = next(e for e in spans if e.name == "backbone")
+    assert all(_within(e, backbone) for e in spans if e.name in (tprof.REL_POS_ATTENTION, tprof.QKV_POOL))
+    # the pooling precedes its block's attention core and is not inside it
+    pools = sorted((e for e in spans if e.name == tprof.QKV_POOL), key=lambda e: e.time_range.start)
+    cores = sorted((e for e in spans if e.name == tprof.REL_POS_ATTENTION), key=lambda e: e.time_range.start)
+    assert all(p.time_range.end <= c.time_range.start for p, c in zip(pools, cores))
+
+
+def test_vitdet_request_opens_one_rel_pos_span_per_block():
+    cfg, model = _fp32_model("vit/maskformer_2_vit_imagenet_bs16_90k.yaml", 4)
+    spans = _profiled(lambda: tmf.maskformer_infer_rba(model, cfg, _frames(1)))
+    counts = _counts(spans)
+    assert counts[tprof.REL_POS_ATTENTION] == len(model.backbone.blocks) == 12
+    assert tprof.QKV_POOL not in counts
+    backbone = next(e for e in spans if e.name == "backbone")
+    assert all(_within(e, backbone) for e in spans if e.name == tprof.REL_POS_ATTENTION)
+
+
+@pytest.mark.parametrize("family", ["swin", "mit", "resnet"])
+def test_other_backbones_open_no_rel_pos_or_pool_span(tiny, tiny_mit, family):
+    if family == "mit":
+        cfg, model, image = tiny_mit
+    else:
+        cfg, model, image = tiny
+        if family == "resnet":
+            torch.manual_seed(5)
+            cfg = dataclasses.replace(cfg, backbone_name="resnet")
+            model = tmf.build_model(cfg, device="cpu").eval()
+    counts = _counts(_profiled(lambda: tmf.maskformer_infer_rba(model, cfg, image)))
+    assert counts[tprof.REQUEST] == counts["backbone"] == 1
+    assert tprof.REL_POS_ATTENTION not in counts and tprof.QKV_POOL not in counts
+
+
+def test_mvit_spans_without_a_profiler_never_enter_record_function(mvit, monkeypatch):
+    cfg, model = mvit
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered with no profiler running")
+
+    monkeypatch.setattr(tprof, "record_function", refuse)
+    out = tmf.maskformer_infer_rba(model, cfg, _frames(1))
+    assert tuple(out.shape) == (1, *MVIT_HW) and bool(torch.isfinite(out).all())
+
+
+def test_mvit_score_map_is_the_same_under_a_profiler(mvit):
+    cfg, model = mvit
+    plain = tmf.maskformer_infer_rba(model, cfg, _frames(2))
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiled = tmf.maskformer_infer_rba(model, cfg, _frames(2))
     assert torch.equal(plain, profiled)
