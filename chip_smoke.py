@@ -617,13 +617,15 @@ def _plain(on: bool = True):
 
 def _wrappers(lsap: bool = False, deform: bool = False):
     """Every kernel wrapper of the port's Pallas counterparts by name, with ``lsap``
-    Kernel E's too and with ``deform`` Kernels F's and G's (the deformable sampling and
-    MiT's attention core, counted on the serving paths); each counts its launches."""
+    Kernel E's too and with ``deform`` Kernels F's, G's and H's (the deformable sampling,
+    MiT's attention core and the relative-position attention core, counted on the
+    serving paths); each counts its launches."""
     from rba_tpu_torch.kernels.fused_mlp import fused_mlp_residual
     from rba_tpu_torch.kernels.fused_rba import fused_rba_score
     from rba_tpu_torch.kernels.lsap import batched_linear_sum_assignment
     from rba_tpu_torch.kernels.masked_softmax import masked_softmax
     from rba_tpu_torch.kernels.ms_deform_attn import ms_deform_attn
+    from rba_tpu_torch.kernels.rel_pos_attention import rel_pos_attention
     from rba_tpu_torch.kernels.sr_attention import sr_attention
     from rba_tpu_torch.kernels.window_attention import window_attention
 
@@ -634,6 +636,7 @@ def _wrappers(lsap: bool = False, deform: bool = False):
     if deform:
         out["ms_deform_attn"] = ms_deform_attn
         out["sr_attention"] = sr_attention
+        out["rel_pos_attention"] = rel_pos_attention
     return out
 
 
@@ -650,6 +653,21 @@ def _sr_per_request(cfg, model) -> int:
     dtype = getattr(torch, cfg.compute_dtype)
     return sum(depth for depth, dim, heads in zip(mit.cfg.depths, mit.cfg.embed_dims, mit.cfg.num_heads)
                if takes(torch.device("cuda"), dtype, False, dim // heads))
+
+
+def _rel_per_request(cfg, model) -> int:
+    """Kernel H launches of one request, at any batch: one per MViT or ViT block with
+    position tables where ``kernels/rel_pos_attention.py`` ``takes`` takes the block's
+    core (no autograd in a request), else none."""
+    from rba_tpu_torch.kernels.rel_pos_attention import takes
+    from rba_tpu_torch.models.mvit import MViT
+    from rba_tpu_torch.models.vit import ViT
+
+    backbone = getattr(model.backbone, "vit", model.backbone)
+    if not isinstance(backbone, (MViT, ViT)) or not backbone.cfg.use_rel_pos:
+        return 0
+    dtype = getattr(torch, cfg.compute_dtype)
+    return sum(takes(torch.device("cuda"), dtype, False, blk.attn.rel_pos_h.shape[-1]) for blk in backbone.blocks)
 
 
 def _rel_pos_spans_per_request(model) -> dict:
@@ -1744,6 +1762,80 @@ def sr_attention_phase(gen):
     return rows
 
 
+# (calls, q_hw, kv_hw, blocks) of MViTv2-B's attention cores on a 1024x2048 frame (head dim
+# 96; calls = windows x heads): stage 1's windows, stage 2's windowed blocks, the global
+# block 4, stage 3's windowed blocks, the global block 20, stage 4's windows, block 23
+MVIT_B_CORES = ((50, (56, 56), (14, 14), 2), (100, (28, 28), (28, 28), 1), (100, (28, 28), (14, 14), 1),
+                (2, (128, 256), (32, 64), 1), (200, (14, 14), (28, 28), 1), (200, (14, 14), (14, 14), 14),
+                (4, (64, 128), (32, 64), 1), (400, (7, 7), (14, 14), 1), (400, (7, 7), (7, 7), 1),
+                (8, (32, 64), (32, 64), 1))
+REL_KERNEL = "rel_pos_attention_kernel"  # Kernel H's symbol in a device trace
+
+
+def rel_pos_inputs(gen, calls: int, q_hw, kv_hw, hd: int):
+    """q, k, v (calls, tokens, hd) bf16 of unit scale and the two raw position tables
+    (2 max(q, k) - 1, hd) fp32 of scale 0.1 (position terms near 1) of one core call."""
+    nq, nk = q_hw[0] * q_hw[1], kv_hw[0] * kv_hw[1]
+    q, k, v = (torch.randn(calls, n, hd, generator=gen, device="cuda").bfloat16() for n in (nq, nk, nk))
+    tables = (0.1 * torch.randn(2 * max(q_hw[i], kv_hw[i]) - 1, hd, generator=gen, device="cuda") for i in (0, 1))
+    return (q, k, v, *tables)
+
+
+def rel_pos_attention_phase(gen):
+    """Kernel H against ``rel_pos_attention_plain`` at every core shape of MViTv2-B on a
+    1024x2048 frame (``MVIT_B_CORES``, head dim 96): at least ``SR_BIT_EQUAL_SHARE`` of
+    the outputs bit-equal and none beyond ``SR_MAX_ULPS`` of its row's largest value; per
+    call and per image (each shape's time times its blocks, 24 launches) the kernel's ms
+    (its tables made beforehand by ``rel_pos_tables``) beside the bound (the four products at 989
+    TFLOP/s, or q, k, v and the output once at 3.35 TB/s, the larger: 0.248 ms an
+    image), the plain chain's and ``scaled_dot_product_attention``'s without the
+    position terms (the yardstick ``library_ms``; the port never calls it)."""
+    from rba_tpu_torch.kernels.rel_pos_attention import rel_pos_attention
+    from rba_tpu_torch.models.vit import rel_pos_attention_plain, rel_pos_tables
+
+    hd = 96
+    rows = {}
+    image = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, launches=0, flops=0.0, bytes=0.0)
+    for calls, q_hw, kv_hw, blocks in MVIT_B_CORES:
+        q, k, v, rel_h, rel_w = rel_pos_inputs(gen, calls, q_hw, kv_hw, hd)
+        nq, nk = q.shape[1], k.shape[1]
+        with torch.no_grad():
+            rh, rw, rw_index = rel_pos_tables(rel_h, rel_w, q_hw, kv_hw)
+            before = rel_pos_attention.launches
+            got = rel_pos_attention(q, k, v, rh, rw, rw_index, q_hw, kv_hw)
+            torch.cuda.synchronize()
+            launched = rel_pos_attention.launches - before
+            want = rel_pos_attention_plain(q, k, v, q_hw, kv_hw, rel_h, rel_w)
+            share, ulps = sr_attention_gap(got, want)
+            finite = bool(torch.isfinite(got.float()).all())
+            t_all = cuda_ms_batches(lambda: rel_pos_attention(q, k, v, rh, rw, rw_index, q_hw, kv_hw))
+            t_p = cuda_ms(lambda: rel_pos_attention_plain(q, k, v, q_hw, kv_hw, rel_h, rel_w), iters=5)
+            t_l = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=5)
+        flops = 4.0 * calls * nq * nk * hd + 2.0 * calls * nq * (kv_hw[0] + kv_hw[1]) * hd
+        nbytes = 2.0 * (2 * calls * nq * hd + 2 * calls * nk * hd)
+        b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+        name = f"c{calls}_q{q_hw[0]}x{q_hw[1]}_k{kv_hw[0]}x{kv_hw[1]}"
+        rows[name] = dict(calls=calls, q_hw=q_hw, kv_hw=kv_hw, head_dim=hd, blocks=blocks, launches=launched,
+                          bit_equal_share=share, max_ulps=ulps, ms=t_all[0], ms_batches=t_all, plain_ms=t_p,
+                          library_ms=t_l, bound_ms=b_ms, bound_by=b_by, roofline=b_ms / t_all[0])
+        for key, t in (("ms", t_all[0]), ("plain_ms", t_p), ("library_ms", t_l), ("flops", flops), ("bytes", nbytes)):
+            image[key] += blocks * t
+        image["launches"] += blocks * launched
+        log(f"rel_pos_attention {name} (x{blocks} blocks): bit-equal {share:.5f} (least {SR_BIT_EQUAL_SHARE}), "
+            f"worst {ulps:.2f} ulps of the row's largest (most {SR_MAX_ULPS}), launches {launched} | kernel "
+            f"{t_all[0]:.4f} ms (3 batches {_fmt(t_all)}), bound {b_ms:.4f} ms ({b_by}; "
+            f"{100 * b_ms / t_all[0]:.1f} %), plain {t_p:.4f} ms, SDPA {t_l:.4f} ms")
+        if not (share >= SR_BIT_EQUAL_SHARE and ulps <= SR_MAX_ULPS and launched == 1 and finite):
+            raise RuntimeError(f"rel_pos_attention {name}: {rows[name]}, finite {finite}")
+        del q, k, v, got, want
+    image["bound_ms"], image["bound_by"] = bound_ms(image["bytes"], image["flops"], "bfloat16")
+    rows["per_image"] = image
+    log(f"rel_pos_attention per 1024x2048 MViTv2-B image ({image['launches']} launches): kernel "
+        f"{image['ms']:.3f} ms, bound {image['bound_ms']:.3f} ms ({100 * image['bound_ms'] / image['ms']:.1f} %), "
+        f"plain {image['plain_ms']:.3f} ms, SDPA without the position terms {image['library_ms']:.3f} ms")
+    return rows
+
+
 def _write_cityscapes_split(root: Path, split: str, frames: int, rs):
     """``frames`` 1024x2048 PNG frames of a Cityscapes-layout split under ``root`` with
     ``*_gtFine_labelTrainIds.png`` (blocks of the 19 classes and some void), from ``rs``."""
@@ -2432,8 +2524,9 @@ def backbones_phase(images):
     features are at stride 4 and never elsewhere, Kernel F once per encoder layer where
     ``_deform_per_request`` says so (and not the plain gather's kernel), Kernel G once per
     MiT block where ``_sr_per_request`` says so (and nothing else inside the
-    ``sr_attention`` spans), no other kernel; one ``rel_pos_attention`` span per MViT
-    and ViT block and one ``qkv_pool`` span per MViT block; MiT's stretches between its
+    ``sr_attention`` spans), Kernel H once per MViT and ViT block where
+    ``_rel_per_request`` says so (inside its ``rel_pos_attention`` span), no other
+    kernel; one ``rel_pos_attention`` span per MViT and ViT block and one ``qkv_pool`` span per MViT block; MiT's stretches between its
     cores, and MViT's spans and the stretches around them, replayed as CUDA graphs where
     ``_replays_per_request`` says so, captured at most once; at fp32 the entry equals its plain version and
     ``maskformer_infer(...)["rba"]`` within 1e-3."""
@@ -2469,6 +2562,9 @@ def backbones_phase(images):
             want = dict(per_image, ms_deform_attn=_deform_per_request(c, model), sr_attention=_sr_per_request(c, model))
             want = {k: want.get(k, 0) * N_REQUESTS for k in launches}
             replays = _replays_per_request(c, model)
+            # Kernel H launches in an eager request and at a capture, where its span's graph
+            # takes it; a replayed request launches none
+            want["rel_pos_attention"] = _rel_per_request(c, model) * (graphs["captures"] if replays else N_REQUESTS)
             # the warm-up ran eagerly; the first request after it captures where none is yet
             if (bad or launches != want or graphs["replays"] != replays * N_REQUESTS
                     or graphs["captures"] > (1 if replays else 0)):
@@ -3784,6 +3880,7 @@ def main() -> int:
     lsap_rows = lsap_phase(gen)
     mda_rows = ms_deform_attn_phase(gen)
     sr_rows = sr_attention_phase(gen)
+    rel_rows = rel_pos_attention_phase(gen)
 
     from rba_tpu_torch.models.maskformer import build_model
 
@@ -4015,6 +4112,14 @@ def main() -> int:
              max_ulps=max(r["max_ulps"] for k, r in sr_rows.items() if k != "per_image"),
              **{k: sr_rows["per_image"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
              bound_by="operations"),
+        dict(name="rel_pos_attention", route="cuda", source="rba_tpu_torch/csrc/rel_pos_attention.cu",
+             replaces="none (rba_tpu/models/vit.py computes the core in plain jnp)",
+             launches=backbones["mvit_in21k_1dl"]["parity"]["launches"]["rel_pos_attention"],
+             launches_per_image=rel_rows["per_image"]["launches"],
+             bit_equal_share=min(r["bit_equal_share"] for k, r in rel_rows.items() if k != "per_image"),
+             max_ulps=max(r["max_ulps"] for k, r in rel_rows.items() if k != "per_image"),
+             **{k: rel_rows["per_image"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+             bound_by="bytes"),
     ]
     if args.out:
         args.out.mkdir(parents=True, exist_ok=True)
@@ -4023,7 +4128,7 @@ def main() -> int:
                  masked_softmax=ms_rows, fused_mlp=mlp_rows, serve=serve, paths_fp32_max_diff=cross32,
                  paths_bf16_max_diff_not_gated=cross16, profile=prof, fast=fast, xla=xla, eval=evaluation, d2=d2,
                  tta=tta, sliding=sliding, dense_hybrid=dense_hybrid, sweep_cli=sweep_cli, lsap=lsap_rows,
-                 ms_deform_attn=mda_rows, sr_attention=sr_rows,
+                 ms_deform_attn=mda_rows, sr_attention=sr_rows, rel_pos_attention=rel_rows,
                  train=train, semseg=semseg, panoptic=panoptic, train_eval=train_eval, backbones=backbones,
                  r50_d2=r50_d2, train_backbones=train_backbones, masked_softmax_swin_l=ms_rows_l, swin_l=swin_l,
                  train_datasets=train_datasets, heads=heads, hf=hf, parallel=parallel, int8=int8, tools=tools,

@@ -8,7 +8,8 @@ into ``res2``…``res5`` at strides 4…32 with 2×2 transposed convs and a max 
 LayerNorm eps 1e-6, with the variance centred (``ops.nn.centered_layer_norm``).  The
 attention rounds as ``rba_tpu``'s does: q times the scale in the compute dtype, q·kᵀ and
 the relative-position products in it, the two position terms added one after the other,
-the softmax in fp32 rounded back, ``· v`` summed in fp32 and rounded.  Parameter names
+the softmax in fp32 rounded back, ``· v`` summed in fp32 and rounded; on the card Kernel H
+computes that core in one launch where its ``takes`` says so.  Parameter names
 follow the JAX pytree: ``blocks.3.attn.rel_pos_h``, ``pos_embed``,
 ``stages.0.up1_norm``.
 """
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import rel_pos_attention as rel_pos_kernel
 from ..ops.nn import apply_conv, apply_linear, centered_layer_norm, max_pool_nhwc
 from ..ops.resize import interp_coeffs, resize_bicubic_nhwc
 from ..utils.profiling import REL_POS_ATTENTION, span
@@ -49,21 +51,27 @@ class ViTConfig:
 
 
 @functools.lru_cache(maxsize=None)
+def _rel_pos_coeffs(table: int, q_size: int, k_size: int):
+    """On the host: the resampling's (lo, hi, frac) to 2·max(q, k) − 1 entries (None at the
+    table's own size) and the (q, k) gather index."""
+    max_rel = 2 * max(q_size, k_size) - 1
+    resample = interp_coeffs(table, max_rel, False) if table != max_rel else None
+    q_coords = np.arange(q_size)[:, None] * max(k_size / q_size, 1.0)
+    k_coords = np.arange(k_size)[None, :] * max(q_size / k_size, 1.0)
+    return resample, ((q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)).astype(np.int64)
+
+
+@functools.lru_cache(maxsize=None)
 def _rel_pos_constants(table: int, q_size: int, k_size: int, device: torch.device):
-    """The resampling's (lo, hi, frac) (None at the table's own size) and the (q, k)
-    gather index, copied to ``device`` once.  Kept for good: a CUDA graph captured over
-    the gathers (``mvit_apply``) reads them at every replay."""
+    """``_rel_pos_coeffs`` copied to ``device`` once.  Kept for good: a CUDA graph captured
+    over the gathers (``mvit_apply``) reads them at every replay."""
     with torch.inference_mode(False):
-        max_rel = 2 * max(q_size, k_size) - 1
-        resample = None
-        if table != max_rel:
-            lo, hi, frac = interp_coeffs(table, max_rel, False)
+        resample, rel = _rel_pos_coeffs(table, q_size, k_size)
+        if resample is not None:
+            lo, hi, frac = resample
             resample = (torch.as_tensor(lo, device=device), torch.as_tensor(hi, device=device),
                         torch.as_tensor(frac, device=device)[:, None])
-        q_coords = np.arange(q_size)[:, None] * max(k_size / q_size, 1.0)
-        k_coords = np.arange(k_size)[None, :] * max(q_size / k_size, 1.0)
-        rel = (q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)
-        return resample, torch.as_tensor(rel.astype(np.int64), device=device)
+        return resample, torch.as_tensor(rel, device=device)
 
 
 def rel_pos_resampled(rel_pos: torch.Tensor, q_size: int, k_size: int) -> torch.Tensor:
@@ -74,6 +82,47 @@ def rel_pos_resampled(rel_pos: torch.Tensor, q_size: int, k_size: int) -> torch.
         lo, hi, frac = resample
         rel_pos = rel_pos[lo] * (1 - frac) + rel_pos[hi] * frac
     return rel_pos[index]
+
+
+@functools.lru_cache(maxsize=None)
+def _rel_pos_tables_constants(tables: Tuple[int, int], q_hw: Tuple[int, int], kv_hw: Tuple[int, int],
+                              device: torch.device):
+    """``rel_pos_tables``' constants, copied to ``device`` once and kept for good, as
+    ``_rel_pos_constants``: the rows of the stacked (R_h; R_w) that each entry's low taps,
+    then its high taps, take (R_h's entries gathered at its (q_h, k_h) index, R_w's in
+    order; a table not resampled takes its own row twice), as int64, their weights
+    1 − frac and frac, flat, and R_w's (q_w, k_w) index as int32."""
+    with torch.inference_mode(False):
+        taps = []
+        for axis in (0, 1):
+            resample, rel = _rel_pos_coeffs(tables[axis], q_hw[axis], kv_hw[axis])
+            n = 2 * max(q_hw[axis], kv_hw[axis]) - 1
+            lo, hi, frac = resample if resample is not None else (np.arange(n), np.arange(n), np.zeros(n, np.float32))
+            entries = rel.reshape(-1) if axis == 0 else np.arange(n)
+            offset = axis * tables[0]
+            taps.append((lo[entries] + offset, hi[entries] + offset, frac[entries]))
+        rows = np.concatenate([taps[0][0], taps[1][0], taps[0][1], taps[1][1]])
+        frac = np.concatenate([taps[0][2], taps[1][2]])
+        weights = np.concatenate([np.float32(1) - frac, frac])
+        _, index_w = _rel_pos_coeffs(tables[1], q_hw[1], kv_hw[1])
+        return (torch.as_tensor(rows.astype(np.int64), device=device), torch.as_tensor(weights, device=device),
+                torch.as_tensor(index_w.astype(np.int32), device=device))
+
+
+def rel_pos_tables(rel_pos_h: torch.Tensor, rel_pos_w: torch.Tensor, q_hw: Tuple[int, int],
+                   kv_hw: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel H's position tables, both in one launch of ``kernels/rel_pos_attention.py``
+    ``rel_pos_tables``: R_h resampled and gathered → (q_h, k_h, hd) and R_w resampled →
+    (2·max(q_w, k_w) − 1, hd), both bf16, and R_w's (q_w, k_w) int32 index, which grows
+    with the query's position and falls with the key's.  For finite tables each value is
+    ``rel_pos_resampled``'s, cast, bit for bit: an entry's two taps times their weights,
+    each product rounded, then their sum (a table not resampled: its row times 1 plus its
+    row times 0)."""
+    rows, weights, index_w = _rel_pos_tables_constants((rel_pos_h.shape[0], rel_pos_w.shape[0]), tuple(q_hw),
+                                                       tuple(kv_hw), rel_pos_h.device)
+    both = rel_pos_kernel.rel_pos_tables(rel_pos_h.float(), rel_pos_w.float(), rows, weights)
+    n_h = q_hw[0] * kv_hw[0]
+    return both[:n_h].view(q_hw[0], kv_hw[0], -1), both[n_h:], index_w
 
 
 def scaled(x: torch.Tensor, scale: float) -> torch.Tensor:
@@ -90,24 +139,46 @@ def attention_core(
     rel_pos_h=None,
     rel_pos_w=None,
 ) -> torch.Tensor:  # (B·heads, q_h·q_w, hd), compute dtype
-    """The ViT and MViT attention: (q·scale)·kᵀ in the compute dtype, plus the
-    decomposed relative positions (tables resampled in fp32, then cast), the softmax in
-    fp32 rounded back, and ``· v`` summed in fp32 and rounded.  The whole core is one
-    ``rel_pos_attention`` span."""
+    """The ViT and MViT attention core, one ``rel_pos_attention`` span: Kernel H
+    (``kernels/rel_pos_attention.py``) where its ``takes`` says so, the position tables
+    made by ``rel_pos_tables`` (R_h gathered, R_w with its index), else the plain chain
+    ``rel_pos_attention_plain``."""
     with span(REL_POS_ATTENTION):
-        dt = q.dtype
-        attn = torch.matmul(scaled(q, q.shape[-1] ** -0.5), k.transpose(-1, -2))
-        if rel_pos_h is not None:
-            rh = rel_pos_resampled(rel_pos_h, q_hw[0], kv_hw[0]).to(dt)  # (q_h, k_h, hd)
-            rw = rel_pos_resampled(rel_pos_w, q_hw[1], kv_hw[1]).to(dt)
-            r_q = q.reshape(-1, q_hw[0], q_hw[1], q.shape[-1])
-            rel_h = torch.einsum("bhwc,hkc->bhwk", r_q, rh)
-            rel_w = torch.einsum("bhwc,wkc->bhwk", r_q, rw)
-            attn = attn.reshape(-1, q_hw[0], q_hw[1], kv_hw[0], kv_hw[1])
-            attn = (attn + rel_h[:, :, :, :, None]) + rel_w[:, :, :, None, :]
-            attn = attn.reshape(-1, q_hw[0] * q_hw[1], kv_hw[0] * kv_hw[1])
-        p = torch.softmax(attn.float(), dim=-1).to(dt)
-        return torch.matmul(p, v)
+        tables = rel_pos_h is not None
+        needs_grad = torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, rel_pos_h, rel_pos_w))
+        if rel_pos_kernel.takes(q.device, q.dtype, needs_grad, q.shape[-1], tables, q.shape[0], kv_hw):
+            rh, rw, rw_index = rel_pos_tables(rel_pos_h, rel_pos_w, q_hw, kv_hw)
+            k, v = (rel_pos_kernel.readable(t) for t in (k, v))
+            return rel_pos_kernel.rel_pos_attention(q, k, v, rh, rw, rw_index, q_hw, kv_hw)
+        return rel_pos_attention_plain(q, k, v, q_hw, kv_hw, rel_pos_h, rel_pos_w)
+
+
+def rel_pos_attention_plain(
+    q: torch.Tensor,  # (B·heads, q_h·q_w, hd), compute dtype
+    k: torch.Tensor,  # (B·heads, k_h·k_w, hd)
+    v: torch.Tensor,
+    q_hw: Tuple[int, int],
+    kv_hw: Tuple[int, int],
+    rel_pos_h=None,
+    rel_pos_w=None,
+) -> torch.Tensor:  # (B·heads, q_h·q_w, hd), compute dtype
+    """The core in plain PyTorch: (q·scale)·kᵀ in the compute dtype, plus the decomposed
+    relative positions (tables resampled in fp32, then cast), the softmax in fp32
+    rounded back, and ``· v`` summed in fp32 and rounded."""
+    dt = q.dtype
+    attn = torch.matmul(scaled(q, q.shape[-1] ** -0.5), k.transpose(-1, -2))
+    if rel_pos_h is not None:
+        rh = rel_pos_resampled(rel_pos_h, q_hw[0], kv_hw[0]).to(dt)  # (q_h, k_h, hd)
+        rw = rel_pos_resampled(rel_pos_w, q_hw[1], kv_hw[1]).to(dt)
+        r_q = q.reshape(-1, q_hw[0], q_hw[1], q.shape[-1])
+        rel_h = torch.einsum("bhwc,hkc->bhwk", r_q, rh)
+        rel_w = torch.einsum("bhwc,wkc->bhwk", r_q, rw)
+        attn = attn.reshape(-1, q_hw[0], q_hw[1], kv_hw[0], kv_hw[1])
+        attn = (attn + rel_h[:, :, :, :, None]) + rel_w[:, :, :, None, :]
+        attn = attn.reshape(-1, q_hw[0] * q_hw[1], kv_hw[0] * kv_hw[1])
+    p = torch.softmax(attn.float(), dim=-1).to(dt)
+    return torch.matmul(p, v)
 
 
 class ViTBlock(nn.Module):

@@ -165,7 +165,7 @@ def test_last_slice_entry_points_default_to_the_gpu(tmp_path):
 
 
 KERNEL_MODULES = ("window_attention", "fused_rba", "masked_softmax", "fused_mlp", "lsap", "ms_deform_attn",
-                  "sr_attention")
+                  "sr_attention", "rel_pos_attention")
 
 
 def test_kernels_decide_their_own_routes():

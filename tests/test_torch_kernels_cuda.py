@@ -17,9 +17,12 @@ from rba_tpu_torch.kernels import lsap as tls
 from rba_tpu_torch.kernels import masked_softmax as tms
 from rba_tpu_torch.kernels import ms_deform_attn as tmd
 from rba_tpu_torch.kernels import plain_versions
+from rba_tpu_torch.kernels import rel_pos_attention as trp
 from rba_tpu_torch.kernels import sr_attention as tsa
 from rba_tpu_torch.kernels import window_attention as twa
 from rba_tpu_torch.models import mix_transformer as tmit
+from rba_tpu_torch.models import mvit as tmvit
+from rba_tpu_torch.models import vit as tvit
 from rba_tpu_torch.models.swin import shifted_window_mask
 from rba_tpu_torch.ops import deform_sampling as tds
 from rba_tpu_torch.ops.lsap import batched_linear_sum_assignment as lsap_plain
@@ -382,3 +385,115 @@ def test_sr_attention_grad_takes_the_plain_path(cuda):
     with torch.no_grad():
         tmit.mit_apply(model, images)
     assert tsa.sr_attention.launches == before + sum(tmit.MIT_VARIANTS["mit_b0"].depths)
+
+
+# (calls, q_hw, kv_hw, head dim): every distinct MViTv2-B core of a 1024x2048 frame (calls =
+# windows x heads; chip_smoke.MVIT_B_CORES); ViTDet-B's 14x14 windows and its 64x128 global
+# call at head dim 64; a batch of 2 of MViTv2-B's stage-1 windows and of its block 4;
+# ragged shapes whose query and key counts are no multiples of the kernel's 64 rows and 64
+# keys, one with an odd kw and one with 3,600 keys
+REL_SHAPES = [(50, (56, 56), (14, 14), 96), (100, (28, 28), (28, 28), 96), (100, (28, 28), (14, 14), 96),
+              (2, (128, 256), (32, 64), 96), (200, (14, 14), (28, 28), 96), (200, (14, 14), (14, 14), 96),
+              (4, (64, 128), (32, 64), 96), (400, (7, 7), (14, 14), 96), (400, (7, 7), (7, 7), 96),
+              (8, (32, 64), (32, 64), 96),
+              (600, (14, 14), (14, 14), 64), (12, (64, 128), (64, 128), 64),
+              (100, (56, 56), (14, 14), 96), (4, (128, 256), (32, 64), 96),
+              (3, (5, 9), (3, 7), 96), (5, (17, 3), (4, 16), 64), (2, (12, 300), (12, 300), 96),
+              (7, (9, 11), (8, 16), 96)]
+REL_IDS = ["mvit_s1", "mvit_s2_28", "mvit_s2_14", "mvit_b4", "mvit_s3_28", "mvit_s3_14", "mvit_b20", "mvit_s4_14",
+           "mvit_s4_7", "mvit_b23", "vitdet_win", "vitdet_global", "mvit_s1_B2", "mvit_b4_B2", "kw7", "q51", "k3600",
+           "q99"]
+
+
+@pytest.mark.parametrize("shape", REL_SHAPES, ids=REL_IDS)
+def test_rel_pos_attention_kernel(cuda, shape):
+    """Kernel H, through ``vit.attention_core``'s route, against ``rel_pos_attention_plain``:
+    only the order of the fp32 sums differs, which moves a bf16 rounding now and then.  At
+    least 99 % of the outputs are bit-equal and none lies beyond 2 bf16 ulps of its row's
+    largest |value|.  Measured on an H100 80GB HBM3: every case within the gate; at
+    ``chip_smoke.rel_pos_attention_phase``'s inputs of the ten MViTv2-B shapes, bit-equal
+    99.944-99.995 %, the worst gap 1 ulp."""
+    import chip_smoke
+
+    calls, q_hw, kv_hw, hd = shape
+    gen = torch.Generator(device=cuda).manual_seed(calls + 7 * q_hw[1] + 13 * kv_hw[1] + hd)
+    q, k, v, rel_h, rel_w = chip_smoke.rel_pos_inputs(gen, calls, q_hw, kv_hw, hd)
+    before = trp.rel_pos_attention.launches
+    with torch.no_grad():
+        got = tvit.attention_core(q, k, v, q_hw, kv_hw, rel_h, rel_w)
+        torch.cuda.synchronize()
+        assert trp.rel_pos_attention.launches == before + 1 and got.shape == q.shape and got.dtype == torch.bfloat16
+        want = tvit.rel_pos_attention_plain(q, k, v, q_hw, kv_hw, rel_h, rel_w)
+    share, ulps = chip_smoke.sr_attention_gap(got, want)
+    assert share >= chip_smoke.SR_BIT_EQUAL_SHARE and ulps <= chip_smoke.SR_MAX_ULPS, (share, ulps)
+
+
+def test_rel_pos_attention_kernel_reads_strided_rows(cuda):
+    """The kernel gives on views the result it gives on copies: q, k and v as views of one
+    (calls, tokens, 3 hd) tensor, as a split qkv leaves them (rows read by strides);
+    channel-major, as MViT's pooling leaves its global blocks' q, k and v (q read by its
+    strides one value at a time, k and v copied for it); and q starting 2 bytes past a
+    32-bit word."""
+    import chip_smoke
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q_hw = kv_hw = (32, 64)
+    qkv = torch.randn(8, 2048, 3 * 96, generator=gen, device=cuda).bfloat16()
+    split = qkv.split(96, dim=-1)
+    channel_major = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in split]
+    shifted = [qkv[..., 1:97], *split[1:]]
+    _, _, _, rel_h, rel_w = chip_smoke.rel_pos_inputs(gen, 1, q_hw, kv_hw, 96)
+    for q, k, v in (split, channel_major, shifted):
+        with torch.no_grad():
+            got = tvit.attention_core(q, k, v, q_hw, kv_hw, rel_h, rel_w)
+            want = tvit.attention_core(q.contiguous(), k.contiguous(), v.contiguous(), q_hw, kv_hw, rel_h, rel_w)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q,k,extra", [(56, 14, 0), (28, 28, 0), (14, 28, 0), (7, 7, 0), (128, 32, 0), (64, 128, 0),
+                                       (14, 14, 4), (3, 5, 2)])
+def test_rel_pos_tables_kernel_is_the_chains(cuda, q, k, extra, dtype):
+    """The tables kernel, in one launch, gives ``rel_pos_resampled``'s tables cast to bf16
+    bit for bit, from parameters in ``dtype``, resampled (``extra`` entries beyond the
+    call's) or not."""
+    q_hw, kv_hw = (q, k), (k, q)
+    gen = torch.Generator(device=cuda).manual_seed(q + 3 * k + extra)
+    rel_h, rel_w = (0.1 * torch.randn(2 * max(q, k) - 1 + extra, 96, generator=gen, device=cuda) for _ in range(2))
+    rel_h, rel_w = rel_h.to(dtype), rel_w.to(dtype)
+    before = trp.rel_pos_tables.launches
+    with torch.no_grad():
+        rh, rw, index = tvit.rel_pos_tables(rel_h, rel_w, q_hw, kv_hw)
+    assert trp.rel_pos_tables.launches == before + 1
+    assert torch.equal(rh, tvit.rel_pos_resampled(rel_h, q, k).to(torch.bfloat16))
+    assert torch.equal(rw[index.long()], tvit.rel_pos_resampled(rel_w, k, q).to(torch.bfloat16))
+
+
+def test_rel_pos_attention_grad_takes_the_plain_path(cuda):
+    """MViTv2-B on the card at bf16: under autograd every attention core takes the plain
+    chain (no launch; the output equals ``plain_versions()``'s), without it one launch a
+    block; the wrapper itself refuses a gradient before any launch."""
+    torch.manual_seed(0)
+    model = tmvit.MViT(tmvit.MViTConfig()).to(cuda)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(std=0.02)
+    images = torch.randn(1, 64, 96, 3, device=cuda)
+    before = trp.rel_pos_attention.launches
+    got = tmvit.mvit_apply(model, images.requires_grad_())
+    assert trp.rel_pos_attention.launches == before
+    with plain_versions():
+        want = tmvit.mvit_apply(model, images)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    got["scale5"].float().sum().backward()
+    assert images.grad is not None
+    with torch.no_grad():
+        tmvit.mvit_apply(model, images)
+    assert trp.rel_pos_attention.launches == before + len(model.blocks)
+    q_hw = kv_hw = (2, 3)
+    q = torch.randn(2, 6, 96, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    rh, rw, index = tvit.rel_pos_tables(torch.zeros(3, 96, device=cuda), torch.zeros(5, 96, device=cuda), q_hw,
+                                        kv_hw)
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        trp.rel_pos_attention(q, q.detach(), q.detach(), rh, rw, index, q_hw, kv_hw)
+    assert trp.rel_pos_attention.launches == before + len(model.blocks)

@@ -15,6 +15,7 @@ import pytest
 import torch
 from torch import nn
 
+from rba_tpu_torch.kernels import rel_pos_attention as trp
 from rba_tpu_torch.models import cuda_graphs
 from rba_tpu_torch.models import mvit as tmvit
 from rba_tpu_torch.utils import profiling as tprof
@@ -134,3 +135,51 @@ def test_nothing_is_captured_under_autograd(cuda):
         tmvit.mvit_apply(model, x)
     assert (cuda_graphs.spanwise.captures, cuda_graphs.spanwise.replays) == (captures, replays)
     assert model not in cuda_graphs._CACHE
+
+
+def test_kernel_h_takes_every_core_and_replays_launch_nothing(cuda, monkeypatch):
+    """At 1024x2048 Kernel H and its tables kernel take each block's core: 24 launches of
+    each an eager image and 24 at the capture, and the replays, 97 graphs a call, add no
+    eager launch and stay bit-equal to the eager forward."""
+    model = _model(cuda)
+    x = _images((1, 1024, 2048), cuda, 7)
+    launches, tables = [], []
+    with torch.inference_mode():
+        before, before_tables = trp.rel_pos_attention.launches, trp.rel_pos_tables.launches
+        want = _eager(model, x, monkeypatch)
+        launches.append(trp.rel_pos_attention.launches - before)
+        tables.append(trp.rel_pos_tables.launches - before_tables)
+        replays = cuda_graphs.spanwise.replays
+        for _ in range(4):  # eager, capture, replay, replay
+            before, before_tables = trp.rel_pos_attention.launches, trp.rel_pos_tables.launches
+            got = tmvit.mvit_apply(model, x)
+            launches.append(trp.rel_pos_attention.launches - before)
+            tables.append(trp.rel_pos_tables.launches - before_tables)
+            assert _equal(got, want)
+    assert launches == tables == [BLOCKS, BLOCKS, BLOCKS, 0, 0]
+    assert cuda_graphs.spanwise.replays == replays + 3 * GRAPHS
+
+
+def test_each_rel_pos_span_holds_kernel_h_on_the_device(cuda, tmp_path):
+    """In a profiled replay of a 1024x2048 request, each of the 24 ``rel_pos_attention``
+    device spans holds one Kernel H launch and one of its tables kernel, and no other span
+    holds one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = _model(cuda)
+    x = _images((1, 1024, 2048), cuda, 8)
+    with torch.inference_mode():
+        for _ in range(2):
+            tmvit.mvit_apply(model, x)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tmvit.mvit_apply(model, x)
+            torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    spans = [e for e in events if e.get("cat") == "gpu_user_annotation" and e["name"] == tprof.REL_POS_ATTENTION]
+    for symbol in ("rel_pos_attention_kernel", "rel_pos_tables_kernel"):
+        kernels = [e for e in events if e.get("cat") == "kernel" and symbol in e["name"]]
+        assert len(spans) == len(kernels) == BLOCKS, symbol
+        inside = [sum(sp["ts"] <= k["ts"] < sp["ts"] + sp["dur"] for k in kernels) for sp in spans]
+        assert inside == [1] * BLOCKS, symbol

@@ -17,7 +17,8 @@ import torch
 from rba_tpu_torch.config import tiny_test_config
 from rba_tpu_torch.evalx.seg_evaluators import OpenPanopticEvaluator
 from rba_tpu_torch.kernels import _build, plain_versions
-from rba_tpu_torch.kernels import fused_mlp, fused_rba, lsap, masked_softmax, ms_deform_attn, sr_attention
+from rba_tpu_torch.kernels import fused_mlp, fused_rba, lsap, masked_softmax, ms_deform_attn, rel_pos_attention
+from rba_tpu_torch.kernels import sr_attention
 from rba_tpu_torch.kernels import window_attention
 from rba_tpu_torch.models import maskformer as tmf
 from rba_tpu_torch.ops.point_sample import uniform_from
@@ -26,7 +27,7 @@ from rba_tpu_torch.train import matcher as tm
 CUDA = torch.device("cuda")
 ON_CARD = types.SimpleNamespace(device=CUDA)  # what a rule of A–E reads of its tensor
 TENSOR_RULES = {"A": window_attention, "B": fused_rba, "C": masked_softmax, "D": fused_mlp, "E": lsap}
-DEVICE_RULES = {"F": ms_deform_attn, "G": sr_attention}  # rules handed the device first
+DEVICE_RULES = {"F": ms_deform_attn, "G": sr_attention, "H": rel_pos_attention}  # rules handed the device first
 
 
 def _answers():
@@ -34,11 +35,12 @@ def _answers():
     out = {k: mod.takes(ON_CARD) for k, mod in TENSOR_RULES.items()}
     out["F"] = ms_deform_attn.takes(CUDA, False, ("gather",), "float32", (1, 16, 1, 32), (1, 16, 1, 1, 4, 2))
     out["G"] = sr_attention.takes(CUDA, torch.bfloat16, False, 64)
+    out["H"] = rel_pos_attention.takes(CUDA, torch.bfloat16, False, 96)
     return out
 
 
 def test_switch_nests_and_restores():
-    yes, no = dict.fromkeys("ABCDEFG", True), dict.fromkeys("ABCDEFG", False)
+    yes, no = dict.fromkeys("ABCDEFGH", True), dict.fromkeys("ABCDEFGH", False)
     assert _answers() == yes
     with plain_versions():
         assert _answers() == no
